@@ -1,0 +1,111 @@
+"""Typed UC2 configuration (own copy of clg_vqa_tpu/config.py:30-133).
+
+UC2 is the only model of this slice. The VOLTA JSON config
+(volta/config/uc2_base.json) describes 24 gated sublayers; CLG-VQA only
+uses the wiring in which they collapse to a 12-block joint-sequence
+post-LN transformer, and ``from_json`` rejects any other wiring.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Mapping
+
+
+@dataclasses.dataclass(frozen=True)
+class UC2Config:
+    """UC2 encoder config (collapsed joint-sequence transformer).
+
+    Field semantics follow volta/config/uc2_base.json and
+    volta/volta/config.py:218-413."""
+
+    vocab_size: int = 250002
+    hidden_size: int = 768
+    num_layers: int = 12            # 24 interleaved sublayers -> 12 attn+ff blocks
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 2
+    pad_token_id: int = 1
+    layer_norm_eps: float = 1e-5
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    # vision side
+    v_feature_size: int = 2048
+    num_locs: int = 7
+    add_global_imgfeat: str | None = None
+    # head
+    pooler_size: int = 768
+    clf_hidden_size: int = 768
+    fusion_method: str = "text"
+    fusion_act: str = "relu"        # pooler activation: relu|tanh (encoders.py:602)
+    # task
+    num_labels: int = 1842
+    clf_dropout_prob: float = 0.1   # BertForVLTasks dropout (encoders.py:1158)
+
+    @classmethod
+    def from_json(cls, path: str, num_labels: int = 1842) -> "UC2Config":
+        """Ingest a VOLTA-style model JSON (e.g. uc2_base.json), validating
+        that the sublayer wiring collapses to the joint transformer."""
+        with open(path) as f:
+            d = json.load(f)
+        _validate_collapsed_wiring(d)
+        n_sub = len(d["tt_attn_sublayers"]) + len(d["t_ff_sublayers"])
+        return cls(
+            vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            num_layers=n_sub // 2,
+            num_heads=d["num_attention_heads"],
+            intermediate_size=d["intermediate_size"],
+            max_position_embeddings=d["max_position_embeddings"],
+            type_vocab_size=d["type_vocab_size"],
+            pad_token_id=d["pad_token_id"],
+            layer_norm_eps=d["layer_norm_eps"],
+            hidden_dropout_prob=d["hidden_dropout_prob"],
+            attention_probs_dropout_prob=d["attention_probs_dropout_prob"],
+            initializer_range=d["initializer_range"],
+            v_feature_size=d["v_feature_size"],
+            num_locs=d["num_locs"],
+            add_global_imgfeat=d.get("add_global_imgfeat"),
+            pooler_size=d["pooler_size"],
+            clf_hidden_size=d["clf_hidden_size"],
+            fusion_method=d["fusion_method"],
+            fusion_act=d.get("fusion_act", "relu"),
+            num_labels=num_labels,
+        )
+
+
+def _validate_collapsed_wiring(d: Mapping[str, Any]) -> None:
+    """Reject a VOLTA JSON config that is not the all-shared single-LN joint
+    pattern of uc2_base.json: attn sublayers = evens, ff = odds, everything
+    shared, single-LN everywhere, no per-sublayer size overrides."""
+    attn = d["tt_attn_sublayers"]
+    ff = d["t_ff_sublayers"]
+    n = len(attn) + len(ff)
+    evens, odds = list(range(0, n, 2)), list(range(1, n, 2))
+    checks = {
+        "tt_attn_sublayers": evens,
+        "tv_attn_sublayers": evens,
+        "vt_attn_sublayers": evens,
+        "vv_attn_sublayers": evens,
+        "t_ff_sublayers": odds,
+        "v_ff_sublayers": odds,
+        "shared_sublayers": list(range(n)),
+        "single_ln_sublayers": list(range(n)),
+    }
+    for key, want in checks.items():
+        if sorted(d[key]) != want:
+            raise ValueError(
+                f"Config does not collapse to a joint-sequence transformer: "
+                f"{key}={d[key]} (expected {want}). Only the UC2 wiring of "
+                f"uc2_base.json is supported.")
+    for key in (
+        "sublayer2attn_hidden_size", "sublayer2num_attention_heads",
+        "sublayer2intermediate_size", "sublayer2v_attn_hidden_size",
+        "sublayer2v_num_attention_heads", "sublayer2v_intermediate_size",
+    ):
+        if d.get(key):
+            raise ValueError(f"Per-sublayer size overrides unsupported: {key}={d[key]}")
+    if d["hidden_size"] != d["v_hidden_size"]:
+        raise ValueError("hidden_size != v_hidden_size cannot collapse")

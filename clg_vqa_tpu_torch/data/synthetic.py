@@ -1,0 +1,74 @@
+"""Synthetic full-scale eval data: the recipe of the JAX package's eval bench
+(tools/bench_eval.py:52-77) — a CFS store of random [36, 2048] region
+features and questions made of 4-11 random words, all from one seed. No
+pretrained weights or real images are needed to drive the eval path at its
+real shapes."""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from .cfs import CfsReader, CfsWriter
+from .device_bank import DeviceFeatureBank
+from .features import RegionRecord
+from .gqa import Entry, GQADataset
+from .tokenizer import HashTokenizer
+
+REGIONS, NUM_LOCS, MAX_SEQ = 36, 7, 40
+
+
+def write_store(path: str, r: np.random.RandomState, *, n_images: int = 400,
+                regions: int = 36, feat_dim: int = 2048) -> None:
+    """Images "0".."n_images-1", each with ``regions`` boxes in a 640x480
+    frame and normal random features."""
+    with CfsWriter(path) as w:
+        for i in range(n_images):
+            w.add(RegionRecord(
+                image_id=str(i),
+                features=r.randn(regions, feat_dim).astype(np.float32),
+                boxes=(r.rand(regions, 4) * 300
+                       + np.array([0, 0, 50, 50])).astype(np.float32),
+                img_w=640.0, img_h=480.0))
+
+
+def make_entries(r: np.random.RandomState, n: int, *, n_images: int = 400,
+                 num_labels: int = 1842) -> list[Entry]:
+    """``n`` labelled questions over the store's images."""
+    words = [f"word{i}" for i in range(3000)]
+    return [Entry(question_id=i, image_id=str(r.randint(n_images)),
+                  question=" ".join(r.choice(words, r.randint(4, 12))),
+                  labels=[int(r.randint(num_labels))], scores=[1.0])
+            for i in range(n)]
+
+
+@dataclass
+class EvalWorld:
+    reader: CfsReader
+    entries: list[Entry]
+    tokenizer: HashTokenizer
+    dataset: GQADataset
+    label2ans: list[str]
+    bank: DeviceFeatureBank
+
+
+def eval_world(directory: str, n_qa: int, *, num_labels: int = 1842,
+               vocab_size: int = 250002, n_images: int = 400,
+               device=None) -> EvalWorld:
+    """Everything a full-scale eval needs besides the model, from seed 0:
+    the store (written to ``directory``), ``n_qa`` questions over it, the
+    dataset, answer names "a0".. and the feature bank on ``device``."""
+    r = np.random.RandomState(0)
+    path = os.path.join(directory, "feats.cfs")
+    write_store(path, r, n_images=n_images, regions=REGIONS)
+    reader = CfsReader(path)
+    entries = make_entries(r, n_qa, n_images=n_images, num_labels=num_labels)
+    tok = HashTokenizer(vocab_size)
+    ds = GQADataset(entries, reader, tok, max_seq_length=MAX_SEQ,
+                    max_region_num=REGIONS, num_locs=NUM_LOCS,
+                    num_labels=num_labels)
+    bank = DeviceFeatureBank(reader, max_regions=REGIONS, num_locs=NUM_LOCS,
+                             device=device)
+    return EvalWorld(reader, entries, tok, ds,
+                     [f"a{i}" for i in range(num_labels)], bank)

@@ -1,0 +1,129 @@
+"""Zero-shot evaluation runner (port of clg_vqa_tpu/eval/runner.py:19-53,
+101-183) — the reference's eval_task.py flow (eval_task.py:96-213 +
+task_utils.py:716-841, VL-classifier-GQA branch): batched forward, argmax
+over the answer space, ``{split}_result.json`` records
+{"questionId", "prediction"}.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from typing import Callable
+
+import torch
+
+from ..data.device_bank import DeviceFeatureBank
+from ..models.layers import check_fused
+
+
+def make_predict_step(model, *, device_bank=None,
+                      compute_dtype=torch.bfloat16,
+                      fused_attn=False) -> Callable:
+    """batch (dict of tensors on the model's device) -> argmax predictions.
+
+    With a device bank the batch carries ``store_idx`` and the features are
+    gathered on the device. fused_attn="flat" routes attention through the
+    flat eval kernel (ops/attention.fused_attention_flat)."""
+    check_fused(fused_attn)
+    bank = device_bank.tensors() if device_bank is not None else None
+
+    @torch.inference_mode()
+    def step(batch: dict) -> torch.Tensor:
+        if bank is not None:
+            batch = dict(batch)
+            f, l, m = DeviceFeatureBank.gather_from(bank, batch.pop("store_idx"))
+            batch.update({"features": f, "locs": l, "image_mask": m})
+        logits = model(batch, deterministic=True, compute_dtype=compute_dtype,
+                       fused_attn=fused_attn)
+        return torch.argmax(logits, dim=-1)
+
+    return step
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start copying ``t`` to the host; returns (host tensor, event to wait
+    on or None). On CUDA the copy lands in pinned memory behind an event, so
+    waiting for one batch's predictions does not wait for later batches."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def run_eval(model, dataset, label2ans: list, *,
+             batch_size: int = 256, compute_dtype=torch.bfloat16,
+             out_path: str | None = None, device_bank=None, depth: int = 2,
+             step: Callable | None = None, fused_attn=None) -> dict:
+    """Returns {"results": [...], "n": int, "qa_per_sec": float,
+    "accuracy": float | None (if the dataset has labels), "out_path"}.
+
+    Runs on the model's device. device_bank: optional
+    data.device_bank.DeviceFeatureBank — batches then carry store indices
+    and the features are gathered on the device. step: optional prebuilt
+    :func:`make_predict_step` result. fused_attn: None = auto, the JAX
+    package's rule — the flat kernel for bf16 at batch >= 512 on the card,
+    the plain path otherwise (incl. fp32 parity mode).
+
+    Up to ``depth`` batches stay in flight: kernel launches are
+    asynchronous, so host batch assembly overlaps device work and only the
+    oldest batch's prediction fetch blocks."""
+    device = model.device
+    if step is None:
+        if fused_attn is None:
+            fused_attn = ("flat" if (compute_dtype == torch.bfloat16
+                                     and batch_size >= 512
+                                     and device.type == "cuda") else False)
+        step = make_predict_step(model, device_bank=device_bank,
+                                 compute_dtype=compute_dtype,
+                                 fused_attn=fused_attn)
+
+    results = []
+    n_total = n_correct = n_labeled = 0
+
+    def consume(host_qids, valid, has_label, labels, preds_host, ev):
+        nonlocal n_total, n_correct, n_labeled
+        if ev is not None:
+            ev.synchronize()
+        preds = preds_host.numpy()
+        keep = valid != 0
+        lab = (has_label != 0) & keep
+        n_total += int(keep.sum())
+        n_labeled += int(lab.sum())
+        n_correct += int((labels[lab] == preds[lab]).sum())
+        results.extend(
+            {"questionId": str(q), "prediction": label2ans[int(p)]}
+            for q, p in zip(host_qids[keep], preds[keep]))
+
+    t0 = time.time()
+    inflight: deque = deque()
+    for batch in dataset.iter_batches(batch_size,
+                                      with_features=device_bank is None):
+        host_qids = batch.pop("question_id")
+        valid = batch.pop("valid")
+        has_label = batch.pop("has_label")
+        labels = batch.pop("labels")
+        preds = step({k: torch.from_numpy(v).to(device, non_blocking=True)
+                      for k, v in batch.items()})
+        inflight.append((host_qids, valid, has_label, labels,
+                         *_to_host_async(preds)))
+        if len(inflight) > depth:
+            consume(*inflight.popleft())
+    while inflight:
+        consume(*inflight.popleft())
+    dt = time.time() - t0
+
+    if out_path:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    return {
+        "results": results, "n": n_total,
+        "qa_per_sec": n_total / dt if dt > 0 else float("inf"),
+        "accuracy": (n_correct / n_labeled) if n_labeled else None,
+        "out_path": out_path,
+    }

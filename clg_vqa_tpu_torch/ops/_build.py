@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so`` at the
+root of the checkout, then loaded with ``ctypes``. The hash covers the
+source and the compiler flags, so an edited source is rebuilt on its next
+use and nothing stale is ever loaded. Importing this module builds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def so_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names) -> dict[str, tuple[float, str]]:
+    """Compile every named kernel whose library is missing, one ``nvcc`` per
+    source, all started together. Returns {name: (seconds, ptxas log)} for
+    the kernels it compiled; raises with the compiler output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = so_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
+        done[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return done
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library for ``csrc/<name>.cu``, built on first use."""
+    build([name])
+    return ctypes.CDLL(str(so_path(name)))

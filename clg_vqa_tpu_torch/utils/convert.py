@@ -1,0 +1,192 @@
+"""Checkpoint ingest and export for the port's UC2 (the UC2 half of
+clg_vqa_tpu/utils/convert.py:26-127, 153-215).
+
+Three weight formats meet here, all as plain numpy mappings:
+- VOLTA state dicts (the reference's torch names, Linear weights [out, in]);
+  the port's own parameters are also [out, in], so VOLTA <-> port is a
+  renaming. VOLTA stores shared text/vision weights under plain and ``v_``
+  names; import reads the plain names and checks the aliases, export
+  writes both.
+- The JAX package's params pytree (Linear weights [in, out], per-layer
+  leaves stacked on a leading [L] axis): :func:`from_jax_params`.
+- The port's own ``state_dict`` names.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..config import UC2Config
+from ..models.uc2 import UC2
+
+
+def normalize_volta_keys(sd: Mapping[str, np.ndarray], *, from_hf: bool = False,
+                         layer2attn: Mapping[str, int] | None = None,
+                         layer2ff: Mapping[str, int] | None = None,
+                         ) -> dict[str, np.ndarray]:
+    """The key remapping of the reference's ``from_pretrained``
+    (volta/volta/utils.py:455-518): DDP ``module.`` prefix, gamma/beta ->
+    weight/bias, HF layer -> VOLTA sublayer renumbering, roberta -> bert."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        nk = k
+        if nk.startswith("module."):
+            nk = nk[len("module."):]
+        nk = nk.replace("gamma", "weight").replace("beta", "bias")
+        if from_hf and ".layer." in nk:
+            num = nk.split(".layer.")[-1].split(".")[0]
+            if ".attention." in nk and layer2attn:
+                nk = nk.replace(f".layer.{num}.attention.",
+                                f".layer.{layer2attn[num]}.attention_")
+            elif ".intermediate." in nk and layer2ff:
+                nk = nk.replace(f".layer.{num}.intermediate.",
+                                f".layer.{layer2ff[num]}.intermediate.")
+            elif ".output." in nk and layer2ff:
+                nk = nk.replace(f".layer.{num}.output.",
+                                f".layer.{layer2ff[num]}.output.")
+        nk = nk.replace("roberta", "bert")
+        nk = nk.replace("lm_head.dense", "cls.predictions.transform.dense")
+        nk = nk.replace("lm_head.layer_norm", "cls.predictions.transform.LayerNorm")
+        out[nk] = np.asarray(v)
+    return out
+
+
+def _volta_names(num_layers: int, task_key: str
+                 ) -> list[tuple[str, str, tuple[str, ...]]]:
+    """(port key, VOLTA key, VOLTA alias keys) for every UC2 parameter."""
+    rows: list[tuple[str, str, tuple[str, ...]]] = []
+
+    def pair(port, volta, aliases=()):
+        for suffix in ("weight", "bias"):
+            rows.append((f"{port}.{suffix}", f"{volta}.{suffix}",
+                         tuple(f"{a}.{suffix}" for a in aliases)))
+
+    emb = "bert.embeddings"
+    rows += [("embeddings.word", f"{emb}.word_embeddings.weight", ()),
+             ("embeddings.position", f"{emb}.position_embeddings.weight", ()),
+             ("embeddings.token_type",
+              f"{emb}.new_token_type_embeddings.weight", ())]
+    for port, volta in (("ln", "LayerNorm"), ("image", "image_embeddings"),
+                        ("loc", "image_location_embeddings"),
+                        ("image_ln", "image_layer_norm"),
+                        ("loc_ln", "image_location_layer_norm"),
+                        ("v_ln", "v_LayerNorm")):
+        pair(f"embeddings.{port}", f"{emb}.{volta}")
+    lyr = "bert.encoder.layer"
+    for b in range(num_layers):
+        a, f = f"{lyr}.{2 * b}", f"{lyr}.{2 * b + 1}"
+        for port, name in (("q", "query"), ("k", "key"), ("v", "value")):
+            pair(f"encoder.{b}.attn.{port}", f"{a}.attention_self.{name}",
+                 (f"{a}.attention_self.v_{name}",))
+        pair(f"encoder.{b}.attn.o", f"{a}.attention_output.dense",
+             (f"{a}.attention_output.v_dense",))
+        pair(f"encoder.{b}.ln1", f"{a}.attention_output.LayerNorm")
+        pair(f"encoder.{b}.ffn.w1", f"{f}.intermediate.dense",
+             (f"{f}.intermediate.v_dense",))
+        pair(f"encoder.{b}.ffn.w2", f"{f}.output.dense", (f"{f}.output.v_dense",))
+        pair(f"encoder.{b}.ln2", f"{f}.output.LayerNorm")
+    pair("pooler", "bert.t_pooler.dense")
+    clf = f"clfs_dict.{task_key}.logit_fc"
+    pair("classifier.fc1", f"{clf}.0")
+    pair("classifier.ln", f"{clf}.2")
+    pair("classifier.fc2", f"{clf}.3")
+    return rows
+
+
+def volta_uc2_to_state_dict(sd: Mapping[str, np.ndarray], cfg: UC2Config,
+                            task_key: str = "TASK15") -> dict[str, np.ndarray]:
+    """A (normalized) VOLTA UC2 state dict -> the port's state-dict names.
+
+    The classifier is optional (a pretrained body has none). Shared-weight
+    ``v_`` aliases, where present, must equal the plain tensors."""
+    out = {}
+    for port, volta, aliases in _volta_names(cfg.num_layers, task_key):
+        if volta not in sd:
+            if port.startswith("classifier."):
+                continue
+            raise KeyError(f"missing {volta} in the VOLTA state dict")
+        for al in aliases:
+            if al in sd and not np.array_equal(sd[al], sd[volta]):
+                raise ValueError(f"unshared {al} in a supposedly shared checkpoint")
+        out[port] = np.asarray(sd[volta], np.float32)
+    return out
+
+
+def state_dict_to_volta_uc2(model: UC2, task_key: str = "TASK15"
+                            ) -> dict[str, np.ndarray]:
+    """Export for the reference stack, ``v_`` aliases included
+    (clg_vqa_tpu/utils/convert.py:pytree_to_volta_uc2)."""
+    own = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    sd = {}
+    for port, volta, aliases in _volta_names(model.cfg.num_layers, task_key):
+        for name in (volta, *aliases):
+            sd[name] = own[port]
+    return sd
+
+
+def jax_params_to_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's UC2 params pytree (numpy leaves) -> the port's
+    state-dict names: [in, out] Linear weights become [out, in], the
+    stacked [L, ...] encoder leaves become one entry per block."""
+    out: dict[str, np.ndarray] = {}
+
+    def leaf_name(path: tuple[str, ...]) -> str:
+        *mods, leaf = path
+        name = {"w": "weight", "b": "bias", "scale": "weight",
+                "bias": "bias"}.get(leaf, leaf)
+        return ".".join([*mods, name])
+
+    def walk(tree, path):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        arr = np.asarray(tree, np.float32)
+        if path[0] == "encoder":
+            for b in range(arr.shape[0]):
+                put(("encoder", str(b)) + path[1:], arr[b])
+        else:
+            put(path, arr)
+
+    def put(path, arr):
+        out[leaf_name(path)] = np.ascontiguousarray(
+            arr.T if path[-1] == "w" else arr)
+
+    walk(params, ())
+    return out
+
+
+@torch.no_grad()
+def load_numpy_state(model: UC2, sd: Mapping[str, np.ndarray], *,
+                     allow_missing: tuple[str, ...] = ()) -> UC2:
+    """Copy numpy arrays into the model's parameters by state-dict name.
+    Every parameter must be given unless its name starts with one of
+    ``allow_missing``; unknown names and shape mismatches raise."""
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    missing = sorted(k for k in set(own) - set(sd)
+                     if not k.startswith(allow_missing))
+    if unknown or missing:
+        raise KeyError(f"unknown {unknown[:5]}, missing {missing[:5]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: shape {v.shape} != {tuple(own[k].shape)}")
+        own[k].copy_(torch.from_numpy(np.array(v)))   # copy: v may be read-only
+    return model
+
+
+def from_jax_params(params: Mapping, cfg: UC2Config, *, device=None) -> UC2:
+    """A port UC2 carrying the weights of a JAX UC2 params pytree."""
+    return load_numpy_state(UC2(cfg, device=device),
+                            jax_params_to_state_dict(params))
+
+
+def from_volta(sd: Mapping[str, np.ndarray], cfg: UC2Config, *, device=None,
+               task_key: str = "TASK15") -> UC2:
+    """A port UC2 from a VOLTA state dict (run :func:`normalize_volta_keys`
+    first on raw checkpoints); a missing classifier keeps its fresh init."""
+    return load_numpy_state(UC2(cfg, device=device),
+                            volta_uc2_to_state_dict(sd, cfg, task_key),
+                            allow_missing=("classifier.",))
