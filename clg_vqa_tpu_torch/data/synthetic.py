@@ -1,8 +1,9 @@
-"""Synthetic full-scale eval data: the recipe of the JAX package's eval bench
+"""Synthetic full-scale data: the recipe of the JAX package's eval bench
 (tools/bench_eval.py:52-77) — a CFS store of random [36, 2048] region
-features and questions made of 4-11 random words, all from one seed. No
-pretrained weights or real images are needed to drive the eval path at its
-real shapes."""
+features and questions made of 4-11 random words, all from one seed — and
+training questions in the envelope of its train bench (bench.py:80-92) over
+the same store. No pretrained weights or real images are needed to drive
+the eval and training paths at their real shapes."""
 from __future__ import annotations
 
 import os
@@ -72,3 +73,22 @@ def eval_world(directory: str, n_qa: int, *, num_labels: int = 1842,
                              device=device)
     return EvalWorld(reader, entries, tok, ds,
                      [f"a{i}" for i in range(num_labels)], bank)
+
+
+def train_dataset(world: EvalWorld, n_qa: int, *, seed: int = 1) -> GQADataset:
+    """``n_qa`` training questions over ``world``'s store in bench.py:80-92's
+    envelope: every question fills all 40 token slots (38 random words
+    between bos and eos, so the text mask is all ones), each image has all
+    36 regions (the image mask is all ones), and labels are uniform over the
+    answer space."""
+    r = np.random.RandomState(seed)
+    n_images = world.reader.n_records
+    num_labels = len(world.label2ans)
+    entries = [Entry(question_id=i, image_id=str(r.randint(n_images)),
+                     question=" ".join(f"w{j}" for j in
+                                       r.randint(100000, size=MAX_SEQ - 2)),
+                     labels=[int(r.randint(num_labels))], scores=[1.0])
+               for i in range(n_qa)]
+    return GQADataset(entries, world.reader, world.tokenizer,
+                      max_seq_length=MAX_SEQ, max_region_num=REGIONS,
+                      num_locs=NUM_LOCS, num_labels=num_labels)

@@ -5,11 +5,15 @@ JAX package (and through it from the reference):
 - LayerNorm: TF-style, eps inside the sqrt, computed in fp32 (:25-33).
 - GeLU: exact erf form (:36-38).
 - ``linear`` with a compute dtype: low-precision operands, fp32
-  accumulation, fp32 bias added to the fp32 accumulator, ONE cast (:41-55).
+  accumulation, fp32 bias added to the fp32 accumulator, ONE cast (:41-55);
+  its backward is the JAX VJP of that function (:class:`_LowPrecisionLinear`).
 - Masks: additive ``(1 - m) * -10000`` (:127-130), RoBERTa position ids
   (:119-124).
 - Unfused attention: QK^T post-scaled in fp32, fp32 softmax, probs cast to
-  the compute dtype before P.V (``softmax_lowp``'s forward value, :61-92).
+  the compute dtype before P.V, and the backward reads those low-precision
+  probs (``softmax_lowp``, :61-92).
+- Dropout: u8 threshold ``t = round((1-p)*256)``, rescale 256/t in the
+  input's dtype (:95-116), bits from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import fused_attention_flat
+from ..ops.attention import fused_attention_flat, fused_attention_train_flat
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -48,16 +52,121 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+class _LowPrecisionLinear(torch.autograd.Function):
+    """x2 [N, in] @ weight.T + bias with low-precision operands, and the JAX
+    VJP of clg_vqa_tpu/models/layers.py:linear as its backward:
+    the cotangent g (already in the compute dtype) is taken as fp32;
+    db = sum of g in fp32; dW = g^T x in fp32, rounded to the compute dtype
+    once (the transpose of the weight cast) and returned as fp32 to the fp32
+    master weight; dx = g W in fp32, cast to the compute dtype, then to
+    x2's dtype. ``torch.mm(..., out_dtype=fp32)`` has no autograd formula,
+    so the products run here, outside autograd."""
+
+    @staticmethod
+    def forward(ctx, x2, weight, bias, compute_dtype):
+        xc, wc = x2.to(compute_dtype), weight.to(compute_dtype)
+        ctx.save_for_backward(xc, wc)
+        ctx.dtypes = (x2.dtype, weight.dtype, bias.dtype, compute_dtype)
+        return (matmul_f32(xc, wc.t()) + bias).to(compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        x_dtype, w_dtype, b_dtype, cd = ctx.dtypes
+        g = g.to(cd)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul_f32(g, wc).to(cd).to(x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = matmul_f32(g.t(), xc).to(cd).to(w_dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(0).to(b_dtype)
+        return dx, dw, db, None
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x @ weight.T + bias. With a compute dtype: operands in that dtype,
     fp32 accumulation, the fp32 bias added to the fp32 accumulator, and the
-    result cast to the compute dtype once (clg_vqa_tpu/models/layers.py:41-55)."""
+    result cast to the compute dtype once (clg_vqa_tpu/models/layers.py:41-55),
+    differentiated as :class:`_LowPrecisionLinear` says."""
     if compute_dtype is None:
         return torch.nn.functional.linear(x, weight, bias)
-    x2 = x.reshape(-1, x.shape[-1]).to(compute_dtype)
-    y = matmul_f32(x2, weight.to(compute_dtype).t()) + bias
-    return y.to(compute_dtype).reshape(*x.shape[:-1], weight.shape[0])
+    y = _LowPrecisionLinear.apply(x.reshape(-1, x.shape[-1]), weight, bias,
+                                  compute_dtype)
+    return y.reshape(*x.shape[:-1], weight.shape[0])
+
+
+class _SoftmaxLowp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, scores, out_dtype):
+        p = torch.softmax(scores.float(), dim=-1).to(out_dtype)
+        ctx.save_for_backward(p)
+        ctx.scores_dtype = scores.dtype
+        return p
+
+    @staticmethod
+    def backward(ctx, dp):
+        (p,) = ctx.saved_tensors
+        p32, dp32 = p.float(), dp.float()
+        ds = p32 * (dp32 - (p32 * dp32).sum(-1, keepdim=True))
+        return ds.to(ctx.scores_dtype), None
+
+
+def softmax_lowp(scores: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """fp32 softmax whose low-precision output is what the backward keeps:
+    ds = p * (dp - sum(p * dp)) in fp32 from the ``out_dtype`` probs
+    (clg_vqa_tpu/models/layers.py:61-92)."""
+    return _SoftmaxLowp.apply(scores, out_dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout from 8-bit random bits (clg_vqa_tpu/models/layers.py:95-116).
+
+    Identity without a generator (deterministic) or at rate 0. Otherwise
+    ``t = round((1-rate)*256)``: keep where the u8 bits drawn from
+    ``generator`` are below t and rescale by 256/t, rounded to x's dtype
+    first as JAX's weakly typed scalar is; zeros when t <= 0, identity when
+    t >= 256."""
+    if generator is None or rate == 0.0:
+        return x
+    t = int(round((1.0 - rate) * 256.0))
+    if t >= 256:
+        return x
+    if t <= 0:
+        return torch.zeros_like(x)
+    bits = torch.randint(0, 256, x.shape, generator=generator,
+                         device=x.device, dtype=torch.uint8)
+    scale = float(torch.tensor(256.0 / t, dtype=x.dtype))
+    return torch.where(bits < t, x * scale, 0.0)
+
+
+_M64 = 0xFFFFFFFFFFFFFFFF
+
+
+def fold_seed(seed: int | None, *path: int) -> int | None:
+    """The 64-bit seed of one dropout site: ``seed`` folded with each
+    integer of ``path`` by a splitmix64 step, the port's counterpart of
+    ``jax.random.fold_in``; None (the deterministic forward) stays None.
+    Host arithmetic only, so deriving a layer's seed never waits for the
+    device."""
+    if seed is None:
+        return None
+    x = seed & _M64
+    for p in path:
+        z = (x ^ ((p + 1) * 0x9E3779B97F4A7C15)) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        x = z ^ (z >> 31)
+    return x
+
+
+def generator(seed: int | None, device) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; None for None."""
+    if seed is None:
+        return None
+    return torch.Generator(device).manual_seed(seed)
 
 
 def create_position_ids_from_input_ids(input_ids: torch.Tensor,
@@ -115,8 +224,9 @@ class LayerNorm(nn.Module):
 def check_fused(fused) -> None:
     if fused not in (False, "flat"):
         raise NotImplementedError(
-            f"fused_attn={fused!r}: only False and 'flat' (eval) are ported; "
-            f"the training and head-blocked kernels are queued in ROADMAP.md")
+            f"fused_attn={fused!r}: only False and 'flat' are ported; the "
+            f"head-blocked, projected and S-major kernels are queued in "
+            f"ROADMAP.md")
 
 
 class SelfAttention(nn.Module):
@@ -131,12 +241,16 @@ class SelfAttention(nn.Module):
         self.v = Linear(d, d, device=device, dtype=dtype)
         self.o = Linear(d, d, device=device, dtype=dtype)
 
-    def forward(self, x, attn_bias, *, compute_dtype=None, fused=False):
-        """x [B, S, D], attn_bias additive [B, 1, 1, S].
+    def forward(self, x, attn_bias, *, compute_dtype=None, fused=False,
+                dropout_rate: float = 0.0, seed: int | None = None):
+        """x [B, S, D], attn_bias additive [B, 1, 1, S]. seed None is the
+        deterministic (eval) forward; with a seed the attention
+        probabilities are dropped at ``dropout_rate``.
 
         fused=False: plain PyTorch core (clg_vqa_tpu/models/layers.py:294-327).
-        fused="flat": the flat eval attention kernel
-        (ops/attention.fused_attention_flat)."""
+        fused="flat": the flat eval kernel (ops/attention.fused_attention_flat)
+        without a seed, the flat training kernel
+        (ops/attention.fused_attention_train_flat, :246-256) with one."""
         check_fused(fused)
         B, S, D = x.shape
         H = self.num_heads
@@ -145,8 +259,12 @@ class SelfAttention(nn.Module):
         k = self.k(x, compute_dtype)
         v = self.v(x, compute_dtype)
         if fused == "flat":
-            return self.o(fused_attention_flat(q, k, v, attn_bias, H),
-                          compute_dtype)
+            if seed is None:
+                ctx = fused_attention_flat(q, k, v, attn_bias, H)
+            else:
+                ctx = fused_attention_train_flat(
+                    q, k, v, attn_bias, H, dropout_rate=dropout_rate, seed=seed)
+            return self.o(ctx, compute_dtype)
 
         def heads(t):
             return t.float().reshape(B, S, H, hd).transpose(1, 2)
@@ -155,9 +273,11 @@ class SelfAttention(nn.Module):
         # matmul on upcast operands is the fp32-accumulated product
         scores = torch.matmul(heads(q), heads(k).transpose(-1, -2))
         scores = scores * (1.0 / math.sqrt(hd)) + attn_bias
-        probs = torch.softmax(scores, dim=-1)
         if compute_dtype is not None:
-            probs = probs.to(compute_dtype)
+            probs = softmax_lowp(scores, compute_dtype)
+        else:
+            probs = torch.softmax(scores, dim=-1)
+        probs = dropout(probs, dropout_rate, generator(seed, x.device))
         ctx = torch.matmul(probs.float(), heads(v))
         return self.o(ctx.transpose(1, 2).reshape(B, S, D), compute_dtype)
 
@@ -185,6 +305,8 @@ class SimpleClassifier(nn.Module):
         self.ln = LayerNorm(d_hidden, eps, device=device, dtype=dtype)
         self.fc2 = Linear(d_hidden, num_labels, device=device, dtype=dtype)
 
-    def forward(self, pooled, compute_dtype=None):
+    def forward(self, pooled, compute_dtype=None, *, dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None):
+        pooled = dropout(pooled, dropout_rate, generator)
         h = self.ln(gelu(self.fc1(pooled, compute_dtype)))
         return self.fc2(h, compute_dtype)

@@ -12,8 +12,12 @@ LN(Linear(locs)) + token-type row 1 (the image token-type table is tied to
 the text one, embeddings.py:630), LN. Pooling and head follow BertTextPooler
 (relu, encoders.py:597-608) and SimpleClassifier (encoders.py:788-815).
 
-Only the deterministic (eval) forward is ported; dropout belongs to the
-training slice (ROADMAP.md).
+The training forward (``deterministic=False``) drops as uc2.py:98-221
+does: the text and image embeddings, each block's attention probabilities,
+its attention output and its FFN output, and the pooled vector before the
+classifier. Every site draws from its own stream, whose seed is the step's
+``seed`` folded with the site's place (layers.fold_seed), as the JAX package
+folds its key.
 """
 from __future__ import annotations
 
@@ -25,11 +29,13 @@ from ..config import UC2Config
 from . import layers as L
 
 
-def _check_deterministic(deterministic: bool) -> None:
-    if not deterministic:
-        raise NotImplementedError(
-            "deterministic=False (dropout) belongs to the training slice, "
-            "not yet ported; see ROADMAP.md")
+def _dropout_seed(deterministic: bool, seed: int | None) -> int | None:
+    """None for the deterministic forward, else ``seed`` (required)."""
+    if deterministic:
+        return None
+    if seed is None:
+        raise ValueError("deterministic=False needs a seed for dropout")
+    return seed
 
 
 class UC2Embeddings(nn.Module):
@@ -50,9 +56,11 @@ class UC2Embeddings(nn.Module):
         self.v_ln = L.LayerNorm(H, eps, **kw)
 
     def forward(self, input_ids, features, locs, token_type_ids=None, *,
-                compute_dtype=None):
+                compute_dtype=None, dropout_rate: float = 0.0,
+                seed: int | None = None):
         """UC2Embeddings.forward (volta/volta/embeddings.py:636-669);
-        returns (text [B, T, H], image [B, R, H])."""
+        returns (text [B, T, H], image [B, R, H]), each dropped at
+        ``dropout_rate`` when a seed is given."""
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos_ids = L.create_position_ids_from_input_ids(input_ids,
@@ -64,6 +72,8 @@ class UC2Embeddings(nn.Module):
         loc = self.loc_ln(self.loc(locs, compute_dtype))
         # image token type = row 1 of the text table (tied module)
         v = self.v_ln(img + loc + self.token_type[1][None, None, :])
+        t = L.dropout(t, dropout_rate, L.generator(L.fold_seed(seed, 0), t.device))
+        v = L.dropout(v, dropout_rate, L.generator(L.fold_seed(seed, 1), v.device))
         return t, v
 
 
@@ -74,15 +84,25 @@ class UC2Block(nn.Module):
         super().__init__()
         H, eps = cfg.hidden_size, cfg.layer_norm_eps
         kw = {"device": device, "dtype": dtype}
+        self.attn_dropout = cfg.attention_probs_dropout_prob
+        self.hidden_dropout = cfg.hidden_dropout_prob
         self.attn = L.SelfAttention(H, cfg.num_heads, **kw)
         self.ln1 = L.LayerNorm(H, eps, **kw)
         self.ffn = L.FeedForward(H, cfg.intermediate_size, **kw)
         self.ln2 = L.LayerNorm(H, eps, **kw)
 
-    def forward(self, h, bias, *, compute_dtype=None, fused_attn=False):
-        a = self.attn(h, bias, compute_dtype=compute_dtype, fused=fused_attn)
+    def forward(self, h, bias, *, compute_dtype=None, fused_attn=False,
+                seed: int | None = None):
+        """seed None: deterministic; else the block's dropout seed, folded
+        with 0 (attention probs), 1 (attention output), 2 (FFN output)."""
+        a = self.attn(h, bias, compute_dtype=compute_dtype, fused=fused_attn,
+                      dropout_rate=self.attn_dropout, seed=L.fold_seed(seed, 0))
+        a = L.dropout(a, self.hidden_dropout,
+                      L.generator(L.fold_seed(seed, 1), h.device))
         h = self.ln1(a + h)
-        return self.ln2(self.ffn(h, compute_dtype) + h)
+        f = L.dropout(self.ffn(h, compute_dtype), self.hidden_dropout,
+                      L.generator(L.fold_seed(seed, 2), h.device))
+        return self.ln2(f + h)
 
 
 class UC2(nn.Module):
@@ -128,25 +148,31 @@ class UC2(nn.Module):
         self.classifier.fc2.init_xavier_(generator)
 
     def embed(self, input_ids, features, locs, token_type_ids=None, *,
-              compute_dtype=None):
+              compute_dtype=None, seed: int | None = None):
         return self.embeddings(input_ids, features, locs, token_type_ids,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype,
+                               dropout_rate=self.cfg.hidden_dropout_prob,
+                               seed=seed)
 
     def encode(self, batch: dict, *, deterministic: bool = True,
-               compute_dtype=None, fused_attn=False):
+               seed: int | None = None, compute_dtype=None, fused_attn=False):
         """Embeddings + the collapsed joint encoder + text pooler.
-        Returns (joint_sequence [B, T+R, H], pooled [B, pooler_size])."""
-        _check_deterministic(deterministic)
+        Returns (joint_sequence [B, T+R, H], pooled [B, pooler_size]).
+        deterministic=False drops with streams keyed by ``seed`` (required):
+        the embeddings fold 0, block l folds (1, l)."""
+        seed = _dropout_seed(deterministic, seed)
         L.check_fused(fused_attn)
-        t_emb, v_emb = self.embed(batch["input_ids"], batch["features"],
-                                  batch["locs"], batch.get("token_type_ids"),
-                                  compute_dtype=compute_dtype)
+        t_emb, v_emb = self.embed(
+            batch["input_ids"], batch["features"], batch["locs"],
+            batch.get("token_type_ids"), compute_dtype=compute_dtype,
+            seed=L.fold_seed(seed, 0))
         h = torch.cat([t_emb, v_emb], dim=1)
         mask01 = torch.cat([batch["input_mask"], batch["image_mask"]], dim=1)
         bias = L.additive_mask(mask01)
-        for block in self.encoder:
+        for i, block in enumerate(self.encoder):
             h = block(h, bias, compute_dtype=compute_dtype,
-                      fused_attn=fused_attn)
+                      fused_attn=fused_attn,
+                      seed=L.fold_seed(seed, 1, i))
         # BertTextPooler on text token 0 == joint position 0
         pooled = self.pooler(h[:, 0], compute_dtype)
         pooled = (torch.relu(pooled) if self.cfg.fusion_act == "relu"
@@ -154,9 +180,16 @@ class UC2(nn.Module):
         return h, pooled
 
     def forward(self, batch: dict, *, deterministic: bool = True,
-                compute_dtype=None, fused_attn=False) -> torch.Tensor:
-        """Logits [B, num_labels] for the VL-classifier-GQA head."""
+                seed: int | None = None, compute_dtype=None,
+                fused_attn=False) -> torch.Tensor:
+        """Logits [B, num_labels] for the VL-classifier-GQA head.
+        deterministic=False needs ``seed``: the encoder folds 2, the pooled
+        dropout before the classifier folds 3 (uc2.py:206-221)."""
+        seed = _dropout_seed(deterministic, seed)
         _, pooled = self.encode(batch, deterministic=deterministic,
+                                seed=L.fold_seed(seed, 2),
                                 compute_dtype=compute_dtype,
                                 fused_attn=fused_attn)
-        return self.classifier(pooled, compute_dtype)
+        return self.classifier(
+            pooled, compute_dtype, dropout_rate=self.cfg.clf_dropout_prob,
+            generator=L.generator(L.fold_seed(seed, 3), pooled.device))

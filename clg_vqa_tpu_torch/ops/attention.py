@@ -1,15 +1,30 @@
-"""Flat-boundary eval attention: the CUDA kernel ``csrc/flat_attention.cu``
-and its plain PyTorch version.
+"""Flat-boundary attention: CUDA kernels and their plain PyTorch versions.
 
-Port of clg_vqa_tpu/ops/attention.py:fused_attention_flat (:549-593, kernel
-body ``_flat_fwd_kernel`` :385-410 at keep_t=256). q/k/v keep the
-projections' [B, S, H*hd] layout and the kernel loops over heads itself, so
-no head split/merge transposes exist around it. Numerics: QK^T post-scaled
-by 1/sqrt(hd) in fp32, additive key-side bias, fp32 softmax, fp32 P.V
-accumulation, output cast to q's dtype.
+- Eval (K1): ``csrc/flat_attention.cu``, port of
+  clg_vqa_tpu/ops/attention.py:fused_attention_flat (:549-593, kernel body
+  ``_flat_fwd_kernel`` :385-410 at keep_t=256).
+- Training (B1): ``csrc/flat_attention_train.cu``, port of
+  ``fused_attention_train_flat`` (:596-634; ``_flat_fwd_kernel`` /
+  ``_flat_bwd_kernel`` :385-459 via ``_attn_train_flat_fwd/_bwd``
+  :495-528), a forward and a backward kernel behind an
+  ``autograd.Function``.
 
-The training variants (dropout, backward) belong to the training slice
-(ROADMAP.md).
+q/k/v keep the projections' [B, S, H*hd] layout and the kernels loop over
+heads themselves, so no head split/merge transposes exist around them.
+Numerics: QK^T post-scaled by 1/sqrt(hd) in fp32, additive key-side bias,
+fp32 softmax, fp32 P.V accumulation, output cast to q's dtype.
+
+Dropout (training) keeps the JAX package's u8-threshold semantics: keep an
+attention probability where its 8 random bits are below
+``t = round((1-rate)*256)``, and scale kept ones by 256/t in fp32. The TPU
+kernel draws the bits from the TPU's own generator per grid cell; here they
+come from the counter-based Philox4x32-10 generator (Salmon et al., SC'11),
+keyed by the 64-bit seed and counted by (absolute sample, head, query row,
+key column // 16): element j takes byte j % 16 of the 16 bytes that one
+Philox call returns. A mask is therefore a function of (seed, sample, head,
+row, column) alone, independent of tiling and of the other samples of the
+batch, and the backward replays it without storing it. The CUDA kernels
+and :func:`dropout_keep_mask` compute the same bits.
 """
 from __future__ import annotations
 
@@ -36,6 +51,19 @@ def _kernel():
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
     return fn, smem
+
+
+def _check_qkv(q, k, v, num_heads: int) -> tuple[int, int, int]:
+    """(B, S, hd) of [B, S, H*hd] operands of one shape and dtype."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [B, S, H*hd] shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    B, S, HD = q.shape
+    if HD % num_heads:
+        raise ValueError(f"H*hd={HD} is not divisible by num_heads={num_heads}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q/k/v must share one dtype")
+    return B, S, HD // num_heads
 
 
 def _bias2(bias: torch.Tensor, B: int, S: int) -> torch.Tensor:
@@ -66,19 +94,17 @@ def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: additive key-side, broadcastable to [B, 1, 1, S]. CPU tensors take
     the plain version; CUDA tensors launch the kernel (fp32 or bf16,
     hd in {32, 64, 128}) or raise."""
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v must share one [B, S, H*hd] shape, got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    B, S, HD = q.shape
-    if HD % num_heads:
-        raise ValueError(f"H*hd={HD} is not divisible by num_heads={num_heads}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("q/k/v must share one dtype")
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        raise RuntimeError(
+            "fused_attention_flat is the eval kernel and has no backward; "
+            "use fused_attention_train_flat for training, or call it under "
+            "torch.no_grad()")
     if q.device.type == "cpu":
         return fused_attention_flat_plain(q, k, v, bias, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    hd = HD // num_heads
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernel takes fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
@@ -101,3 +127,219 @@ def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B1: flat training attention with in-kernel dropout
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of the constant ``a`` times ``b`` (int64
+    tensor of values in [0, 2^32)). The 64-bit product overflows int64,
+    so ``b`` is split into 16-bit halves: each partial product stays
+    below 2^48."""
+    t_lo = a * (b & 0xFFFF)
+    t_hi = a * (b >> 16)
+    lo = (t_lo + ((t_hi & 0xFFFF) << 16)) & _M32
+    hi = (t_hi + (t_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, seed: int):
+    """Philox4x32-10 on int64 tensors holding 32-bit counter words (any
+    broadcastable shapes); returns the four 32-bit output words. The key is
+    the 64-bit ``seed`` (low word first). Integer ops only, so the CPU and
+    the card give the same bits."""
+    k0, k1 = seed & _M32, (seed >> 32) & _M32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """The u8 keep threshold t of a dropout rate, as the JAX package's
+    ``_dropout_seed`` rounds it: 256 (keep all) at rate 0, never below 1."""
+    if dropout_rate <= 0.0:
+        return 256
+    return max(int(round((1.0 - dropout_rate) * 256.0)), 1)
+
+
+def dropout_keep_mask(seed: int, B: int, H: int, S: int, keep_t: int,
+                      device=None) -> torch.Tensor:
+    """Bool [B, H, S, S]: the keep mask both B1 kernels realize for
+    (seed, sample, head, query row, key column)."""
+    dev = torch.device("cpu" if device is None else device)
+    G = -(-S // 16)
+
+    def axis(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, device=dev, dtype=torch.int64).view(shape)
+
+    words = philox4x32_10(axis(G, 3), axis(S, 2), axis(H, 1), axis(B, 0),
+                          seed & 0xFFFFFFFFFFFFFFFF)
+    w = torch.stack([x.expand(B, H, S, G) for x in words], -1)  # [B,H,S,G,4]
+    shifts = torch.arange(0, 32, 8, device=dev, dtype=torch.int64)
+    bits = (w[..., None] >> shifts) & 0xFF                       # [...,4,4]
+    return bits.reshape(B, H, S, G * 16)[..., :S] < keep_t
+
+
+def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
+                                     dropout_rate: float = 0.0,
+                                     seed: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of B1, differentiated by autograd: upcast
+    (fp32, or fp64 for fp64 inputs), matmul, softmax, the same
+    counter-based keep mask with the 256/t rescale, matmul, cast."""
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    t = keep_threshold(dropout_rate)
+    if t < 256 and seed is None:
+        raise ValueError("dropout_rate > 0 needs a seed")
+    ct = torch.promote_types(q.dtype, torch.float32)
+
+    def heads(x):
+        return x.to(ct).reshape(B, S, num_heads, hd).transpose(1, 2)
+
+    b2 = bias.expand(B, 1, 1, S)[:, 0, 0, :].to(ct)
+    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (
+        1.0 / math.sqrt(hd))
+    p = torch.softmax(scores + b2[:, None, None, :], dim=-1)
+    if t < 256:
+        keep = dropout_keep_mask(seed, B, num_heads, S, t, q.device)
+        p = torch.where(keep, p * (256.0 / t), 0.0)
+    out = torch.matmul(p, heads(v))
+    return out.transpose(1, 2).reshape(B, S, num_heads * hd).to(q.dtype)
+
+
+@functools.cache
+def _train_kernels():
+    lib = _build.load("flat_attention_train")
+    fwd = lib.flat_attention_train_fwd
+    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    bwd = lib.flat_attention_train_bwd
+    bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    smem = lib.flat_attention_train_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    return fwd, bwd, smem
+
+
+class _FlatTrainFn(torch.autograd.Function):
+    """B1 on the card: the forward kernel, and the backward kernel that
+    recomputes the probabilities and replays the keep mask. The bias
+    gradient comes out per (sample, head) as [B, H, S] and is summed over
+    heads here, in a fixed order, so the bits do not vary between runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, b2, num_heads, keep_t, seed):
+        B, S, HD = q.shape
+        fwd, _, _ = _train_kernels()
+        out = torch.empty_like(q)
+        err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  b2.data_ptr(), out.data_ptr(), B, S, num_heads,
+                  HD // num_heads, keep_t, 256.0 / keep_t, seed,
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"flat_attention_train forward launch failed: CUDA error {err}")
+        fused_attention_train_flat.launches += 1
+        ctx.save_for_backward(q, k, v, b2)
+        ctx.meta = (num_heads, keep_t, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, b2 = ctx.saved_tensors
+        num_heads, keep_t, seed = ctx.meta
+        B, S, HD = q.shape
+        _, bwd, _ = _train_kernels()
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        db_heads = torch.empty(B, num_heads, S, dtype=torch.float32,
+                               device=q.device)
+        err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads,
+                  HD // num_heads, keep_t, 256.0 / keep_t, seed,
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"flat_attention_train backward launch failed: CUDA error {err}")
+        fused_attention_train_flat.backward_launches += 1
+        return dq, dk, dv, db_heads.sum(1), None, None, None
+
+
+def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               num_heads: int, *, dropout_rate: float = 0.0,
+                               seed: int | None = None) -> torch.Tensor:
+    """Training attention on [B, S, H*hd] operands with in-kernel dropout,
+    differentiable in q, k, v and bias.
+
+    bias: additive key-side, broadcastable to [B, 1, 1, S]. seed: the
+    64-bit key of the dropout stream (a host integer, so the launch needs
+    no device synchronisation); required when ``dropout_rate > 0``. CPU
+    tensors take the plain version; CUDA tensors launch the kernels (fp32
+    or bf16, hd in {32, 64, 128}) or raise."""
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    t = keep_threshold(dropout_rate)
+    if t < 256 and seed is None:
+        raise ValueError("dropout_rate > 0 needs a seed")
+    seed = 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
+    if q.device.type == "cpu":
+        return fused_attention_train_flat_plain(
+            q, k, v, bias, num_heads, dropout_rate=dropout_rate, seed=seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES or hd not in (32, 64, 128):
+        raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
+                         f"(32, 64, 128); got {q.dtype}, hd={hd}")
+    _, _, smem_bytes = _train_kernels()
+    need = max(smem_bytes(S, hd, 0), smem_bytes(S, hd, 1))
+    if need > _MAX_SMEM:
+        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
+                         f"memory per block, over the {_MAX_SMEM} limit")
+    b2 = _bias2(bias.to(q.device), B, S)
+    if B == 0 or S == 0:
+        return torch.zeros_like(q)
+    return _FlatTrainFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                              b2, num_heads, t, seed)
+
+
+fused_attention_train_flat.launches = 0
+fused_attention_train_flat.backward_launches = 0
+
+
+@torch.no_grad()
+def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
+                       dropout_rate: float, device) -> torch.Tensor:
+    """Bool [B, H, S, S]: the keep mask that :func:`fused_attention_train_flat`
+    realizes on ``device``, read back through its forward. With q = k = 0
+    and no bias every probability is 1/S, and v one-hot on key column j
+    copies p_d[..., j] into an output column, so the nonzero outputs are the
+    kept entries; ceil(S/hd) calls cover every key column. On the card this
+    shows the kernel's own bits, to compare with :func:`dropout_keep_mask`."""
+    z = torch.zeros(B, S, H * hd, device=device)
+    bias = torch.zeros(B, 1, 1, S, device=device)
+    mask = torch.empty(B, H, S, S, dtype=torch.bool, device=device)
+    for j0 in range(0, S, hd):
+        n = min(hd, S - j0)
+        v = torch.zeros(B, S, H, hd, device=device)
+        cols = torch.arange(n, device=device)
+        v[:, j0 + cols, :, cols] = 1.0
+        o = fused_attention_train_flat(z, z, v.reshape(B, S, H * hd), bias, H,
+                                       dropout_rate=dropout_rate, seed=seed)
+        mask[..., j0:j0 + n] = (o.view(B, S, H, hd)[..., :n] != 0).transpose(1, 2)
+    return mask

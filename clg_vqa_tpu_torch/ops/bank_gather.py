@@ -41,6 +41,10 @@ def rows_gather(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{tuple(idx.shape)} {idx.dtype}")
     if bank.dim() < 1 or idx.device != bank.device:
         raise ValueError("bank needs a leading row axis on idx's device")
+    if torch.is_grad_enabled() and bank.requires_grad:
+        raise RuntimeError("rows_gather has no backward: gather from a bank "
+                           "that does not require grad, or under "
+                           "torch.no_grad()")
     if bank.device.type == "cpu":
         return rows_gather_plain(bank, idx)
     if bank.device.type != "cuda":

@@ -1,0 +1,167 @@
+"""Training and eval steps of the GQA fine-tuning recipe (port of
+clg_vqa_tpu/train/loop.py:32-325, single device).
+
+Semantics kept from the JAX package (and through it from
+volta/train_task.py:313-367 and volta/volta/task_utils.py:308-434):
+ - gradient accumulation over the batch's leading axis: each microbatch's
+   gradients are divided by the number of microbatches and summed; loss
+   and score are averaged the same way;
+ - loss ``num_labels * (criterion + lambda * semantic prior)``
+   (ops/semantic_prior.py);
+ - an optional 0/1 gradient mask multiplies the gradients before the
+   clip, and the updates again after the optimizer, so masked entries do
+   not move at all (the decoupled decay would otherwise shrink them);
+ - clip_by_global_norm(1.0) and pytorch_transformers AdamW (train/optim.py);
+ - bf16 products with fp32 master weights and optimizer state.
+
+The model's parameters are the master weights and are updated in place; a
+step returns the new optimizer state and step count. Metrics stay on the
+device, so a step does not wait for it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import torch
+
+from ..data.device_bank import DeviceFeatureBank
+from ..models.layers import check_fused, fold_seed
+from ..ops.semantic_prior import gqa_train_loss
+from .optim import global_norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module      # fp32 master weights, updated in place
+    opt_state: Any
+    step: int                   # completed optimizer updates
+
+
+def resolve_fused(fused_attn, compute_dtype, device: torch.device):
+    """False, "flat", or "auto": the flat training kernel for bf16 on CUDA,
+    the plain path otherwise (the JAX FinetuneRunner's fused_attn="auto"
+    rule, with the TPU read as CUDA)."""
+    if fused_attn == "auto":
+        return ("flat" if compute_dtype == torch.bfloat16
+                and device.type == "cuda" else False)
+    check_fused(fused_attn)
+    return fused_attn
+
+
+def _with_bank_features(mb: Mapping, bank) -> dict:
+    """A microbatch carrying ``store_idx`` gets its features, locs and image
+    mask from the device bank (the row-gather kernel for the features)."""
+    if bank is None or "store_idx" not in mb:
+        return dict(mb)
+    out = {k: v for k, v in mb.items() if k != "store_idx"}
+    f, l, m = DeviceFeatureBank.gather_from(bank, mb["store_idx"])
+    out.update(features=f, locs=l, image_mask=m)
+    return out
+
+
+def make_loss_fn(distance_matrix: torch.Tensor, *, semantic_lambda: float,
+                 top_k: int = 10, compute_dtype=torch.bfloat16,
+                 fused_attn=False,
+                 criterion: str = "CrossEntropyLoss") -> Callable:
+    """loss_fn(model, mb, seed, bank=None) -> (loss, score). ``seed`` None
+    runs the deterministic forward; an int keys every dropout stream."""
+
+    def loss_fn(model, mb, seed, bank=None):
+        mb = _with_bank_features(mb, bank)
+        fused = resolve_fused(fused_attn, compute_dtype, model.device)
+        logits = model(mb, deterministic=seed is None, seed=seed,
+                       compute_dtype=compute_dtype, fused_attn=fused)
+        loss = gqa_train_loss(logits, mb["labels"], distance_matrix,
+                              semantic_lambda=semantic_lambda, top_k=top_k,
+                              num_labels=model.cfg.num_labels,
+                              criterion=criterion)
+        score = (logits.argmax(-1) == mb["labels"].long()).float().mean()
+        return loss, score
+
+    return loss_fn
+
+
+def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
+                    semantic_lambda: float, top_k: int = 10,
+                    compute_dtype=torch.bfloat16,
+                    grad_mask: Mapping[str, torch.Tensor | None] | None = None,
+                    fused_attn=False,
+                    criterion: str = "CrossEntropyLoss") -> Callable:
+    """train_step(state, batch, seed, bank=None) -> (state, metrics).
+
+    ``batch`` values are [acc, micro_bs, ...] tensors on the model's device;
+    with a device bank (``bank`` = DeviceFeatureBank.tensors()) they carry
+    int32 ``store_idx`` instead of features. ``seed`` (a host int) keys the
+    step's dropout: microbatch a draws from fold_seed(seed, a). ``grad_mask``
+    maps parameter names to 0/1 tensors or None (pass-through).
+    fused_attn: False, "flat" (ops/attention.fused_attention_train_flat) or
+    "auto". Metrics: ``loss``, ``score`` and ``grad_norm``, the norm of the
+    masked gradients before the clip."""
+    loss_fn = make_loss_fn(distance_matrix, semantic_lambda=semantic_lambda,
+                           top_k=top_k, compute_dtype=compute_dtype,
+                           fused_attn=fused_attn, criterion=criterion)
+
+    def train_step(state: TrainState, batch: Mapping, seed: int, bank=None):
+        model = state.model
+        params = dict(model.named_parameters())
+        names, tensors = list(params), list(params.values())
+        acc = next(iter(batch.values())).shape[0]
+        grads = [torch.zeros_like(p) for p in tensors]
+        loss_sum = torch.zeros((), device=model.device)
+        score_sum = torch.zeros((), device=model.device)
+        for a in range(acc):
+            mb = {k: v[a] for k, v in batch.items()}
+            loss, score = loss_fn(model, mb, fold_seed(seed, a), bank)
+            gs = torch.autograd.grad(loss, tensors, allow_unused=True)
+            for acc_g, g in zip(grads, gs):
+                if g is not None:
+                    acc_g.add_(g / acc)
+            loss_sum = loss_sum + loss.detach() / acc
+            score_sum = score_sum + score / acc
+        grads = dict(zip(names, grads))
+        if grad_mask is not None:
+            grads = {k: g if grad_mask.get(k) is None else g * grad_mask[k]
+                     for k, g in grads.items()}
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  params)
+            for k, p in params.items():
+                u = updates[k]
+                if grad_mask is not None and grad_mask.get(k) is not None:
+                    u = u * grad_mask[k]
+                p.add_(u)
+        metrics = {"loss": loss_sum, "score": score_sum,
+                   "grad_norm": global_norm(grads.values())}
+        return TrainState(model, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(*, compute_dtype=torch.bfloat16, fused_attn=False) -> Callable:
+    """eval_step(model, batch, bank=None) -> {loss, correct, count, pred}:
+    ForwardModelsVal for VL-classifier-GQA (task_utils.py:265-269,
+    clg_vqa_tpu/train/loop.py:276-325). loss = num_labels * CE over the
+    labeled rows (``valid`` * ``has_label``, both optional), correct = the
+    number of labeled rows whose argmax is the label."""
+
+    @torch.no_grad()
+    def eval_step(model, batch, bank=None):
+        batch = _with_bank_features(batch, bank)
+        fused = resolve_fused(fused_attn, compute_dtype, model.device)
+        logits = model(batch, deterministic=True, compute_dtype=compute_dtype,
+                       fused_attn=fused)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), -1)
+        ce = -logp.gather(-1, labels[:, None])[:, 0]
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones_like(ce)
+        lab = valid.float() * batch.get("has_label", torch.ones_like(valid)).float()
+        n = torch.clamp(lab.sum(), min=1.0)
+        pred = logits.argmax(-1)
+        return {"loss": model.cfg.num_labels * (ce * lab).sum() / n,
+                "correct": ((pred == labels).float() * lab).sum(),
+                "count": lab.sum(), "pred": pred}
+
+    return eval_step

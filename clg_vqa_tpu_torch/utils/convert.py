@@ -8,7 +8,9 @@ Three weight formats meet here, all as plain numpy mappings:
   names; import reads the plain names and checks the aliases, export
   writes both.
 - The JAX package's params pytree (Linear weights [in, out], per-layer
-  leaves stacked on a leading [L] axis): :func:`from_jax_params`.
+  leaves stacked on a leading [L] axis): :func:`from_jax_params`, and a
+  whole JAX ``TrainState`` with its AdamW moments and a gradient mask:
+  :func:`from_jax_train_state`.
 - The port's own ``state_dict`` names.
 """
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 
 from ..config import UC2Config
 from ..models.uc2 import UC2
+from ..train.loop import TrainState
+from ..train.optim import AdamWState
 
 
 def normalize_volta_keys(sd: Mapping[str, np.ndarray], *, from_hf: bool = False,
@@ -126,35 +130,51 @@ def state_dict_to_volta_uc2(model: UC2, task_key: str = "TASK15"
     return sd
 
 
+def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
+    """(port name, array) for one leaf of a JAX UC2 pytree: [in, out]
+    Linear weights become [out, in], a stacked [L, ...] encoder leaf one
+    entry per block."""
+    def name(p):
+        *mods, leaf = p
+        return ".".join([*mods, {"w": "weight", "b": "bias", "scale": "weight",
+                                 "bias": "bias"}.get(leaf, leaf)])
+
+    def fix(a):
+        return np.ascontiguousarray(a.T if path[-1] == "w" else a)
+
+    if path[0] == "encoder":
+        return [(name(("encoder", str(b)) + path[1:]), fix(arr[b]))
+                for b in range(arr.shape[0])]
+    return [(name(path), fix(arr))]
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    else:
+        yield path, tree
+
+
 def jax_params_to_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     """The JAX package's UC2 params pytree (numpy leaves) -> the port's
     state-dict names: [in, out] Linear weights become [out, in], the
     stacked [L, ...] encoder leaves become one entry per block."""
-    out: dict[str, np.ndarray] = {}
+    return {n: a for path, leaf in _walk(params)
+            for n, a in _port_leaves(path, np.asarray(leaf, np.float32))}
 
-    def leaf_name(path: tuple[str, ...]) -> str:
-        *mods, leaf = path
-        name = {"w": "weight", "b": "bias", "scale": "weight",
-                "bias": "bias"}.get(leaf, leaf)
-        return ".".join([*mods, name])
 
-    def walk(tree, path):
-        if isinstance(tree, Mapping):
-            for k, v in tree.items():
-                walk(v, path + (k,))
-            return
-        arr = np.asarray(tree, np.float32)
-        if path[0] == "encoder":
-            for b in range(arr.shape[0]):
-                put(("encoder", str(b)) + path[1:], arr[b])
-        else:
-            put(path, arr)
-
-    def put(path, arr):
-        out[leaf_name(path)] = np.ascontiguousarray(
-            arr.T if path[-1] == "w" else arr)
-
-    walk(params, ())
+def jax_mask_to_state_dict(mask: Mapping, params: Mapping
+                           ) -> dict[str, np.ndarray | None]:
+    """A JAX gradient-mask tree (arrays, or None for pass-through leaves)
+    -> port names; the params tree gives a None leaf its port names."""
+    masks = dict(_walk(mask))
+    out: dict[str, np.ndarray | None] = {}
+    for path, leaf in _walk(params):
+        m = masks.get(path)
+        for n, a in _port_leaves(path, np.asarray(
+                leaf if m is None else m, np.float32)):
+            out[n] = None if m is None else a
     return out
 
 
@@ -190,3 +210,30 @@ def from_volta(sd: Mapping[str, np.ndarray], cfg: UC2Config, *, device=None,
     return load_numpy_state(UC2(cfg, device=device),
                             volta_uc2_to_state_dict(sd, cfg, task_key),
                             allow_missing=("classifier.",))
+
+
+def from_jax_train_state(state, cfg: UC2Config, *, grad_mask=None,
+                         device=None):
+    """A JAX ``train.loop.TrainState`` (stacked params; opt_state the
+    ``make_optimizer`` chain, whose AdamW state holds count/mu/nu) and an
+    optional JAX gradient-mask tree -> (port TrainState, port mask or None).
+    The model carries the params; the AdamW moments and count become the
+    port's ``AdamWState``."""
+    model = from_jax_params(state.params, cfg, device=device)
+    adam = [s for s in state.opt_state if "mu" in getattr(s, "_fields", ())]
+    if len(adam) != 1:
+        raise ValueError("opt_state holds no single AdamW state (count/mu/nu)")
+    dev = model.device
+
+    def tensors(tree):      # copies: the optimizer updates them in place
+        return {k: torch.from_numpy(np.array(a)).to(dev)
+                for k, a in jax_params_to_state_dict(tree).items()}
+
+    opt_state = AdamWState(int(np.asarray(adam[0].count)),
+                           tensors(adam[0].mu), tensors(adam[0].nu))
+    mask = None
+    if grad_mask is not None:
+        mask = {k: None if a is None else torch.from_numpy(np.array(a)).to(dev)
+                for k, a in jax_mask_to_state_dict(grad_mask,
+                                                   state.params).items()}
+    return TrainState(model, opt_state, int(np.asarray(state.step))), mask

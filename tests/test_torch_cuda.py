@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from clg_vqa_tpu_torch.models import layers as TL
 from clg_vqa_tpu_torch.ops import attention as TA
 from clg_vqa_tpu_torch.ops import bank_gather as TG
 
@@ -74,3 +75,93 @@ def test_rows_gather_kernel_rejects_unaligned_rows(cuda):
     bank = torch.zeros(4, 3, device=cuda)            # 12-byte rows
     with pytest.raises(ValueError, match="16-byte"):
         TG.rows_gather(bank, torch.tensor([1], dtype=torch.int32, device=cuda))
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def _train_grads(fn, q, k, v, bias, w, **kw):
+    q, k, v, bias = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
+    out = fn(q, k, v, bias, 12, **kw)
+    (out.float() * w).sum().backward()
+    return out.detach(), q.grad, k.grad, v.grad, bias.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [13, 76, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_train_kernels_match_plain(cuda, S, dtype, rate):
+    """B1 forward and backward against autograd of the plain version, same
+    seed. Forward: atol 1e-5 (fp32) or one bf16 ulp of the largest output;
+    dq/dk/dv: 2e-4 * max|grad| (fp32) or two bf16 ulps of the largest grad;
+    dbias: 1e-4 * max|dbias|. Both sides compute in fp32 from the same
+    values and differ in summation order only."""
+    q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    kw = dict(dropout_rate=rate, seed=1234)
+    f0, b0 = TA.fused_attention_train_flat.launches, TA.fused_attention_train_flat.backward_launches
+    got = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, **kw)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_train_flat.launches == f0 + 1
+    assert TA.fused_attention_train_flat.backward_launches == b0 + 1
+    want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w, **kw)
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        scale = want[i].float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5 if i == 0 else 2e-4 * scale
+        else:
+            tol = _bf16_ulp(scale) * (1 if i == 0 else 2)
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    db_err = (got[4] - want[4]).abs().max().item()
+    assert db_err <= 1e-4 * want[4].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 140])
+def test_flat_train_kernel_mask_is_the_plain_mask(cuda, S):
+    """The kernel's realized keep bits equal dropout_keep_mask on the card
+    and on the CPU; another seed gives another mask."""
+    t = TA.keep_threshold(0.1)
+    got = TA.realized_keep_mask(99, 4, 12, S, 64, 0.1, cuda)
+    assert torch.equal(got, TA.dropout_keep_mask(99, 4, 12, S, t, cuda))
+    assert torch.equal(got.cpu(), TA.dropout_keep_mask(99, 4, 12, S, t))
+    assert not torch.equal(got, TA.realized_keep_mask(100, 4, 12, S, 64, 0.1, cuda))
+
+
+@pytest.mark.cuda
+def test_flat_train_kernels_are_deterministic(cuda):
+    q, k, v, bias = _attention_inputs(cuda, 8, 76, 12, 64, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda)
+    a = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w,
+                     dropout_rate=0.1, seed=5)
+    b = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w,
+                     dropout_rate=0.1, seed=5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_bf16_linear_function_on_cuda_matches_cpu(cuda):
+    """The bf16 linear and its backward on the card (cuBLAS fp32-output
+    products) against the same Function on the CPU (upcast operands): one
+    bf16 ulp per element of y, dx and dW; db within rtol 1e-6."""
+    r = np.random.RandomState(0)
+    x = torch.from_numpy(r.randn(64, 96).astype(np.float32))
+    w = torch.from_numpy((r.randn(48, 96) * 0.1).astype(np.float32))
+    b = torch.from_numpy(r.randn(48).astype(np.float32))
+    g = torch.from_numpy(r.randn(64, 48).astype(np.float32)).bfloat16()
+
+    def run(dev):
+        xx, ww, bb = (t.to(dev).requires_grad_() for t in (x, w, b))
+        y = TL.linear(xx, ww, bb, torch.bfloat16)
+        y.backward(g.to(dev))
+        return [t.detach().float().cpu() for t in (y, xx.grad, ww.grad, bb.grad)]
+
+    got, want = run(cuda), run("cpu")
+    for a, e in zip(got[:3], want[:3]):
+        ulp = 2.0 ** (torch.floor(torch.log2(e.abs() + 1e-30)) - 7)
+        assert torch.all((a - e).abs() <= ulp)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=1e-6)

@@ -12,6 +12,17 @@ from clg_vqa_tpu.eval import scorer as jscore
 from clg_vqa_tpu_torch.data import features as tfeat, gqa as tgqa, tokenizer as ttok
 from clg_vqa_tpu_torch.eval import scorer as tscore
 
+try:
+    # Load the HF stack (transformers imports accelerate) while each worker
+    # collects this file. Other test files stub boto3 in sys.modules without
+    # a __spec__, and accelerate's boto3 probe raises when accelerate is
+    # first imported after them; importing it up front keeps the HF
+    # tokenizer tests, here and in the JAX suite, independent of the order
+    # in which pytest-xdist hands files to a worker.
+    from transformers import AutoTokenizer  # noqa: F401
+except ImportError:
+    pass
+
 
 @pytest.mark.parametrize("num_locs", [5, 7])
 @pytest.mark.parametrize("norm", [False, True])
