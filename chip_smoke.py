@@ -6,14 +6,16 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the three CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the four CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
     version and one library call used only as a yardstick here. The
     training attention (B1) is also held to its dropout semantics: the
     kernels' keep mask is the plain version's, runs are bit-deterministic,
-    the keep fraction is t/256, and <dv, v> equals the loss.
+    the keep fraction is t/256, and <dv, v> equals the loss. The S-major
+    training attention (B5) is held to its plain version and to B1, bit
+    for bit, and its entry's layout copies are timed.
  4. the eval path at UC2's full width (12 x 768, vocab 250002, 1842
     answers; random weights from a seed): run_eval at batch 1024 in bf16
     over a synthetic 400-image CFS store and device feature bank, then
@@ -24,10 +26,20 @@ final line:
  6. the training path at full width: the UC2 GQA fine-tune step of
     bench.py:54-92 (acc 2 x mbs 128, bf16 with fp32 master weights, dropout
     0.1, lambda 10, flat training attention, device bank), fed by
-    TrainPipeline: 2 warm-up steps, then timed steps.
+    TrainPipeline: 2 warm-up steps, then timed steps; then the same step
+    with the flat and the S-major training attention timed in turns.
  7. training parity: a tiny UC2 trained 3 steps on the card (kernels)
     and on the CPU (plain path), and the full-width fp32 gradients of the
     kernel route against the plain route.
+ 8. the fine-tune recipe at full width: FinetuneRunner.finetune with the
+    S-major training attention (fused_attn="sm"), bf16, dropout 0.1,
+    lambda 10, acc 2 x mbs 128, device bank, one epoch over
+    data/synthetic.train_dataset, val over 1,024 questions (K1), the
+    best-params and full-state saves and a VOLTA .bin export; the .bin
+    reloaded into a fresh model gives the trained model's fp32 logits.
+ 9. recipe parity at tiny width, for fused_attn "flat" and "sm": a run
+    preempted at step 2 and resumed in a fresh runner ends with the
+    uninterrupted run's parameters, bit for bit.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -37,6 +49,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -46,20 +59,29 @@ import time
 import numpy as np
 import torch
 
-from clg_vqa_tpu_torch.config import UC2Config
+from clg_vqa_tpu_torch.cli.common import load_pretrained
+from clg_vqa_tpu_torch.config import OptimConfig, TaskConfig, UC2Config
+from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.data.device_bank import DeviceFeatureBank
+from clg_vqa_tpu_torch.data.gqa import GQADataset
 from clg_vqa_tpu_torch.data.pipeline import TrainPipeline
 from clg_vqa_tpu_torch.data.synthetic import (REGIONS as R, eval_world,
-                                              train_dataset)
+                                              make_entries, train_dataset,
+                                              write_store)
+from clg_vqa_tpu_torch.data.tokenizer import HashTokenizer
 from clg_vqa_tpu_torch.eval.predictor import Predictor
 from clg_vqa_tpu_torch.eval.runner import make_predict_step, run_eval
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
 from clg_vqa_tpu_torch.ops.attention import (
     dropout_keep_mask, fused_attention_flat, fused_attention_flat_plain,
+    fused_attention_smajor, fused_attention_smajor_plain,
     fused_attention_train_flat, fused_attention_train_flat_plain,
-    keep_threshold, realized_keep_mask)
+    fused_attention_train_smajor, fused_attention_train_smajor_plain,
+    keep_threshold, realized_keep_mask, smajor_attention_core,
+    smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
+from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
                                           make_train_step)
 from clg_vqa_tpu_torch.train.optim import (make_optimizer,
@@ -78,6 +100,9 @@ N_REQUESTS = 64
 ACC, MBS, LAMBDA = 2, 128, 10.0
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 RATE = 0.1                   # UC2Config's dropout; keep threshold t = 230
+RECIPE_STEPS, N_VAL = 12, 1024
+# ten (flat, sm) pairs of blocks, alternating which route runs first
+AB_STEPS, AB_ORDER = 10, ("flat", "sm", "sm", "flat") * 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -128,7 +153,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build(["flat_attention", "flat_attention_train",
-                          "rows_gather"])
+                          "rows_gather", "smajor_attention_train"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -363,19 +388,145 @@ def phase_train_kernel(gen) -> dict:
     return out
 
 
+def value_and_grads(fn, q, k, v, bias, do, H, **kw):
+    """fn's output and (dq, dk, dv, dbias) for the cotangent do."""
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = fn(*ins, H, **kw)
+    return (out.detach(), *torch.autograd.grad(out, ins, do))
+
+
+def phase_smajor_kernel(gen) -> dict:
+    """B5 at the recipe's shapes (q/k/v [128, 76, 768], bf16 and fp32, rate
+    0.1): against its plain version with B1's tolerances, and equal to B1
+    bit for bit, forward and backward, on the same inputs and seed. Times:
+    the S-major core (kernel) and its plain version on S-major operands,
+    SDPA as a yardstick, and the entry's layout copies."""
+    B, S, H, hd = MBS, 76, 12, 64
+    kw = dict(dropout_rate=RATE, seed=11)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = attention_inputs(B, S, H, hd, dtype, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        c0 = fused_attention_train_smajor.layout_copies
+        got = value_and_grads(fused_attention_train_smajor, q, k, v, bias, do,
+                              H, **kw)
+        copies = fused_attention_train_smajor.layout_copies - c0
+        want = value_and_grads(fused_attention_train_smajor_plain, q, k, v,
+                               bias, do, H, **kw)
+        flat = value_and_grads(fused_attention_train_flat, q, k, v, bias, do,
+                               H, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for i, name in enumerate(("out", "dq", "dk", "dv", "dbias")):
+            scale = want[i].float().abs().max().item()
+            if name == "dbias":
+                tol = 1e-4 * scale
+            elif dtype == torch.float32:
+                tol = 1e-5 if name == "out" else 2e-4 * scale
+            else:
+                tol = bf16_ulp(scale) * (1 if name == "out" else 2)
+            err = (got[i].float() - want[i].float()).abs().max().item()
+            check(got[i].dtype == want[i].dtype, f"B5 {dtype} {name} dtype")
+            check(err <= tol, f"B5 {dtype} {name} disagrees: {err} > {tol}")
+            check(torch.equal(got[i], flat[i]),
+                  f"B5 {dtype} {name} is not B1's bit for bit")
+            errs[name] = err
+        check(copies == 8, f"B5 entry made {copies} layout copies, expected 8")
+        print(f"B5 B={B} S={S} {dtype} rate {RATE}: max abs err vs plain "
+              + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+              + "; out, dq, dk, dv, dbias equal B1's bit for bit; "
+              f"{copies} layout copies (4 forward, 4 backward)")
+        with torch.no_grad():
+            ev = fused_attention_smajor(q, k, v, bias, H)
+            ev_err = (ev.float() - fused_attention_smajor_plain(
+                q, k, v, bias, H).float()).abs().max().item()
+        ev_tol = 1e-5 if dtype == torch.float32 else bf16_ulp(
+            ev.float().abs().max().item())
+        check(ev_err <= ev_tol, f"B5 eval twin {dtype} disagrees: {ev_err}")
+        try:
+            fused_attention_smajor(q.detach().requires_grad_(), k, v, bias, H)
+            check(False, "B5 eval twin accepted grad mode")
+        except RuntimeError as e:
+            check("no backward" in str(e), f"B5 eval twin: {e}")
+        print(f"B5 eval twin {dtype}: max abs err {ev_err:.3g} (tol "
+              f"{ev_tol:.3g}); refuses grad mode")
+
+        qs, ks, vs = (x.transpose(0, 1).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        br = bias.detach().requires_grad_()
+        dos = do.transpose(0, 1).contiguous()
+        o_k = smajor_attention_core(qs, ks, vs, br, H, **kw)
+        o_p = smajor_attention_core_plain(qs, ks, vs, br, H, **kw)
+        qh, kh, vh = (x.detach().view(B, S, H, hd).transpose(1, 2)
+                      .requires_grad_() for x in (q, k, v))
+        o_s = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(dtype))
+        do_s = do.view(B, S, H, hd).transpose(1, 2)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: smajor_attention_core(qs, ks, vs, bias, H,
+                                                           **kw))
+            fwd_plain = time_ms(lambda: smajor_attention_core_plain(
+                qs, ks, vs, bias, H, **kw))
+            fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias.to(dtype)))
+            # the entry's copies: q, k, v to S-major and the output back in
+            # the forward; the output's cotangent in and dq, dk, dv back in
+            # the backward -- four [B, S, H*hd] swaps each way
+            fwd_copy = time_ms(lambda: [x.transpose(0, 1).contiguous()
+                                        for x in (q, k, v, q)])
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            o_k, (qs, ks, vs, br), dos, retain_graph=True))
+        bwd_plain = time_ms(lambda: torch.autograd.grad(
+            o_p, (qs, ks, vs, br), dos, retain_graph=True))
+        bwd_lib = time_ms(lambda: torch.autograd.grad(
+            o_s, (qh, kh, vh), do_s, retain_graph=True))
+        e = q.element_size()
+        fwd_bytes = 4 * B * S * H * hd * e + B * S * 4
+        bwd_bytes = 7 * B * S * H * hd * e + 2 * B * S * 4
+        fwd_ops, bwd_ops = 4 * B * H * S * S * hd, 10 * B * H * S * S * hd
+        for name, ms, plain, lib, nbytes, ops in (
+                ("fwd", fwd_ms, fwd_plain, fwd_lib, fwd_bytes, fwd_ops),
+                ("bwd", bwd_ms, bwd_plain, bwd_lib, bwd_bytes, bwd_ops)):
+            bms, by = bound_ms(nbytes, ops, dtype)
+            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
+            print(f"B5 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP); on fp32 CUDA cores "
+                  f"{fp32_bms:.4f} ms; entry layout copies {fwd_copy:.4f} ms")
+            out[f"smajor_attention_train_{name}/{dtype}"] = dict(
+                max_abs_err=(errs["out"] if name == "fwd"
+                             else max(errs["dq"], errs["dk"], errs["dv"],
+                                      errs["dbias"])),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, copy_ms=fwd_copy)
+    return out
+
+
+COUNTERS = {
+    "flat_attention": (fused_attention_flat, "launches"),
+    "rows_gather": (rows_gather, "launches"),
+    "flat_attention_train_fwd": (fused_attention_train_flat, "launches"),
+    "flat_attention_train_bwd": (fused_attention_train_flat,
+                                 "backward_launches"),
+    "smajor_attention_train_fwd": (fused_attention_train_smajor, "launches"),
+    "smajor_attention_train_bwd": (fused_attention_train_smajor,
+                                   "backward_launches"),
+}
+
+
 def reset_counts() -> None:
-    fused_attention_flat.launches = 0
-    rows_gather.launches = 0
-    fused_attention_train_flat.launches = 0
-    fused_attention_train_flat.backward_launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {"flat_attention": fused_attention_flat.launches,
-            "rows_gather": rows_gather.launches,
-            "flat_attention_train_fwd": fused_attention_train_flat.launches,
-            "flat_attention_train_bwd":
-                fused_attention_train_flat.backward_launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def only(**counts) -> dict:
+    """The expected counts of a path: the given ones, every other 0."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
 
 
 def phase_main_path(tmp: str, cfg: UC2Config, model: UC2) -> dict:
@@ -400,10 +551,8 @@ def phase_main_path(tmp: str, cfg: UC2Config, model: UC2) -> dict:
     print(f"run_eval: {res['n']} QA in {dt:.3f} s -> {res['n'] / dt:.1f} QA/s "
           f"(bs {EVAL_BS}, bf16, bank on, {n_batches} batches) on "
           f"{torch.cuda.get_device_name(0)}; launches {eval_counts}")
-    check(eval_counts == {"flat_attention": 12 * n_batches,
-                          "rows_gather": n_batches,
-                          "flat_attention_train_fwd": 0,
-                          "flat_attention_train_bwd": 0},
+    check(eval_counts == only(flat_attention=12 * n_batches,
+                              rows_gather=n_batches),
           f"run_eval launches {eval_counts}, expected 12 x {n_batches} "
           f"flat_attention and {n_batches} rows_gather")
     check(res["n"] == N_QA, f"run_eval scored {res['n']} of {N_QA}")
@@ -425,9 +574,7 @@ def phase_main_path(tmp: str, cfg: UC2Config, model: UC2) -> dict:
         lat.append((time.perf_counter() - t1) * 1e3)
     pred_counts = read_counts()
     print(f"Predictor launches {pred_counts}")
-    check(pred_counts == {"flat_attention": 0, "rows_gather": N_REQUESTS // 8,
-                          "flat_attention_train_fwd": 0,
-                          "flat_attention_train_bwd": 0},
+    check(pred_counts == only(rows_gather=N_REQUESTS // 8),
           f"Predictor launches {pred_counts}, expected no flat_attention and "
           f"{N_REQUESTS // 8} rows_gather")
     check(len(answers) == N_REQUESTS and all(
@@ -532,9 +679,9 @@ def phase_train(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
           f"{TIMED_STEPS * ACC * MBS / dt:.1f} QA/s (bf16, fp32 master "
           f"weights, dropout {RATE}, lambda {LAMBDA}, flat training attention, "
           f"bank on) on {smi}; launches {counts}")
-    check(counts == {"flat_attention": 0, "rows_gather": ACC * TIMED_STEPS,
-                     "flat_attention_train_fwd": n_blocks * TIMED_STEPS,
-                     "flat_attention_train_bwd": n_blocks * TIMED_STEPS},
+    check(counts == only(rows_gather=ACC * TIMED_STEPS,
+                         flat_attention_train_fwd=n_blocks * TIMED_STEPS,
+                         flat_attention_train_bwd=n_blocks * TIMED_STEPS),
           f"train launches {counts}, expected per step {n_blocks} B1 forward, "
           f"{n_blocks} B1 backward and {ACC} rows_gather")
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
@@ -551,6 +698,47 @@ def phase_train(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
     check(state.step == WARMUP_STEPS + TIMED_STEPS, "step count")
     return {"launches": counts, "ms_per_step": dt / TIMED_STEPS * 1e3,
             "qa_per_s": TIMED_STEPS * ACC * MBS / dt}
+
+
+def phase_train_ab(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
+    """The phase-6 train step with fused_attn "flat" (B1) and "sm" (B5) in
+    turns (AB_ORDER), AB_STEPS timed steps a block after one warm-up step:
+    ms per step of each block, the median of each route, the pairs each
+    route wins and the spread of the flat blocks (quartile distance), on
+    one card in one run."""
+    ds = train_dataset(world, len(AB_ORDER) * (1 + AB_STEPS) * ACC * MBS,
+                       seed=2)
+    pipe = TrainPipeline(ds, micro_batch_size=MBS, grad_acc_steps=ACC,
+                         seed=0, device="cuda", with_features=False)
+    D = torch.from_numpy(uc2_distance_matrix(cfg)).cuda()
+    params = dict(model.named_parameters())
+    opt = make_optimizer(list(params), warmup_linear_schedule(4e-5, 2000, 20000))
+    state = TrainState(model, opt.init(params), 0)
+    bank = world.bank.tensors()
+    batches = pipe.epoch(0)
+    ms = {"flat": [], "sm": []}
+    for fused in AB_ORDER:
+        step = make_train_step(opt, D, semantic_lambda=LAMBDA,
+                               compute_dtype=torch.bfloat16, fused_attn=fused)
+        state, _ = step(state, next(batches), seed=state.step, bank=bank)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AB_STEPS):
+            state, m = step(state, next(batches), seed=state.step, bank=bank)
+        torch.cuda.synchronize()
+        ms[fused].append((time.perf_counter() - t0) / AB_STEPS * 1e3)
+    batches.close()
+    out = {k: statistics.median(v) for k, v in ms.items()}
+    sm_wins = sum(s < f for f, s in zip(ms["flat"], ms["sm"]))
+    q1, _, q3 = statistics.quantiles(ms["flat"], n=4)
+    print(f"train step A/B ({len(AB_ORDER) // 2} pairs, {', '.join(AB_ORDER)}; "
+          f"{AB_STEPS} steps a block): flat {[round(x, 2) for x in ms['flat']]}"
+          f" ms, sm {[round(x, 2) for x in ms['sm']]} ms per step; medians "
+          f"flat {out['flat']:.2f} ms, sm {out['sm']:.2f} ms "
+          f"({(out['sm'] / out['flat'] - 1) * 100:+.2f}% for sm); sm faster in "
+          f"{sm_wins} of {len(ms['sm'])} pairs; flat quartile spread "
+          f"{q3 - q1:.2f} ms; on {smi}")
+    return out
 
 
 def _tiny_batch(r: np.random.RandomState, acc: int, mbs: int, T: int, R: int,
@@ -647,6 +835,169 @@ def phase_train_parity() -> None:
           and perr <= 1e-4, "full-width train step: kernel vs plain route")
 
 
+def uc2_distance_matrix(cfg: UC2Config, seed: int = 0) -> np.ndarray:
+    """bench.py:56's semantic-prior distance matrix: uniform from a seed."""
+    return np.random.RandomState(seed).rand(
+        cfg.num_labels, cfg.num_labels).astype(np.float32)
+
+
+def phase_recipe(smi: str) -> dict:
+    """FinetuneRunner.finetune at UC2's full width with fused_attn="sm":
+    one epoch of RECIPE_STEPS steps of acc 2 x mbs 128 (bf16, dropout 0.1,
+    lambda 10, device bank) over data/synthetic.train_dataset, then val over
+    N_VAL eval_world questions at batch 1024 (K1); the best-params and the
+    end-of-epoch full-state saves and a .bin export into a temporary
+    directory. Returns the run's launch counts."""
+    cfg = UC2Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        world = eval_world(tmp, N_VAL, num_labels=cfg.num_labels,
+                           vocab_size=cfg.vocab_size, device="cuda")
+        pipe = TrainPipeline(train_dataset(world, RECIPE_STEPS * ACC * MBS),
+                             micro_batch_size=MBS, grad_acc_steps=ACC, seed=0,
+                             device="cuda", with_features=False)
+        task = TaskConfig(batch_size=ACC * MBS, eval_batch_size=EVAL_BS,
+                          num_epoch=1, semantic_lambda=LAMBDA)
+        model = UC2(cfg, device="cuda", seed=0)
+        out = os.path.join(tmp, "run")
+        runner = FinetuneRunner(
+            model, pipe, world.dataset, uc2_distance_matrix(cfg),
+            task_cfg=task, optim_cfg=OptimConfig(grad_acc_steps=ACC),
+            output_dir=out, compute_dtype=torch.bfloat16, seed=0,
+            train_bank=world.bank, fused_attn="sm")
+        check(runner.train_fused == "sm", f"train route {runner.train_fused}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        best = runner.finetune()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        runner.export_torch("model.bin")
+        runner.flush_saves()
+        n_blocks = cfg.num_layers * ACC
+        print(f"recipe: FinetuneRunner.finetune, 1 epoch of {RECIPE_STEPS} "
+              f"steps of {ACC} x {MBS} (bf16, dropout {RATE}, lambda {LAMBDA}, "
+              f"fused_attn='sm', bank on) + val over {N_VAL} questions in "
+              f"{dt:.2f} s on {smi}: best val score {best:.4f}, integrated "
+              f"{runner.last_epoch_qa_per_sec:.1f} QA/s; launches {counts}")
+        check(0.0 <= best <= 1.0, f"best val score {best}")
+        check(counts["smajor_attention_train_fwd"] == n_blocks * RECIPE_STEPS
+              and counts["smajor_attention_train_bwd"] == n_blocks * RECIPE_STEPS
+              and counts["flat_attention_train_fwd"] == 0
+              and counts["flat_attention_train_bwd"] == 0
+              and counts["flat_attention"] > 0 and counts["rows_gather"] > 0,
+              f"recipe launches {counts}, expected {n_blocks} B5 forward and "
+              f"backward per step, no B1, some K1 and K2")
+        for rec in runner.save_log:
+            print(f"save {rec['what']} {os.path.relpath(rec['path'], out)}: "
+                  f"{rec['bytes']} bytes in {rec['seconds']:.2f} s")
+        check({r["what"] for r in runner.save_log} == {"params", "state", "bin"},
+              f"saves {[r['what'] for r in runner.save_log]}")
+        with open(os.path.join(out, "meta.json")) as f:
+            meta = json.load(f)
+        check(meta["epoch"] == 0 and meta["step"] == RECIPE_STEPS
+              and os.path.exists(os.path.join(out, meta["state_dir"],
+                                              "state.pt")), f"meta {meta}")
+        recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+        losses = [r["loss"] for r in recs if r["kind"] == "train"]
+        check(len(losses) == RECIPE_STEPS and all(map(math.isfinite, losses)),
+              f"train records {losses}")
+
+        # the exported .bin, loaded into a fresh model the way the CLI's
+        # --from_pretrained does, gives the trained model's fp32 logits
+        fresh = load_numpy_state(UC2(cfg, device="cuda", seed=1),
+                                 load_pretrained(os.path.join(out, "model.bin"),
+                                                 cfg))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 world.dataset.make_batch(list(range(N_VAL))).items()
+                 if k in ("input_ids", "input_mask", "features", "locs",
+                          "image_mask")}
+        with torch.no_grad():
+            a = model(batch, compute_dtype=None, fused_attn="flat")
+            b = fresh(batch, compute_dtype=None, fused_attn="flat")
+        check(torch.isfinite(a).all().item() and a.shape == (N_VAL, cfg.num_labels),
+              "bad trained logits")
+        check(torch.equal(a, b), "the reloaded .bin gives other fp32 logits: "
+              f"max abs diff {(a - b).abs().max().item()}")
+        print(f"recipe: .bin reloaded into a fresh model: fp32 val logits "
+              f"[{N_VAL}, {cfg.num_labels}] equal the trained model's")
+        qa_per_s = runner.last_epoch_qa_per_sec
+        del runner, model, fresh
+    torch.cuda.empty_cache()
+    return {"launches": counts, "qa_per_s": qa_per_s}
+
+
+def phase_recipe_parity() -> None:
+    """A tiny UC2 (hd 64) fine-tuned 2 epochs of 4 steps on the card, bf16,
+    dropout 0.1, for fused_attn "flat" and "sm": preempted after step 2
+    through the _step_callback seam and resumed in a fresh runner, it ends
+    with the uninterrupted run's parameters bit for bit."""
+    tiny = UC2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                     intermediate_size=256, v_feature_size=64, num_locs=7,
+                     pooler_size=128, clf_hidden_size=64, num_labels=40)
+    r = np.random.RandomState(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny.cfs")
+        write_store(path, r, n_images=16, regions=9, feat_dim=64)
+        reader = CfsReader(path)
+        entries = make_entries(r, 64, n_images=16, num_labels=40)
+
+        def dataset(es):
+            return GQADataset(es, reader, HashTokenizer(300), max_seq_length=11,
+                              max_region_num=9, num_locs=7, num_labels=40)
+
+        train, val = dataset(entries), dataset(entries[:16])
+        bank = DeviceFeatureBank(reader, max_regions=9, num_locs=7,
+                                 device="cuda")
+        D = r.rand(40, 40).astype(np.float32)
+        task = TaskConfig(num_labels=40, max_seq_length=11, max_region_num=9,
+                          batch_size=16, eval_batch_size=16, lr=5e-3,
+                          num_epoch=2, semantic_lambda=LAMBDA)
+
+        def runner(out, fused):
+            pipe = TrainPipeline(train, micro_batch_size=8, grad_acc_steps=2,
+                                 seed=0, device="cuda", with_features=False)
+            return FinetuneRunner(
+                UC2(tiny, device="cuda", seed=4), pipe, val, D, task_cfg=task,
+                optim_cfg=OptimConfig(lr=5e-3, grad_acc_steps=2),
+                output_dir=os.path.join(tmp, out),
+                compute_dtype=torch.bfloat16, seed=3, train_bank=bank,
+                fused_attn=fused)
+
+        for fused in ("flat", "sm"):
+            a = runner(f"a_{fused}", fused)
+            a.finetune()
+            b = runner(f"b_{fused}", fused)
+            seen = []
+
+            def hook(i, b=b, seen=seen):
+                seen.append(i)
+                if len(seen) >= 2:
+                    b._preempted = True
+
+            b._step_callback = hook
+            try:
+                b.finetune()
+                check(False, "the preempted run did not stop")
+            except SystemExit:
+                pass
+            with open(os.path.join(tmp, f"b_{fused}", "meta.json")) as f:
+                check(json.load(f)["mid_epoch_step"] == 2, "preempt meta")
+            c = runner(f"b_{fused}", fused)
+            c.finetune(resume=True)
+            want = dict(a.model.named_parameters())
+            diff = [k for k, p in c.model.named_parameters()
+                    if not torch.equal(p, want[k])]
+            print(f"recipe parity, tiny UC2 bf16 dropout {RATE}, "
+                  f"fused_attn={fused!r}: preempted at step 2, resumed; "
+                  f"{len(want) - len(diff)} of {len(want)} parameters equal the "
+                  f"uninterrupted run's bit for bit")
+            check(not diff, f"resumed run differs in {diff[:5]}")
+    for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                         (signal.SIGINT, signal.default_int_handler)):
+        signal.signal(sig, handler)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -656,6 +1007,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     kern.update(phase_train_kernel(torch.Generator("cuda").manual_seed(1)))
+    kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
@@ -666,13 +1018,17 @@ def main() -> int:
         w = main_path["world"]
         phase_parity(cfg, model, w.dataset, w.bank)
         train = phase_train(cfg, model, w, smi)
+        phase_train_ab(cfg, model, w, smi)
     del model
     torch.cuda.empty_cache()
     phase_train_parity()
+    recipe = phase_recipe(smi)
+    phase_recipe_parity()
     # `launches`: the count of the kernel's own slice's main path (run_eval
-    # for the eval kernels, the train step for B1); `launches_by_path`
-    # gives each path's own count
-    by_path = dict(main_path["launches"], train=train["launches"])
+    # for the eval kernels, the train step for B1, the fine-tune recipe for
+    # B5); `launches_by_path` gives each path's own count
+    by_path = dict(main_path["launches"], train=train["launches"],
+                   finetune=recipe["launches"])
     bf16 = torch.bfloat16
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -693,7 +1049,15 @@ def main() -> int:
             ("flat_attention_train_bwd", "train",
              f"flat_attention_train_bwd/{bf16}",
              "clg_vqa_tpu_torch/csrc/flat_attention_train.cu",
-             "clg_vqa_tpu/ops/attention.py:413"))
+             "clg_vqa_tpu/ops/attention.py:413"),
+            ("smajor_attention_train_fwd", "finetune",
+             f"smajor_attention_train_fwd/{bf16}",
+             "clg_vqa_tpu_torch/csrc/smajor_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:1082"),
+            ("smajor_attention_train_bwd", "finetune",
+             f"smajor_attention_train_bwd/{bf16}",
+             "clg_vqa_tpu_torch/csrc/smajor_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:1100"))
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

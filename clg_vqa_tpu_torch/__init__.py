@@ -7,8 +7,10 @@ package; what it needs of the JAX package's framework-free modules it keeps
 as its own copies.
 
 Entry points (``models.uc2.UC2``, ``data.device_bank.DeviceFeatureBank``,
-``eval.runner.run_eval``, ``eval.predictor.Predictor``) run on ``cuda``
-unless the caller passes ``device="cpu"``; see :func:`resolve_device`.
+``eval.runner.run_eval``, ``eval.predictor.Predictor``,
+``train.driver.FinetuneRunner``, ``python -m clg_vqa_tpu_torch.cli``) run on
+``cuda`` unless the caller passes ``device="cpu"`` (the CLI:
+``--device cpu``); see :func:`resolve_device`.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Typed UC2 configuration (own copy of clg_vqa_tpu/config.py:30-133).
+"""Typed configurations (own copy of clg_vqa_tpu/config.py:30-133, 203-285):
+the UC2 model, the GQA task and the fine-tuning optimizer.
 
-UC2 is the only model of this slice. The VOLTA JSON config
+UC2 is the only model ported so far. The VOLTA JSON config
 (volta/config/uc2_base.json) describes 24 gated sublayers; CLG-VQA only
 uses the wiring in which they collapse to a 12-block joint-sequence
 post-LN transformer, and ``from_json`` rejects any other wiring.
@@ -109,3 +110,90 @@ def _validate_collapsed_wiring(d: Mapping[str, Any]) -> None:
             raise ValueError(f"Per-sublayer size overrides unsupported: {key}={d[key]}")
     if d["hidden_size"] != d["v_hidden_size"]:
         raise ValueError("hidden_size != v_hidden_size cannot collapse")
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskConfig:
+    """GQA/xGQA task config (own copy of clg_vqa_tpu/config.py:203-263;
+    volta/config_tasks/iglue_*_tasks_*.dtu.yml TASK15)."""
+
+    name: str = "GQA"
+    task_type: str = "VL-classifier-GQA"
+    num_labels: int = 1842
+    loss: str = "CrossEntropyLoss"
+    dataroot: str = ""
+    features_path_train: str = ""
+    features_path_val: str = ""
+    annotations_jsonpath: str = ""
+    max_seq_length: int = 40
+    max_region_num: int = 36
+    batch_size: int = 256
+    eval_batch_size: int = 1024
+    train_split: str = "train"
+    val_split: str = "val"
+    lr: float = 4e-5
+    num_epoch: int = 5
+    # paper knobs
+    semantic_lambda: float = 10.0
+    semantic_top_k: int = 10
+    semantic_dict_path: str = ""
+    code_mixing: bool = False
+    ratio: float = 1.0        # sentence-level replacement prob
+    cross: float = 0.9        # token-level replacement prob
+    dictionary_path: str = ""
+    # classifier init from answer word embeddings (train_task.py:218-238)
+    embed_clf: bool = False
+
+    @classmethod
+    def from_yaml(cls, path: str, task_id: str = "15") -> "TaskConfig":
+        """The ``TASK{task_id}`` entry of a task YAML. PyYAML is imported
+        here only, so the package imports where it is not installed."""
+        import yaml
+        with open(path) as f:
+            raw = yaml.safe_load(f)["TASK" + task_id]
+        return cls(
+            name=raw.get("name", "GQA"),
+            task_type=raw.get("type", "VL-classifier-GQA"),
+            num_labels=raw.get("num_labels", 1842),
+            loss=raw.get("loss", "CrossEntropyLoss"),
+            dataroot=raw.get("dataroot", ""),
+            features_path_train=raw.get("features_h5path1", ""),
+            features_path_val=raw.get("features_h5path2", ""),
+            annotations_jsonpath=raw.get("train_annotations_jsonpath", "") or "",
+            max_seq_length=raw.get("max_seq_length", 40),
+            max_region_num=raw.get("max_region_num", 36),
+            batch_size=raw.get("batch_size", 256),
+            eval_batch_size=raw.get("eval_batch_size", 1024),
+            train_split=raw.get("train_split", "train"),
+            val_split=raw.get("val_split", "val"),
+            lr=float(raw.get("lr", 4e-5)),
+            num_epoch=raw.get("num_epoch", 5),
+            semantic_lambda=float(raw.get("semantic_lambda", 10.0)),
+            semantic_dict_path=raw.get("semantic_dict_path", "") or "",
+            code_mixing=bool(raw.get("code_mixing", False)),
+            ratio=float(raw.get("ratio", 1.0)),
+            cross=float(raw.get("cross", 0.9)),
+            dictionary_path=raw.get("dictionary_path", "") or "",
+            embed_clf=bool(raw.get("embed_clf", False)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Fine-tuning optimizer envelope (own copy of clg_vqa_tpu/config.py:266-285;
+    experiments/zero_shot/uc2/xgqa/train.dtu.sh, volta/train_task.py:249-276)."""
+
+    lr: float = 4e-5
+    adam_betas: tuple[float, float] = (0.9, 0.999)
+    adam_epsilon: float = 1e-6
+    correct_bias: bool = True
+    weight_decay: float = 1e-4
+    clip_grad_norm: float = 1.0
+    warmup_proportion: float = 0.1
+    grad_acc_steps: int = 4
+    lr_scheduler: str = "warmup_linear"
+    # schedule HORIZON in epochs, independent of num_epoch: the reference
+    # sizes WarmupLinearSchedule by --optim_train_epochs (default 20,
+    # train_task.py:86,271-274) while training num_epoch (5), so warmup
+    # spans 2 epochs and the final lr is ~0.83x base
+    optim_train_epochs: int = 20

@@ -1,404 +1,19 @@
-// Flat-boundary training attention for Hopper (sm_90a): forward and backward.
+// Flat-boundary training attention for Hopper (sm_90a): forward and backward
+// (B1).
 //
 // Replaces the TPU kernels clg_vqa_tpu/ops/attention.py:_flat_fwd_kernel and
 // _flat_bwd_kernel as launched by _attn_train_flat_fwd/_bwd (entry
 // fused_attention_train_flat). q, k, v, do and the gradients stay in the
-// projections' [B, S, H*hd] layout, head h at column offset h*hd.
-//
-// Forward, per (b, h): s = (q k^T) * (1/sqrt(hd)) + bias in fp32, p = a
-// max-subtracted fp32 softmax, p_d = keep ? p * 256/t : 0, o = p_d v with an
-// fp32 accumulator, cast to q's dtype.
-// Backward: recompute p and the keep mask, then dv = p_d^T do,
-// dp = keep ? (do v^T) * 256/t : 0, ds = p * (dp - sum_j dp*p),
-// dq = (ds k) / sqrt(hd), dk = (ds^T q) / sqrt(hd), and the bias gradient
-// sum_i ds per (b, h) as [B, H, S]; the caller sums it over heads in a fixed
-// order. No float atomics anywhere, so every bit is reproducible.
-//
-// Dropout bits: Philox4x32-10 keyed by the 64-bit seed, counter
-// (key column / 16, query row, head, sample); key column j keeps where byte
-// j % 16 of that call's 16 output bytes is below t. The plain PyTorch version
-// (ops/attention.py:dropout_keep_mask) computes the same bits, and the
-// backward replays them without storing a mask.
-//
-// What bounds it on the H100: at UC2 training (B=128, S=76, H*hd=768, bf16)
-// the forward moves ~60 MB and does ~2.3 GFLOP, the backward ~105 MB and
-// ~5.7 GFLOP. These first kernels run their products on the fp32 CUDA cores
-// (67 TFLOP/s), so they are bound by operations, not bytes (0.034 ms and
-// 0.085 ms at that peak against 0.018 ms and 0.031 ms by bytes); tensor
-// cores are left for a later change.
-//
-// Design: one block per (head, sample), as the eval kernel
-// (flat_attention.cu). The forward stages K (rows padded to hd+1 floats
-// against bank conflicts) and V in shared memory as fp32, and each warp
-// walks query rows: lanes own keys for the scores, shuffles reduce max and
-// sum, lanes own output columns for P.V. The backward stages K, V and do
-// plus one [S, S] fp32 tile T and runs four phases separated by block
-// barriers: (A) each warp writes its rows' p_d into T; (B) warps own key
-// rows j and lanes own columns to form dv_j = sum_i T[i][j] do_i; (C) each
-// warp recomputes p for its rows (the same instructions as phase A, so the
-// same bits), forms dp and ds, writes ds into T and dq_i = ds_i K; (D) Q is
-// staged where K was and warps own key rows to form dk_j = sum_i T[i][j] q_i
-// and the head's bias gradient. At S=140, hd=64 that is ~191 KB of shared
-// memory, opted in above 48 KB. The Philox words of one query row are made
-// by ceil(S/16) lanes of the warp and read from a per-warp buffer.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// projections' [B, S, H*hd] layout, head h at column offset h*hd. The device
+// code, its bound on the H100 and its design are in attention_train.cuh,
+// shared with the S-major kernels (smajor_attention_train.cu).
+#include "attention_train.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__host__ __device__ constexpr int groups(int S) { return (S + 15) / 16; }
-
-// Philox4x32-10 (Random123's philox4x32_R with R = 10).
-__device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
-
-// The keep bits of query row i of (b, h): 16 bytes per Philox call, call g
-// for key columns 16g..16g+15, written to the warp's buffer mw[4*G] (bytes
-// in little-endian order, so byte j of the buffer is key column j).
-__device__ __forceinline__ void row_bits(uint32_t* mw, int S, int i, int h, int b,
-                                         uint64_t seed, int lane) {
-  for (int g = lane; g < groups(S); g += 32) {
-    uint32_t c[4] = {(uint32_t)g, (uint32_t)i, (uint32_t)h, (uint32_t)b};
-    philox(c, (uint32_t)seed, (uint32_t)(seed >> 32));
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mw[4 * g + w] = c[w];
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ bool kept(const uint32_t* mw, int j, int keep_t) {
-  return (int)((mw[j >> 2] >> (8 * (j & 3))) & 0xffu) < keep_t;
-}
-
-// Scores of query row i (q row held in registers) against the K tile, into
-// pw[0..S), then the softmax in place, leaving p in pw. The same code
-// runs in the forward and in both recomputations of the backward, so p has
-// the same bits everywhere.
-template <int HDIM>
-__device__ __forceinline__ void softmax_row(const float (&qr)[HDIM], const float* Ks,
-                                            const float* bs, float* pw, int S,
-                                            float scale, int lane) {
-  constexpr int KS = HDIM + 1;
-  float m = -INFINITY;
-  for (int j = lane; j < S; j += 32) {
-    const float* kr = Ks + j * KS;
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < HDIM; ++d) acc = fmaf(qr[d], kr[d], acc);
-    const float s = acc * scale + bs[j];
-    pw[j] = s;
-    m = fmaxf(m, s);
-  }
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < S; j += 32) {
-    const float e = expf(pw[j] - m);
-    pw[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  for (int j = lane; j < S; j += 32) pw[j] = pw[j] / l;
-  __syncwarp();
-}
-
-template <typename T, int HDIM>
-__device__ __forceinline__ void load_row(float (&r)[HDIM], float* stage, const T* src,
-                                         int lane) {
-  for (int d = lane; d < HDIM; d += 32) stage[d] = to_f32(src[d]);
-  __syncwarp();
-#pragma unroll
-  for (int d = 0; d < HDIM; ++d) r[d] = stage[d];
-  __syncwarp();
-}
-
-// Forward shared memory (floats): K [S][HDIM+1], V [S][HDIM], bias [S], and
-// per warp a q row [HDIM], a probability row [S] and the row's keep bits.
-__host__ __device__ constexpr long long fwd_smem_floats(int S, int hdim) {
-  return (long long)S * (hdim + 1) + (long long)S * hdim + S +
-         (long long)kWarps * (hdim + S + 4 * groups(S));
-}
-
-// Backward: K (later Q) and V [S][HDIM+1], do [S][HDIM], T [S][S], bias [S],
-// and per warp a row [HDIM], a dp row [S] and the row's keep bits.
-__host__ __device__ constexpr long long bwd_smem_floats(int S, int hdim) {
-  return 2LL * S * (hdim + 1) + (long long)S * hdim + (long long)S * S + S +
-         (long long)kWarps * (hdim + S + 4 * groups(S));
-}
-
-template <typename T, int HDIM>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, T* __restrict__ out, int S, int HD,
-           float scale, int keep_t, float rscale, uint64_t seed) {
-  extern __shared__ float smem[];
-  constexpr int KS = HDIM + 1;
-  const int G4 = 4 * groups(S);
-  float* Ks = smem;
-  float* Vs = Ks + S * KS;
-  float* bs = Vs + S * HDIM;
-  float* ws = bs + S;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long base = (long long)b * S * HD + (long long)h * HDIM;
-  for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
-    const int s = i / HDIM, d = i % HDIM;
-    const long long g = base + (long long)s * HD + d;
-    Ks[s * KS + d] = to_f32(k[g]);
-    Vs[s * HDIM + d] = to_f32(v[g]);
-  }
-  for (int j = threadIdx.x; j < S; j += kThreads) bs[j] = bias[(long long)b * S + j];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qw = ws + warp * (HDIM + S + G4);
-  float* pw = qw + HDIM;
-  uint32_t* mw = reinterpret_cast<uint32_t*>(pw + S);
-  for (int i = warp; i < S; i += kWarps) {
-    const long long row = base + (long long)i * HD;
-    float qr[HDIM];
-    load_row<T, HDIM>(qr, qw, q + row, lane);
-    softmax_row<HDIM>(qr, Ks, bs, pw, S, scale, lane);
-    if (keep_t < 256) {
-      row_bits(mw, S, i, h, b, seed, lane);
-      for (int j = lane; j < S; j += 32)
-        pw[j] = kept(mw, j, keep_t) ? pw[j] * rscale : 0.f;
-      __syncwarp();
-    }
-#pragma unroll
-    for (int d0 = 0; d0 < HDIM; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) acc = fmaf(pw[j], Vs[j * HDIM + d], acc);
-      store(out + row + d, acc);
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T, int HDIM>
-__global__ void __launch_bounds__(kThreads)
-bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, const T* __restrict__ dout,
-           T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-           float* __restrict__ dbias_heads, int S, int HD, float scale, int keep_t,
-           float rscale, uint64_t seed) {
-  extern __shared__ float smem[];
-  constexpr int KS = HDIM + 1;
-  const int G4 = 4 * groups(S);
-  float* Ks = smem;                 // K, then Q in phase D
-  float* Vs = Ks + S * KS;
-  float* Ds = Vs + S * KS;          // do [S][HDIM]
-  float* Ts = Ds + S * HDIM;        // [S][S]: p_d, then ds
-  float* bs = Ts + S * S;
-  float* ws = bs + S;
-
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
-  const long long base = (long long)b * S * HD + (long long)h * HDIM;
-  for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
-    const int s = i / HDIM, d = i % HDIM;
-    const long long g = base + (long long)s * HD + d;
-    Ks[s * KS + d] = to_f32(k[g]);
-    Vs[s * KS + d] = to_f32(v[g]);
-    Ds[s * HDIM + d] = to_f32(dout[g]);
-  }
-  for (int j = threadIdx.x; j < S; j += kThreads) bs[j] = bias[(long long)b * S + j];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* rw = ws + warp * (HDIM + S + G4);
-  float* dpw = rw + HDIM;
-  uint32_t* mw = reinterpret_cast<uint32_t*>(dpw + S);
-  const bool drop = keep_t < 256;
-
-  // (A) p_d of every query row into T
-  for (int i = warp; i < S; i += kWarps) {
-    float qr[HDIM];
-    load_row<T, HDIM>(qr, rw, q + base + (long long)i * HD, lane);
-    float* tr = Ts + i * S;
-    softmax_row<HDIM>(qr, Ks, bs, tr, S, scale, lane);
-    if (drop) {
-      row_bits(mw, S, i, h, b, seed, lane);
-      for (int j = lane; j < S; j += 32) tr[j] = kept(mw, j, keep_t) ? tr[j] * rscale : 0.f;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  // (B) dv_j = sum_i p_d[i][j] do_i
-  for (int j = warp; j < S; j += kWarps) {
-#pragma unroll
-    for (int d0 = 0; d0 < HDIM; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.f;
-      for (int i = 0; i < S; ++i) acc = fmaf(Ts[i * S + j], Ds[i * HDIM + d], acc);
-      store(dv + base + (long long)j * HD + d, acc);
-    }
-  }
-  __syncthreads();
-
-  // (C) ds into T, and dq_i = (ds_i K) / sqrt(hd)
-  for (int i = warp; i < S; i += kWarps) {
-    const long long row = base + (long long)i * HD;
-    float* tr = Ts + i * S;
-    {
-      float qr[HDIM];
-      load_row<T, HDIM>(qr, rw, q + row, lane);
-      softmax_row<HDIM>(qr, Ks, bs, tr, S, scale, lane);
-    }
-    if (drop) row_bits(mw, S, i, h, b, seed, lane);
-    float dor[HDIM];
-#pragma unroll
-    for (int d = 0; d < HDIM; ++d) dor[d] = Ds[i * HDIM + d];
-    float c = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float* vr = Vs + j * KS;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < HDIM; ++d) acc = fmaf(dor[d], vr[d], acc);
-      const float dp = drop ? (kept(mw, j, keep_t) ? acc * rscale : 0.f) : acc;
-      dpw[j] = dp;
-      c += dp * tr[j];
-    }
-    c = warp_sum(c);
-    for (int j = lane; j < S; j += 32) tr[j] = tr[j] * (dpw[j] - c);
-    __syncwarp();
-#pragma unroll
-    for (int d0 = 0; d0 < HDIM; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.f;
-      for (int j = 0; j < S; ++j) acc = fmaf(tr[j], Ks[j * KS + d], acc);
-      store(dq + row + d, acc * scale);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // (D) Q where K was; dk_j = (sum_i ds[i][j] q_i) / sqrt(hd), bias grad
-  float* Qs = Ks;
-  for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
-    const int s = i / HDIM, d = i % HDIM;
-    Qs[s * KS + d] = to_f32(q[base + (long long)s * HD + d]);
-  }
-  __syncthreads();
-  for (int j = warp; j < S; j += kWarps) {
-#pragma unroll
-    for (int d0 = 0; d0 < HDIM; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.f;
-      for (int i = 0; i < S; ++i) acc = fmaf(Ts[i * S + j], Qs[i * KS + d], acc);
-      store(dk + base + (long long)j * HD + d, acc * scale);
-    }
-    float db = 0.f;
-    for (int i = lane; i < S; i += 32) db += Ts[i * S + j];
-    db = warp_sum(db);
-    if (lane == 0) dbias_heads[((long long)b * H + h) * S + j] = db;
-  }
-}
-
-template <typename K>
-cudaError_t set_smem(K kern, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
-
-float inv_sqrt(int hd) { return (float)(1.0 / sqrt((double)hd)); }
-
-template <typename T, int HDIM>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias,
-                       void* out, int B, int S, int H, int keep_t, float rscale,
-                       uint64_t seed, cudaStream_t st) {
-  const size_t smem = fwd_smem_floats(S, HDIM) * sizeof(float);
-  auto kern = fwd_kernel<T, HDIM>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(H, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), S, H * HDIM, inv_sqrt(HDIM), keep_t, rscale, seed);
-  return cudaGetLastError();
-}
-
-template <typename T, int HDIM>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
-                       const void* dout, void* dq, void* dk, void* dv, float* dbh,
-                       int B, int S, int H, int keep_t, float rscale, uint64_t seed,
-                       cudaStream_t st) {
-  const size_t smem = bwd_smem_floats(S, HDIM) * sizeof(float);
-  auto kern = bwd_kernel<T, HDIM>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(H, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), dbh, S, H * HDIM, inv_sqrt(HDIM), keep_t, rscale, seed);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t fwd_hd(int hd, const void* q, const void* k, const void* v, const float* bias,
-                   void* out, int B, int S, int H, int keep_t, float rscale, uint64_t seed,
-                   cudaStream_t st) {
-  switch (hd) {
-    case 32: return launch_fwd<T, 32>(q, k, v, bias, out, B, S, H, keep_t, rscale, seed, st);
-    case 64: return launch_fwd<T, 64>(q, k, v, bias, out, B, S, H, keep_t, rscale, seed, st);
-    case 128: return launch_fwd<T, 128>(q, k, v, bias, out, B, S, H, keep_t, rscale, seed, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t bwd_hd(int hd, const void* q, const void* k, const void* v, const float* bias,
-                   const void* dout, void* dq, void* dk, void* dv, float* dbh, int B,
-                   int S, int H, int keep_t, float rscale, uint64_t seed, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch_bwd<T, 32>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, keep_t,
-                               rscale, seed, st);
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, keep_t,
-                               rscale, seed, st);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, keep_t,
-                                rscale, seed, st);
-    default: return cudaErrorInvalidValue;
-  }
+attn_train::Layout flat(int S, int H, int hd) {
+  const long long HD = (long long)H * hd;
+  return {HD, (long long)S * HD};
 }
 
 }  // namespace
@@ -408,8 +23,7 @@ extern "C" {
 // Shared memory (bytes) one block of the forward (backward = 0) or the
 // backward (backward = 1) needs at this S and head dim.
 long long flat_attention_train_smem_bytes(int S, int hd, int backward) {
-  return (backward ? bwd_smem_floats(S, hd) : fwd_smem_floats(S, hd)) *
-         (long long)sizeof(float);
+  return attn_train::smem_bytes(S, hd, backward);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [B, S, H*hd] contiguous,
@@ -420,12 +34,8 @@ int flat_attention_train_fwd(int dtype, const void* q, const void* k, const void
                              const void* bias, void* out, int B, int S, int H, int hd,
                              int keep_t, float rscale, unsigned long long seed,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  if (dtype == 0) return (int)fwd_hd<float>(hd, q, k, v, bf, out, B, S, H, keep_t, rscale, seed, st);
-  if (dtype == 1)
-    return (int)fwd_hd<__nv_bfloat16>(hd, q, k, v, bf, out, B, S, H, keep_t, rscale, seed, st);
-  return (int)cudaErrorInvalidValue;
+  return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, flat(S, H, hd),
+                             keep_t, rscale, seed, stream);
 }
 
 // The same operands plus dout [B, S, H*hd]; writes dq, dk, dv (operand
@@ -435,16 +45,8 @@ int flat_attention_train_bwd(int dtype, const void* q, const void* k, const void
                              void* dv, void* dbias_heads, int B, int S, int H, int hd,
                              int keep_t, float rscale, unsigned long long seed,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  float* dbh = static_cast<float*>(dbias_heads);
-  if (dtype == 0)
-    return (int)bwd_hd<float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, keep_t, rscale,
-                              seed, st);
-  if (dtype == 1)
-    return (int)bwd_hd<__nv_bfloat16>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, keep_t,
-                                      rscale, seed, st);
-  return (int)cudaErrorInvalidValue;
+  return attn_train::backward(dtype, q, k, v, bias, dout, dq, dk, dv, dbias_heads, B, S, H,
+                              hd, flat(S, H, hd), keep_t, rscale, seed, stream);
 }
 
 }  // extern "C"

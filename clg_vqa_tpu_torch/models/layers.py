@@ -22,7 +22,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import fused_attention_flat, fused_attention_train_flat
+from ..ops.attention import (fused_attention_flat, fused_attention_train_flat,
+                             fused_attention_train_smajor)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -222,11 +223,12 @@ class LayerNorm(nn.Module):
 
 
 def check_fused(fused) -> None:
-    if fused not in (False, "flat"):
+    """Raise for an attention route the port does not have yet."""
+    if fused not in (False, "flat", "sm"):
         raise NotImplementedError(
-            f"fused_attn={fused!r}: only False and 'flat' are ported; the "
-            f"head-blocked, projected and S-major kernels are queued in "
-            f"ROADMAP.md")
+            f"fused_attn={fused!r}: only False, 'flat' and 'sm' are ported; "
+            f"the whole-block (B4, 'proj') and head-blocked (B2 and B3, True "
+            f"and 'hm') kernels are queued in ROADMAP.md §B")
 
 
 class SelfAttention(nn.Module):
@@ -250,7 +252,11 @@ class SelfAttention(nn.Module):
         fused=False: plain PyTorch core (clg_vqa_tpu/models/layers.py:294-327).
         fused="flat": the flat eval kernel (ops/attention.fused_attention_flat)
         without a seed, the flat training kernel
-        (ops/attention.fused_attention_train_flat, :246-256) with one."""
+        (ops/attention.fused_attention_train_flat, :246-256) with one.
+        fused="sm": the S-major training kernel
+        (ops/attention.fused_attention_train_smajor, :225-245) with a seed;
+        without one the flat eval kernel, as the JAX package routes the
+        deterministic "sm" forward (:257-267)."""
         check_fused(fused)
         B, S, D = x.shape
         H = self.num_heads
@@ -258,12 +264,14 @@ class SelfAttention(nn.Module):
         q = self.q(x, compute_dtype)
         k = self.k(x, compute_dtype)
         v = self.v(x, compute_dtype)
-        if fused == "flat":
+        if fused:
             if seed is None:
                 ctx = fused_attention_flat(q, k, v, attn_bias, H)
             else:
-                ctx = fused_attention_train_flat(
-                    q, k, v, attn_bias, H, dropout_rate=dropout_rate, seed=seed)
+                train = (fused_attention_train_smajor if fused == "sm"
+                         else fused_attention_train_flat)
+                ctx = train(q, k, v, attn_bias, H, dropout_rate=dropout_rate,
+                            seed=seed)
             return self.o(ctx, compute_dtype)
 
         def heads(t):

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so`` at the
 root of the checkout, then loaded with ``ctypes``. The hash covers the
-source and the compiler flags, so an edited source is rebuilt on its next
+source, the shared headers ``csrc/*.cuh`` and the compiler flags, so an
+edited source is rebuilt on its next
 use and nothing stale is ever loaded. Importing this module builds nothing.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ def _nvcc() -> str:
 
 def so_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

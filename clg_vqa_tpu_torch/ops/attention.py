@@ -1,4 +1,5 @@
-"""Flat-boundary attention: CUDA kernels and their plain PyTorch versions.
+"""Attention with the heads looped inside the kernel: CUDA kernels and their
+plain PyTorch versions.
 
 - Eval (K1): ``csrc/flat_attention.cu``, port of
   clg_vqa_tpu/ops/attention.py:fused_attention_flat (:549-593, kernel body
@@ -8,9 +9,15 @@
   ``_flat_bwd_kernel`` :385-459 via ``_attn_train_flat_fwd/_bwd``
   :495-528), a forward and a backward kernel behind an
   ``autograd.Function``.
+- S-major training (B5): ``csrc/smajor_attention_train.cu``, port of
+  ``fused_attention_train_smajor`` / ``fused_attention_smajor``
+  (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
+  ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device code
+  (``csrc/attention_train.cuh``) on [S, B, H*hd] operands.
 
-q/k/v keep the projections' [B, S, H*hd] layout and the kernels loop over
-heads themselves, so no head split/merge transposes exist around them.
+q/k/v keep the projections' [B, S, H*hd] layout (B5: swapped to
+[S, B, H*hd]) and the kernels loop over heads themselves, so no head
+split/merge transposes exist around them.
 Numerics: QK^T post-scaled by 1/sqrt(hd) in fp32, additive key-side bias,
 fp32 softmax, fp32 P.V accumulation, output cast to q's dtype.
 
@@ -220,40 +227,90 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
 
 
 @functools.cache
-def _train_kernels():
-    lib = _build.load("flat_attention_train")
-    fwd = lib.flat_attention_train_fwd
+def _train_kernels(name: str = "flat_attention_train"):
+    """(forward, backward, smem_bytes) of ``csrc/<name>.cu``: B1's
+    ``flat_attention_train`` or B5's ``smajor_attention_train``, which share
+    one C interface."""
+    lib = _build.load(name)
+    fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                     + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
     fwd.restype = ctypes.c_int
-    bwd = lib.flat_attention_train_bwd
+    bwd = getattr(lib, f"{name}_bwd")
     bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                     + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
     bwd.restype = ctypes.c_int
-    smem = lib.flat_attention_train_smem_bytes
+    smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
     return fwd, bwd, smem
+
+
+def _train_seed(dropout_rate: float, seed: int | None) -> tuple[int, int]:
+    """(keep threshold, 64-bit seed) of a training attention call."""
+    t = keep_threshold(dropout_rate)
+    if t < 256 and seed is None:
+        raise ValueError("dropout_rate > 0 needs a seed")
+    return t, 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
+
+
+def _check_train_cuda(q: torch.Tensor, S: int, hd: int, name: str) -> None:
+    """Raise unless the CUDA training kernels of ``csrc/<name>.cu`` take
+    these operands."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES or hd not in (32, 64, 128):
+        raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
+                         f"(32, 64, 128); got {q.dtype}, hd={hd}")
+    _, _, smem_bytes = _train_kernels(name)
+    need = max(smem_bytes(S, hd, 0), smem_bytes(S, hd, 1))
+    if need > _MAX_SMEM:
+        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
+                         f"memory per block, over the {_MAX_SMEM} limit")
+
+
+def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
+                      num_heads: int, keep_t: int, seed: int) -> None:
+    fwd, _, _ = _train_kernels(name)
+    err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              b2.data_ptr(), out.data_ptr(), B, S, num_heads,
+              q.shape[-1] // num_heads, keep_t, 256.0 / keep_t, seed,
+              torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} forward launch failed: CUDA error {err}")
+
+
+def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
+                      num_heads: int, keep_t: int, seed: int):
+    """dq, dk, dv in q's layout and the bias gradient [B, S], summed over
+    heads here in a fixed order, so the bits do not vary between runs."""
+    _, bwd, _ = _train_kernels(name)
+    dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    db_heads = torch.empty(B, num_heads, S, dtype=torch.float32,
+                           device=q.device)
+    err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads,
+              q.shape[-1] // num_heads, keep_t, 256.0 / keep_t, seed,
+              torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} backward launch failed: CUDA error {err}")
+    return dq, dk, dv, db_heads.sum(1)
 
 
 class _FlatTrainFn(torch.autograd.Function):
     """B1 on the card: the forward kernel, and the backward kernel that
     recomputes the probabilities and replays the keep mask. The bias
     gradient comes out per (sample, head) as [B, H, S] and is summed over
-    heads here, in a fixed order, so the bits do not vary between runs."""
+    heads in a fixed order."""
 
     @staticmethod
     def forward(ctx, q, k, v, b2, num_heads, keep_t, seed):
-        B, S, HD = q.shape
-        fwd, _, _ = _train_kernels()
+        B, S, _ = q.shape
         out = torch.empty_like(q)
-        err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  b2.data_ptr(), out.data_ptr(), B, S, num_heads,
-                  HD // num_heads, keep_t, 256.0 / keep_t, seed,
-                  torch.cuda.current_stream(q.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(
-                f"flat_attention_train forward launch failed: CUDA error {err}")
+        _launch_train_fwd("flat_attention_train", q, k, v, b2, out, B, S,
+                          num_heads, keep_t, seed)
         fused_attention_train_flat.launches += 1
         ctx.save_for_backward(q, k, v, b2)
         ctx.meta = (num_heads, keep_t, seed)
@@ -262,23 +319,11 @@ class _FlatTrainFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, b2 = ctx.saved_tensors
-        num_heads, keep_t, seed = ctx.meta
-        B, S, HD = q.shape
-        _, bwd, _ = _train_kernels()
-        dout = dout.to(q.dtype).contiguous()
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        db_heads = torch.empty(B, num_heads, S, dtype=torch.float32,
-                               device=q.device)
-        err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads,
-                  HD // num_heads, keep_t, 256.0 / keep_t, seed,
-                  torch.cuda.current_stream(q.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(
-                f"flat_attention_train backward launch failed: CUDA error {err}")
+        B, S, _ = q.shape
+        grads = _launch_train_bwd("flat_attention_train", q, k, v, b2, dout,
+                                  B, S, *ctx.meta)
         fused_attention_train_flat.backward_launches += 1
-        return dq, dk, dv, db_heads.sum(1), None, None, None
+        return (*grads, None, None, None)
 
 
 def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
@@ -294,23 +339,11 @@ def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
     tensors take the plain version; CUDA tensors launch the kernels (fp32
     or bf16, hd in {32, 64, 128}) or raise."""
     B, S, hd = _check_qkv(q, k, v, num_heads)
-    t = keep_threshold(dropout_rate)
-    if t < 256 and seed is None:
-        raise ValueError("dropout_rate > 0 needs a seed")
-    seed = 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
+    t, seed = _train_seed(dropout_rate, seed)
     if q.device.type == "cpu":
         return fused_attention_train_flat_plain(
             q, k, v, bias, num_heads, dropout_rate=dropout_rate, seed=seed)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPES or hd not in (32, 64, 128):
-        raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
-                         f"(32, 64, 128); got {q.dtype}, hd={hd}")
-    _, _, smem_bytes = _train_kernels()
-    need = max(smem_bytes(S, hd, 0), smem_bytes(S, hd, 1))
-    if need > _MAX_SMEM:
-        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
-                         f"memory per block, over the {_MAX_SMEM} limit")
+    _check_train_cuda(q, S, hd, "flat_attention_train")
     b2 = _bias2(bias.to(q.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(q)
@@ -343,3 +376,190 @@ def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
                                        dropout_rate=dropout_rate, seed=seed)
         mask[..., j0:j0 + n] = (o.view(B, S, H, hd)[..., :n] != 0).transpose(1, 2)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# B5: S-major training attention
+# ---------------------------------------------------------------------------
+
+_SM = "smajor_attention_train"
+
+
+def sm_dims(S: int, B: int, HD: int, num_heads: int) -> tuple[int, int, int]:
+    """(batch tile, group width, heads per group) of the TPU's S-major grid,
+    or raise ValueError on the shapes clg_vqa_tpu/ops/attention.py:_sm_dims
+    (:1027-1050) refuses. The CUDA kernels need no such grid, but the S-major
+    route takes exactly what the JAX route takes: nothing falls back to the
+    flat kernel."""
+    hd = HD // num_heads
+    if 128 % hd == 0:
+        gh, gw = 128 // hd, 128
+    elif hd % 128 == 0:
+        gh, gw = 1, hd
+    else:
+        raise ValueError(f"sm kernel needs hd | 128 or 128 | hd, got {hd}")
+    if HD % gw:
+        raise ValueError(f"sm kernel needs HD % {gw} == 0, got HD={HD}")
+    if num_heads % gh:
+        raise ValueError(f"sm kernel needs num_heads % {gh} == 0 "
+                         f"(heads per 128-lane group), got {num_heads}")
+    if B % 8:
+        raise ValueError(f"sm kernel needs batch % 8 == 0, got {B}")
+    return 8, gw, gh
+
+
+def _swap01(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, ...] <-> [S, B, ...] as a contiguous copy."""
+    return x.transpose(0, 1).contiguous()
+
+
+def smajor_attention_core_plain(qs, ks, vs, bias, num_heads: int, *,
+                                dropout_rate: float = 0.0,
+                                seed: int | None = None) -> torch.Tensor:
+    """The plain version of B5's core on S-major operands [S, B, H*hd]:
+    B1's plain math on the same values, so on one seed it equals
+    :func:`fused_attention_train_flat_plain` bit for bit. Differentiated by
+    autograd; returns [S, B, H*hd]."""
+    out = fused_attention_train_flat_plain(
+        *(_swap01(x) for x in (qs, ks, vs)), bias, num_heads,
+        dropout_rate=dropout_rate, seed=seed)
+    return _swap01(out)
+
+
+def fused_attention_train_smajor_plain(q, k, v, bias, num_heads: int, *,
+                                       dropout_rate: float = 0.0,
+                                       seed: int | None = None) -> torch.Tensor:
+    """The plain version of :func:`fused_attention_train_smajor`: the same
+    shape rules, the operands swapped S-major, the plain core, and the
+    result swapped back to [B, S, H*hd]."""
+    B, S, _ = _check_qkv(q, k, v, num_heads)
+    sm_dims(S, B, q.shape[-1], num_heads)
+    out = smajor_attention_core_plain(*(_swap01(x) for x in (q, k, v)), bias,
+                                      num_heads, dropout_rate=dropout_rate,
+                                      seed=seed)
+    return _swap01(out)
+
+
+class _SwapSB(torch.autograd.Function):
+    """The S-major entry's layout copy, [B, S, .] <-> [S, B, .], forward and
+    backward, each counted in ``fused_attention_train_smajor.layout_copies``.
+    XLA folds these swaps into layout bitcasts; in PyTorch they move data."""
+
+    @staticmethod
+    def forward(ctx, x):
+        fused_attention_train_smajor.layout_copies += 1
+        return _swap01(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        fused_attention_train_smajor.layout_copies += 1
+        return _swap01(g)
+
+
+class _SmTrainFn(torch.autograd.Function):
+    """B5 on the card, on S-major operands: the forward kernel, and the
+    backward kernel that recomputes the probabilities and replays the keep
+    mask (clg_vqa_tpu/ops/attention.py:_attn_train_core_sm, :1147-1194)."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, b2, num_heads, keep_t, seed):
+        S, B, _ = qs.shape
+        out = torch.empty_like(qs)
+        _launch_train_fwd(_SM, qs, ks, vs, b2, out, B, S, num_heads, keep_t,
+                          seed)
+        fused_attention_train_smajor.launches += 1
+        ctx.save_for_backward(qs, ks, vs, b2)
+        ctx.meta = (num_heads, keep_t, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, ks, vs, b2 = ctx.saved_tensors
+        S, B, _ = qs.shape
+        grads = _launch_train_bwd(_SM, qs, ks, vs, b2, dout, B, S, *ctx.meta)
+        fused_attention_train_smajor.backward_launches += 1
+        return (*grads, None, None, None)
+
+
+def smajor_attention_core(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                          bias: torch.Tensor, num_heads: int, *,
+                          dropout_rate: float = 0.0,
+                          seed: int | None = None) -> torch.Tensor:
+    """B5's core on S-major operands [S, B, H*hd], differentiable in qs, ks,
+    vs and bias (key-side, broadcastable to [B, 1, 1, S]): the kernels for
+    CUDA tensors, the plain version for CPU tensors. Returns [S, B, H*hd]."""
+    S, B, hd = _check_qkv(qs, ks, vs, num_heads)
+    sm_dims(S, B, qs.shape[-1], num_heads)
+    t, seed = _train_seed(dropout_rate, seed)
+    if qs.device.type == "cpu":
+        return smajor_attention_core_plain(qs, ks, vs, bias, num_heads,
+                                           dropout_rate=dropout_rate, seed=seed)
+    _check_train_cuda(qs, S, hd, _SM)
+    b2 = _bias2(bias.to(qs.device), B, S)
+    if B == 0 or S == 0:
+        return torch.zeros_like(qs)
+    return _SmTrainFn.apply(qs.contiguous(), ks.contiguous(), vs.contiguous(),
+                            b2, num_heads, t, seed)
+
+
+def fused_attention_train_smajor(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, bias: torch.Tensor,
+                                 num_heads: int, *, dropout_rate: float = 0.0,
+                                 seed: int | None = None) -> torch.Tensor:
+    """Training attention through the S-major kernels (port of
+    clg_vqa_tpu/ops/attention.py:fused_attention_train_smajor, :1197-1220):
+    B1's math and dropout on q/k/v swapped to [S, B, H*hd].
+
+    q/k/v: [B, S, H*hd]; bias: additive key-side, broadcastable to
+    [B, 1, 1, S]; seed as for :func:`fused_attention_train_flat`. Shapes
+    :func:`sm_dims` refuses raise ValueError. Returns [B, S, H*hd]. On the
+    card the swaps are real copies (four forward, four backward, counted in
+    ``layout_copies``); CPU tensors take the plain version."""
+    B, S, _ = _check_qkv(q, k, v, num_heads)
+    sm_dims(S, B, q.shape[-1], num_heads)
+    if q.device.type == "cpu":
+        return fused_attention_train_smajor_plain(
+            q, k, v, bias, num_heads, dropout_rate=dropout_rate, seed=seed)
+    out = smajor_attention_core(*(_SwapSB.apply(x) for x in (q, k, v)), bias,
+                                num_heads, dropout_rate=dropout_rate, seed=seed)
+    return _SwapSB.apply(out)
+
+
+fused_attention_train_smajor.launches = 0
+fused_attention_train_smajor.backward_launches = 0
+fused_attention_train_smajor.layout_copies = 0
+
+
+def fused_attention_smajor_plain(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    """The plain version of :func:`fused_attention_smajor`."""
+    return fused_attention_train_smajor_plain(q, k, v, bias, num_heads)
+
+
+def fused_attention_smajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Forward-only S-major twin (eval; clg_vqa_tpu/ops/attention.py:1223-1238):
+    B5's forward kernel without dropout on [B, S, H*hd] operands swapped
+    S-major and back. The model's deterministic "sm" route takes K1, as the
+    JAX package's does, so only tests and chip_smoke.py call this. Like K1 it
+    has no backward and raises in grad mode when an input requires grad."""
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    sm_dims(S, B, q.shape[-1], num_heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        raise RuntimeError(
+            "fused_attention_smajor is the eval kernel and has no backward; "
+            "use fused_attention_train_smajor for training, or call it under "
+            "torch.no_grad()")
+    if q.device.type == "cpu":
+        return fused_attention_smajor_plain(q, k, v, bias, num_heads)
+    _check_train_cuda(q, S, hd, _SM)
+    qs, ks, vs = (_swap01(x) for x in (q, k, v))
+    out = torch.empty_like(qs)
+    if B and S:
+        _launch_train_fwd(_SM, qs, ks, vs, _bias2(bias.to(q.device), B, S),
+                          out, B, S, num_heads, 256, 0)
+        fused_attention_smajor.launches += 1
+    return _swap01(out)
+
+
+fused_attention_smajor.launches = 0

@@ -1,6 +1,6 @@
 """Where the time of one full-width UC2 fine-tune step goes on the GPU.
 
-    python3 -m clg_vqa_tpu_torch.tools.profile_train [--no-fused]
+    python3 -m clg_vqa_tpu_torch.tools.profile_train [--no-fused | --sm]
         [--out PATH]
 
 The train twin of tools/profile_eval.py. Builds UC2 at its published width
@@ -10,7 +10,9 @@ The train twin of tools/profile_eval.py. Builds UC2 at its published width
 data/synthetic.train_dataset), runs 2 warm-up steps, 5 untraced steps (ms per
 step, QA/s) and 3 steps under torch.profiler, and prints device time per
 step by kernel group, the device's busy share of the traced window and the
-top kernels. Needs a CUDA device.
+top kernels. The training attention is the flat kernels (B1) by default,
+the S-major ones (B5, with their entry's layout copies) with --sm, the
+plain path with --no-fused. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ from .profile_eval import union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-GROUPS = (("B1 forward", ("fwd_kernel<",)),
-          ("B1 backward", ("bwd_kernel<",)),
+GROUPS = (("attention forward (B1/B5)", ("fwd_kernel<",)),
+          ("attention backward (B1/B5)", ("bwd_kernel<",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
           ("softmax", ("softmax",)),
@@ -51,8 +53,11 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--no-fused", action="store_true",
-                    help="plain attention path instead of the B1 kernels")
+    route = ap.add_mutually_exclusive_group()
+    route.add_argument("--no-fused", action="store_true",
+                       help="plain attention path instead of the B1 kernels")
+    route.add_argument("--sm", action="store_true",
+                       help="the S-major training kernels (B5) instead of B1")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
     state = TrainState(model, opt.init(params), 0)
     D = torch.from_numpy(np.random.RandomState(0).rand(
         cfg.num_labels, cfg.num_labels).astype(np.float32)).cuda()
-    fused = False if args.no_fused else "flat"
+    fused = False if args.no_fused else "sm" if args.sm else "flat"
     step = make_train_step(opt, D, semantic_lambda=10.0,
                            compute_dtype=torch.bfloat16, fused_attn=fused)
     lines = []

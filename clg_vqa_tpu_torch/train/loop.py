@@ -39,9 +39,9 @@ class TrainState:
 
 
 def resolve_fused(fused_attn, compute_dtype, device: torch.device):
-    """False, "flat", or "auto": the flat training kernel for bf16 on CUDA,
-    the plain path otherwise (the JAX FinetuneRunner's fused_attn="auto"
-    rule, with the TPU read as CUDA)."""
+    """False, "flat" and "sm" pass through; "auto" is the flat training
+    kernel for bf16 on CUDA and the plain path otherwise (the JAX
+    FinetuneRunner's fused_attn="auto" rule, with the TPU read as CUDA)."""
     if fused_attn == "auto":
         return ("flat" if compute_dtype == torch.bfloat16
                 and device.type == "cuda" else False)
@@ -95,9 +95,10 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
     int32 ``store_idx`` instead of features. ``seed`` (a host int) keys the
     step's dropout: microbatch a draws from fold_seed(seed, a). ``grad_mask``
     maps parameter names to 0/1 tensors or None (pass-through).
-    fused_attn: False, "flat" (ops/attention.fused_attention_train_flat) or
-    "auto". Metrics: ``loss``, ``score`` and ``grad_norm``, the norm of the
-    masked gradients before the clip."""
+    fused_attn: False, "flat" (ops/attention.fused_attention_train_flat),
+    "sm" (ops/attention.fused_attention_train_smajor) or "auto". Metrics:
+    ``loss``, ``score`` and ``grad_norm``, the norm of the masked gradients
+    before the clip."""
     loss_fn = make_loss_fn(distance_matrix, semantic_lambda=semantic_lambda,
                            top_k=top_k, compute_dtype=compute_dtype,
                            fused_attn=fused_attn, criterion=criterion)

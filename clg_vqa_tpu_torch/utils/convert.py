@@ -1,5 +1,5 @@
 """Checkpoint ingest and export for the port's UC2 (the UC2 half of
-clg_vqa_tpu/utils/convert.py:26-127, 153-215).
+clg_vqa_tpu/utils/convert.py:26-215, raw HF XLM-R ingest included).
 
 Three weight formats meet here, all as plain numpy mappings:
 - VOLTA state dicts (the reference's torch names, Linear weights [out, in]);
@@ -118,16 +118,54 @@ def volta_uc2_to_state_dict(sd: Mapping[str, np.ndarray], cfg: UC2Config,
     return out
 
 
-def state_dict_to_volta_uc2(model: UC2, task_key: str = "TASK15"
+def state_dict_to_volta_uc2(model, task_key: str = "TASK15"
                             ) -> dict[str, np.ndarray]:
     """Export for the reference stack, ``v_`` aliases included
-    (clg_vqa_tpu/utils/convert.py:pytree_to_volta_uc2)."""
-    own = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    (clg_vqa_tpu/utils/convert.py:pytree_to_volta_uc2). ``model``: a UC2 or
+    its state dict (tensors or arrays)."""
+    if isinstance(model, torch.nn.Module):
+        model = model.state_dict()
+    own = {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy())
+           for k, v in model.items()}
+    num_layers = sum(1 for k in own if k.startswith("encoder.")
+                     and k.endswith(".ln1.weight"))
     sd = {}
-    for port, volta, aliases in _volta_names(model.cfg.num_layers, task_key):
+    for port, volta, aliases in _volta_names(num_layers, task_key):
+        if port not in own and port.startswith("classifier."):
+            continue
         for name in (volta, *aliases):
             sd[name] = own[port]
     return sd
+
+
+def hf_xlmr_to_uc2_state_dict(sd: Mapping[str, np.ndarray], cfg: UC2Config, *,
+                              seed: int = 0) -> dict[str, np.ndarray]:
+    """A raw HF XLM-R state dict (``roberta.*`` names, per-layer numbering)
+    -> the port's state-dict names (port of
+    clg_vqa_tpu/utils/convert.py:hf_xlmr_to_uc2_pytree, :130-152), via the
+    sublayer-collapse renumbering of the reference's
+    conversions/convert_uc2.py:26: HF layer i is VOLTA attention sublayer 2i
+    and FFN sublayer 2i+1. What the HF checkpoint lacks (image embeddings,
+    pooler, classifier) keeps a fresh init from ``seed``, as the reference's
+    strict=False load does.
+
+    The fresh init enters under the plain VOLTA names only: an HF checkpoint
+    carries no ``v_`` aliases, and a fresh alias beside a loaded plain
+    tensor would fail the shared-weight check (the JAX function merges the
+    aliases in and so raises on a checkpoint without them)."""
+    L = cfg.num_layers
+    norm = normalize_volta_keys(
+        sd, from_hf=True,
+        layer2attn={str(i): 2 * i for i in range(L)},
+        layer2ff={str(i): 2 * i + 1 for i in range(L)})
+    fresh = {k: v.detach().numpy()
+             for k, v in UC2(cfg, device="cpu", seed=seed).state_dict().items()}
+    base = {volta: fresh[port]
+            for port, volta, _ in _volta_names(L, "TASK15")}
+    aliases = {a for _, _, al in _volta_names(L, "TASK15") for a in al}
+    merged = {**base, **{k: v for k, v in norm.items()
+                         if k in base or k in aliases}}
+    return volta_uc2_to_state_dict(merged, cfg)
 
 
 def _port_leaves(path: tuple[str, ...], arr: np.ndarray):

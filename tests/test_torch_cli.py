@@ -1,0 +1,304 @@
+"""The port's CLI (python -m clg_vqa_tpu_torch.cli) on the CPU, on the
+miniature on-disk world of tests/test_cli.py (target pkls, answer vocab,
+task YAML, CFS store): train -> eval -> score -> convert with
+``--device cpu --fp32``, and one exported ``.bin`` evaluated by both CLIs.
+
+Tolerance: the two CLIs' test_result.json files must be identical (argmax
+answers of the same fp32 weights on the same questions)."""
+import json
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from clg_vqa_tpu.cli.__main__ import main as jax_main
+from clg_vqa_tpu.config import UC2Config as JConfig
+from clg_vqa_tpu.models import uc2 as juc2
+from clg_vqa_tpu.train import checkpoints as jckpt
+from clg_vqa_tpu_torch.cli import common as C
+from clg_vqa_tpu_torch.cli.__main__ import main
+from clg_vqa_tpu_torch.data.cfs import CfsWriter
+from clg_vqa_tpu_torch.data.features import RegionRecord
+
+torch.set_num_threads(1)
+
+L, N_IMGS, N_Q = 6, 6, 48
+
+
+@pytest.fixture(scope="module")
+def cli_world(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_cli")
+    r = np.random.RandomState(0)
+    dataroot = tmp / "annotations"
+    dataroot.mkdir()
+    label2ans = [f"ans{k}" for k in range(L)]
+    ans2label = {a: i for i, a in enumerate(label2ans)}
+    pickle.dump(ans2label, open(dataroot / "trainval_ans2label.pkl", "wb"))
+    pickle.dump(label2ans, open(dataroot / "trainval_label2ans.pkl", "wb"))
+
+    def items(lo, hi):
+        return [{"question_id": i, "image_id": f"i{i % N_IMGS}",
+                 "question": f"marker{i % L} thing ?", "labels": [i % L],
+                 "scores": [1.0]} for i in range(lo, hi)]
+
+    pickle.dump(items(0, N_Q), open(dataroot / "train_target.pkl", "wb"))
+    pickle.dump(items(0, 16), open(dataroot / "val_target.pkl", "wb"))
+    test_d = {str(9000 + i): {"imageId": f"i{i % N_IMGS}",
+                              "question": f"marker{i % L} thing ?",
+                              "answer": f"ans{i % L}"} for i in range(12)}
+    json.dump(test_d, open(dataroot / "testdev_balanced_questions.json", "w"))
+
+    store = tmp / "f.cfs"
+    with CfsWriter(str(store)) as w:
+        for i in range(N_IMGS):
+            n = r.randint(3, 8)
+            boxes = np.stack([r.rand(n) * 40, r.rand(n) * 40,
+                              50 + r.rand(n) * 40, 50 + r.rand(n) * 40],
+                             1).astype(np.float32)
+            w.add(RegionRecord(f"i{i}", r.randn(n, 16).astype(np.float32),
+                               boxes, 100.0, 100.0))
+
+    model_cfg = {
+        "attention_probs_dropout_prob": 0.1, "hidden_act": "gelu",
+        "hidden_dropout_prob": 0.1, "hidden_size": 32,
+        "initializer_range": 0.02, "intermediate_size": 64,
+        "max_position_embeddings": 514, "num_attention_heads": 2,
+        "pooler_size": 32, "type_vocab_size": 2, "vocab_size": 128,
+        "pad_token_id": 1, "num_locs": 7, "add_global_imgfeat": None,
+        "image_embeddings": "uc2", "model": "roberta",
+        "v_attention_probs_dropout_prob": 0.1, "v_hidden_act": "gelu",
+        "v_hidden_dropout_prob": 0.1, "v_feature_size": 16,
+        "visual_target_weights": {}, "v_hidden_size": 32,
+        "v_initializer_range": 0.02, "v_pooler_size": 32,
+        "v_num_attention_heads": 2, "v_intermediate_size": 64,
+        "layer_norm_eps": 1e-5, "fusion_method": "text",
+        "clf_hidden_size": 32,
+        "tt_attn_sublayers": [0, 2], "tv_attn_sublayers": [0, 2],
+        "vt_attn_sublayers": [0, 2], "vv_attn_sublayers": [0, 2],
+        "t_ff_sublayers": [1, 3], "v_ff_sublayers": [1, 3],
+        "shared_sublayers": [0, 1, 2, 3], "single_ln_sublayers": [0, 1, 2, 3],
+        "sublayer2attn_hidden_size": {}, "sublayer2num_attention_heads": {},
+        "sublayer2intermediate_size": {}, "sublayer2v_attn_hidden_size": {},
+        "sublayer2v_num_attention_heads": {},
+        "sublayer2v_intermediate_size": {},
+        "bert_layer2attn_sublayer": {"0": 0, "1": 2},
+        "bert_layer2ff_sublayer": {"0": 1, "1": 3},
+    }
+    json.dump(model_cfg, open(tmp / "model.json", "w"))
+    json.dump({**model_cfg, "image_embeddings": "vilbert"},
+              open(tmp / "gated.json", "w"))
+    # the hash tokenizer's full range, so both CLIs tokenize alike
+    json.dump({**model_cfg, "vocab_size": 250002},
+              open(tmp / "full_vocab.json", "w"))
+
+    yaml_text = f"""TASK15:
+  name: GQA
+  type: VL-classifier-GQA
+  num_labels: {L}
+  loss: CrossEntropyLoss
+  dataroot: {dataroot}
+  features_h5path1: {store}
+  features_h5path2: {store}
+  max_seq_length: 8
+  max_region_num: 6
+  batch_size: 16
+  eval_batch_size: 16
+  train_split: train
+  val_split: val
+  lr: 0.005
+  num_epoch: 1
+  semantic_lambda: 1
+  semantic_dict_path: ''
+"""
+    (tmp / "task.yml").write_text(yaml_text)
+    return tmp
+
+
+def _common(tmp, out, config="model.json"):
+    return ["--config_file", str(tmp / config),
+            "--tasks_config_file", str(tmp / "task.yml"),
+            "--output_dir", str(tmp / out), "--fp32", "--device", "cpu"]
+
+
+def test_cli_train_eval_score_convert(cli_world, capsys):
+    tmp = cli_world
+    main(["train", *_common(tmp, "ft"), "--grad_acc_steps", "2"])
+    assert os.path.isfile(tmp / "ft" / "params_best" / "params.pt")
+    meta = json.load(open(tmp / "ft" / "meta.json"))
+    assert meta["epoch"] == 0 and meta["step"] == 3
+    assert os.path.isfile(tmp / "ft" / meta["state_dir"] / "state.pt")
+    recs = [json.loads(x) for x in open(tmp / "ft" / "metrics.jsonl")]
+    assert [r["kind"] for r in recs] == ["train"] * 3 + ["val"]
+    out = capsys.readouterr().out
+    assert "Best validation score" in out
+
+    main(["eval", *_common(tmp, "ev"),
+          "--from_pretrained", str(tmp / "ft" / "params_best"),
+          "--split", "test"])
+    res_file = tmp / "ev" / "test_result.json"
+    preds = json.load(open(res_file))
+    assert len(preds) == 12 and {p["prediction"] for p in preds} <= {
+        f"ans{k}" for k in range(L)}
+    assert "wrote" in capsys.readouterr().out
+
+    main(["score", "--preds_file", str(res_file), "--truth_file",
+          str(tmp / "annotations" / "testdev_balanced_questions.json")])
+    score = capsys.readouterr().out.strip().splitlines()[-1]
+    assert 0.0 <= float(score) <= 100.0
+
+    # convert the best params to a params dir and evaluate it again: the
+    # same predictions
+    main(["convert", *_common(tmp, "conv"), "--from_pretrained",
+          str(tmp / "ft" / "params_best"), "--name", "p"])
+    main(["eval", *_common(tmp, "ev2"), "--from_pretrained",
+          str(tmp / "conv" / "p"), "--split", "test"])
+    assert json.load(open(tmp / "ev2" / "test_result.json")) == preds
+
+
+def test_jax_export_evaluates_identically_in_both_clis(cli_world, capsys):
+    """A JAX model exported by the JAX package's export_torch_bin: the JAX
+    CLI and the port's CLI write the same test_result.json."""
+    tmp = cli_world
+    cfg = JConfig.from_json(str(tmp / "full_vocab.json"), num_labels=L)
+    params = juc2.init_params(jax.random.key(3), cfg)
+    bin_path = str(tmp / "jax_model.bin")
+    jckpt.export_torch_bin(bin_path, params)
+    jax_main(["eval", *_common(tmp, "ev_jax", "full_vocab.json")[:-2],
+              "--from_pretrained", bin_path, "--split", "test"])
+    main(["eval", *_common(tmp, "ev_port", "full_vocab.json"),
+          "--from_pretrained", bin_path, "--split", "test"])
+    want = json.load(open(tmp / "ev_jax" / "test_result.json"))
+    got = json.load(open(tmp / "ev_port" / "test_result.json"))
+    assert len(got) == 12 and got == want
+
+
+@pytest.mark.parametrize("case", ["m3p", "gated", "lmdb", "proj"])
+def test_cli_unported_paths_raise(cli_world, case):
+    tmp = cli_world
+    argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2"]
+    if case == "m3p":
+        argv.append("--is_m3p")
+    elif case == "gated":
+        argv = ["train", *_common(tmp, "bad_gated", "gated.json"),
+                "--grad_acc_steps", "2"]
+    elif case == "lmdb":
+        argv += ["--features_path", str(tmp / "feats_lmdb")]
+    else:
+        argv += ["--fused_attn", "proj"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(argv)
+
+
+def test_cli_defaults_to_cuda(cli_world, monkeypatch):
+    """Without --device the CLI runs on cuda, and raises where CUDA is
+    absent instead of running on the CPU."""
+    tmp = cli_world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["eval", *_common(tmp, "ev_cuda")[:-2], "--split", "test"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+
+
+def test_load_pretrained_reads_an_hf_xlmr_bin(cli_world):
+    """A raw HF XLM-R .bin (roberta.* names, per-layer numbering, no v_
+    aliases) loads through the sublayer collapse; absent parts keep the
+    fresh init."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    cfg = UC2Config.from_json(str(cli_world / "model.json"), num_labels=L)
+    r = np.random.RandomState(5)
+    hf = {"roberta.embeddings.word_embeddings.weight":
+          r.randn(128, 32).astype(np.float32),
+          "roberta.encoder.layer.1.attention.self.query.weight":
+          r.randn(32, 32).astype(np.float32),
+          "roberta.encoder.layer.0.output.dense.bias":
+          r.randn(32).astype(np.float32)}
+    path = str(cli_world / "hf.bin")
+    torch.save({k: torch.from_numpy(v) for k, v in hf.items()}, path)
+    sd = C.load_pretrained(path, cfg)
+    np.testing.assert_array_equal(
+        sd["embeddings.word"], hf["roberta.embeddings.word_embeddings.weight"])
+    np.testing.assert_array_equal(
+        sd["encoder.1.attn.q.weight"],
+        hf["roberta.encoder.layer.1.attention.self.query.weight"])
+    np.testing.assert_array_equal(
+        sd["encoder.0.ffn.w2.bias"], hf["roberta.encoder.layer.0.output.dense.bias"])
+    fresh = UC2(cfg, device="cpu", seed=0).state_dict()
+    np.testing.assert_array_equal(sd["pooler.weight"],
+                                  fresh["pooler.weight"].numpy())
+
+
+def test_task_config_from_yaml_matches_jax(cli_world):
+    """The YAML ingest: the same TASK15 fields, field for field, and the
+    optimizer config the flags build."""
+    import dataclasses
+
+    from clg_vqa_tpu.cli import common as JC
+    from clg_vqa_tpu.config import TaskConfig as JTask
+    from clg_vqa_tpu_torch.config import TaskConfig
+    path = str(cli_world / "task.yml")
+    assert dataclasses.asdict(TaskConfig.from_yaml(path)) == \
+        dataclasses.asdict(JTask.from_yaml(path))
+    import argparse
+    for argv in ([], ["--lr", "0.01", "--num_epoch", "3", "--loss", "BCE",
+                      "--adam_correct_bias", "--optim_train_epochs", "7"]):
+        jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+        JC.add_train_args(JC.add_common_args(jp))
+        C.add_train_args(C.add_common_args(tp))
+        base = ["--config_file", str(cli_world / "model.json"),
+                "--tasks_config_file", path, *argv]
+        jcfg, jtask, jopt = JC.build_configs(jp.parse_args(base))
+        tcfg, ttask, topt = C.build_configs(tp.parse_args(base))
+        assert dataclasses.asdict(ttask) == dataclasses.asdict(jtask)
+        assert dataclasses.asdict(topt) == dataclasses.asdict(jopt)
+        assert dataclasses.asdict(tcfg) == {
+            k: v for k, v in dataclasses.asdict(jcfg).items()}
+
+
+def test_hf_xlmr_ingest_matches_jax_on_the_carried_keys():
+    """tests/test_interop.py's HF-style dict (VOLTA names turned back into
+    per-layer HF names, values doubled, v_ aliases carried along): every
+    tensor the checkpoint carries lands where the JAX package puts it.
+    Without the aliases, as a real HF checkpoint has them, the JAX function
+    trips its shared-weight assertion and the port's loads (ROADMAP §C)."""
+    from clg_vqa_tpu.utils.convert import (hf_xlmr_to_uc2_pytree,
+                                           pytree_to_volta_uc2)
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.utils import convert as TC
+    kw = dict(vocab_size=64, hidden_size=16, num_layers=2, num_heads=2,
+              intermediate_size=32, v_feature_size=8, num_locs=5,
+              pooler_size=16, clf_hidden_size=16, num_labels=4)
+    sd = pytree_to_volta_uc2(juc2.init_params(jax.random.key(1), JConfig(**kw)))
+    hf = {}
+    for k, v in sd.items():
+        if ".layer." in k:
+            num = int(k.split(".layer.")[-1].split(".")[0])
+            if "attention_" in k and num % 2 == 0:
+                nk = k.replace(f".layer.{num}.attention_",
+                               f".layer.{num // 2}.attention.")
+            elif num % 2 == 1 and (".intermediate." in k or ".output." in k):
+                nk = k.replace(f".layer.{num}.", f".layer.{num // 2}.")
+            else:
+                continue
+        elif k == "bert.embeddings.word_embeddings.weight":
+            nk = k
+        else:
+            continue
+        hf[nk.replace("bert.", "roberta.")] = np.asarray(v) * 2.0
+    want = TC.jax_params_to_state_dict(jax.tree.map(
+        np.asarray, hf_xlmr_to_uc2_pytree(hf, JConfig(**kw), seed=0)))
+    got = TC.hf_xlmr_to_uc2_state_dict(hf, UC2Config(**kw))
+    carried = [k for k in got if k.startswith(("encoder.", "embeddings.word"))]
+    assert len(carried) == 1 + 2 * 16
+    for k in carried:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    no_alias = {k: v for k, v in hf.items() if ".v_" not in k}
+    with pytest.raises(AssertionError, match="unshared"):
+        hf_xlmr_to_uc2_pytree(no_alias, JConfig(**kw), seed=0)
+    got2 = TC.hf_xlmr_to_uc2_state_dict(no_alias, UC2Config(**kw))
+    for k in carried:
+        np.testing.assert_array_equal(got2[k], want[k], err_msg=k)

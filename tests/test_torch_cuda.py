@@ -165,3 +165,67 @@ def test_bf16_linear_function_on_cuda_matches_cpu(cuda):
         ulp = 2.0 ** (torch.floor(torch.log2(e.abs() + 1e-30)) - 7)
         assert torch.all((a - e).abs() <= ulp)
     torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [13, 76, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smajor_train_kernels_match_plain(cuda, S, dtype, rate):
+    """B5 forward and backward against autograd of its plain version, same
+    seed, with B1's tolerances (test_flat_train_kernels_match_plain); the
+    entry makes its eight layout copies."""
+    q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    kw = dict(dropout_rate=rate, seed=1234)
+    f0 = TA.fused_attention_train_smajor.launches
+    b0 = TA.fused_attention_train_smajor.backward_launches
+    c0 = TA.fused_attention_train_smajor.layout_copies
+    got = _train_grads(TA.fused_attention_train_smajor, q, k, v, bias, w, **kw)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_train_smajor.launches == f0 + 1
+    assert TA.fused_attention_train_smajor.backward_launches == b0 + 1
+    assert TA.fused_attention_train_smajor.layout_copies == c0 + 8
+    want = _train_grads(TA.fused_attention_train_smajor_plain, q, k, v, bias,
+                        w, **kw)
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        scale = want[i].float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5 if i == 0 else 2e-4 * scale
+        else:
+            tol = _bf16_ulp(scale) * (1 if i == 0 else 2)
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    db_err = (got[4] - want[4]).abs().max().item()
+    assert db_err <= 1e-4 * want[4].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smajor_kernels_equal_flat_kernels_bit_for_bit(cuda, dtype):
+    """B5 and B1 run one device code on two layouts and key dropout alike:
+    output and every gradient equal bit for bit."""
+    q, k, v, bias = _attention_inputs(cuda, 16, 76, 12, 64, dtype)
+    w = torch.randn(q.shape, device=cuda)
+    kw = dict(dropout_rate=0.1, seed=77)
+    a = _train_grads(TA.fused_attention_train_smajor, q, k, v, bias, w, **kw)
+    b = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_smajor_eval_twin_matches_plain_and_refuses_grad_mode(cuda):
+    q, k, v, bias = _attention_inputs(cuda, 8, 76, 12, 64, torch.bfloat16)
+    before = TA.fused_attention_smajor.launches
+    with torch.no_grad():
+        got = TA.fused_attention_smajor(q, k, v, bias, 12)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_smajor.launches == before + 1
+    want = TA.fused_attention_smajor_plain(q, k, v, bias, 12)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.fused_attention_smajor(q.requires_grad_(), k, v, bias, 12)
+    with pytest.raises(ValueError, match="batch"):
+        TA.fused_attention_smajor(q[:3].detach(), k[:3], v[:3], bias[:3], 12)

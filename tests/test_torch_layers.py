@@ -148,7 +148,16 @@ def test_multi_head_attention_unfused_bf16():
 
 @pytest.mark.parametrize("fused", [True, "hm", "proj", "sm"])
 def test_unported_attention_variants_raise(fused):
+    """The unported kernels raise NotImplementedError naming the ROADMAP.
+    The S-major kernel ("sm") is ported: like the JAX route, it raises
+    ValueError on shapes its grid cannot take (here H*hd = 64 and batch 3)
+    and never falls back to another kernel."""
     x, p, mask, attn = _mha_world(8)
+    bias = TL.additive_mask(torch.from_numpy(mask))
+    if fused == "sm":
+        with pytest.raises(ValueError, match="sm kernel needs"):
+            attn(torch.from_numpy(x), bias, fused=fused, dropout_rate=0.1,
+                 seed=1)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn(torch.from_numpy(x), TL.additive_mask(torch.from_numpy(mask)),
-             fused=fused)
+        attn(torch.from_numpy(x), bias, fused=fused)
