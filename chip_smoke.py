@@ -6,7 +6,7 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the four CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the five CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
@@ -15,7 +15,12 @@ final line:
     kernels' keep mask is the plain version's, runs are bit-deterministic,
     the keep fraction is t/256, and <dv, v> equals the loss. The S-major
     training attention (B5) is held to its plain version and to B1, bit
-    for bit, and its entry's layout copies are timed.
+    for bit, and its entry's layout copies are timed. The whole-block
+    training attention (B4: projections, core, output projection) is held
+    to its plain version (y and every gradient, S 13, 76 and 140, fp32 and
+    bf16, rates 0 and 0.1), its y to the flat route's (linear, B1, linear)
+    on one seed, its keep mask to B1's; it is bit-deterministic, and timed
+    beside the flat route as a yardstick.
  4. the eval path at UC2's full width (12 x 768, vocab 250002, 1842
     answers; random weights from a seed): run_eval at batch 1024 in bf16
     over a synthetic 400-image CFS store and device feature bank, then
@@ -25,19 +30,22 @@ final line:
     the same weights on the CPU.
  6. the training path at full width: the UC2 GQA fine-tune step of
     bench.py:54-92 (acc 2 x mbs 128, bf16 with fp32 master weights, dropout
-    0.1, lambda 10, flat training attention, device bank), fed by
-    TrainPipeline: 2 warm-up steps, then timed steps; then the same step
-    with the flat and the S-major training attention timed in turns.
+    0.1, lambda 10, device bank), fed by TrainPipeline: 2 warm-up steps,
+    then timed steps, with the flat training attention (B1) and then with
+    the whole-block one (fused_attn="proj", B4); then the same step with
+    the flat and the S-major training attention timed in turns; then
+    `python -m clg_vqa_tpu_torch.cli train --fused_attn proj` at full width
+    for a few steps over the same store, in process.
  7. training parity: a tiny UC2 trained 3 steps on the card (kernels)
     and on the CPU (plain path), and the full-width fp32 gradients of the
-    kernel route against the plain route.
+    flat (B1) and whole-block (B4) routes against the plain route.
  8. the fine-tune recipe at full width: FinetuneRunner.finetune with the
     S-major training attention (fused_attn="sm"), bf16, dropout 0.1,
     lambda 10, acc 2 x mbs 128, device bank, one epoch over
     data/synthetic.train_dataset, val over 1,024 questions (K1), the
     best-params and full-state saves and a VOLTA .bin export; the .bin
     reloaded into a fresh model gives the trained model's fp32 logits.
- 9. recipe parity at tiny width, for fused_attn "flat" and "sm": a run
+ 9. recipe parity at tiny width, for fused_attn "flat", "sm" and "proj": a run
     preempted at step 2 and resumed in a fresh runner ends with the
     uninterrupted run's parameters, bit for bit.
 Launch counters, set to 0 just before each path's timed run and read just
@@ -49,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import signal
 import statistics
 import subprocess
@@ -59,6 +68,7 @@ import time
 import numpy as np
 import torch
 
+from clg_vqa_tpu_torch.cli.__main__ import main as cli_main
 from clg_vqa_tpu_torch.cli.common import load_pretrained
 from clg_vqa_tpu_torch.config import OptimConfig, TaskConfig, UC2Config
 from clg_vqa_tpu_torch.data.cfs import CfsReader
@@ -81,6 +91,10 @@ from clg_vqa_tpu_torch.ops.attention import (
     keep_threshold, realized_keep_mask, smajor_attention_core,
     smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
+from clg_vqa_tpu_torch.ops.block_attention import (
+    fused_attention_block, fused_attention_block_plain,
+    realized_block_keep_mask)
+from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
                                           make_train_step)
@@ -101,6 +115,7 @@ ACC, MBS, LAMBDA = 2, 128, 10.0
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 RATE = 0.1                   # UC2Config's dropout; keep threshold t = 230
 RECIPE_STEPS, N_VAL = 12, 1024
+CLI_STEPS, CLI_VAL = 3, 1024
 # ten (flat, sm) pairs of blocks, alternating which route runs first
 AB_STEPS, AB_ORDER = 10, ("flat", "sm", "sm", "flat") * 5
 
@@ -153,7 +168,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build(["flat_attention", "flat_attention_train",
-                          "rows_gather", "smajor_attention_train"])
+                          "rows_gather", "smajor_attention_train",
+                          "block_attention_train"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -503,6 +519,179 @@ def phase_smajor_kernel(gen) -> dict:
     return out
 
 
+BLOCK_GRADS = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "bias")
+
+
+def block_args(B: int, S: int, dtype, gen, H: int = 12, hd: int = 64) -> list:
+    """fused_attention_block's operands: x [B, S, H*hd] and four [out, in]
+    weights in dtype, four fp32 biases, a key bias with padded keys."""
+    D = H * hd
+    args = [torch.randn(B, S, D, device="cuda", generator=gen).to(dtype)]
+    for _ in range(4):
+        args += [(torch.randn(D, D, device="cuda", generator=gen) / D ** 0.5
+                  ).to(dtype),
+                 torch.randn(D, device="cuda", generator=gen) * 0.1]
+    lens = torch.randint(S // 2, S + 1, (B,), device="cuda", generator=gen)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None]).float()
+    return args + [((1.0 - mask) * -10000.0)[:, None, None, :]]
+
+
+def block_grads(fn, args, dy, **kw) -> list:
+    """y and the gradients of <y, dy> in the order of BLOCK_GRADS."""
+    ins = [t.detach().requires_grad_() for t in args]
+    y = fn(*ins, 12, **kw)
+    return [y.detach(), *torch.autograd.grad(y, ins, dy)]
+
+
+def block_errors(got, want, dtype, what: str) -> dict:
+    """Raise unless B4 agrees with want. Tolerances: fp32 y 2e-5 of max|y|,
+    each gradient 1e-4 of its scale (summation order only); bf16 y two bf16
+    ulps of max|y|, each gradient 1e-2 of its scale (a rounded q, k, v, ctx
+    or core gradient may flip by one ulp, 2^-8). A gradient's scale is its
+    largest magnitude; the key bias's gradient is zero in exact arithmetic
+    and takes the query bias's scale. Returns the largest absolute errors."""
+    errs = {}
+    scales = [w.float().abs().max().item() for w in want]
+    scales[1 + BLOCK_GRADS.index("bk")] = scales[1 + BLOCK_GRADS.index("bq")]
+    for i, name in enumerate(("y",) + BLOCK_GRADS):
+        if name == "y":
+            tol = (2e-5 * scales[0] if dtype == torch.float32
+                   else 2 * bf16_ulp(scales[0]))
+        else:
+            tol = (1e-4 if dtype == torch.float32 else 1e-2) * scales[i]
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        check(got[i].dtype == want[i].dtype, f"B4 {what} {name} dtype")
+        check(err <= tol, f"B4 {what} {name} disagrees: {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def phase_block_kernel(gen) -> dict:
+    """B4 against its plain version (y and every gradient) at S 13 and 140
+    and at the fine-tune step's shapes ([128, 76, 768], bf16 and fp32, rates
+    0 and 0.1); y against the flat route's composition (linear, B1, linear)
+    on the same seed; bit-determinism; the realized keep mask against B1's
+    and dropout_keep_mask, and its keep fraction. Times (median of 25 CUDA
+    events, rate 0.1, bf16): B4 forward and backward, the plain version,
+    the flat route as the yardstick, and PyTorch's multi_head_attention_
+    forward at rate 0 as the library call."""
+    kw = dict(dropout_rate=RATE, seed=11)
+    for S in (13, 140):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = block_args(32, S, dtype, gen)
+            dy = torch.randn(args[0].shape, device="cuda", generator=gen).to(dtype)
+            e = block_errors(block_grads(fused_attention_block, args, dy, **kw),
+                             block_grads(fused_attention_block_plain, args, dy,
+                                         **kw), dtype, f"S={S} {dtype}")
+            print(f"B4 S={S} {dtype} rate {RATE}: max abs err "
+                  + ", ".join(f"{n} {x:.3g}" for n, x in e.items()))
+    B, S, H, hd = MBS, 76, 12, 64
+    N, D = B * S, H * hd
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = block_args(B, S, dtype, gen)
+        dy = torch.randn(args[0].shape, device="cuda", generator=gen).to(dtype)
+        err = {}
+        for rate in (0.0, RATE):
+            k2 = dict(dropout_rate=rate, seed=11)
+            got = block_grads(fused_attention_block, args, dy, **k2)
+            e = block_errors(got, block_grads(fused_attention_block_plain, args,
+                                              dy, **k2), dtype,
+                             f"B={B} S={S} {dtype} rate {rate}")
+            print(f"B4 B={B} S={S} {dtype} rate {rate}: max abs err "
+                  + ", ".join(f"{n} {x:.3g}" for n, x in e.items()))
+            err = {n: max(err.get(n, 0.0), x) for n, x in e.items()}
+            with torch.no_grad():
+                fy = flat_route(*args, H, **k2)
+            ftol = (2e-5 * fy.float().abs().max().item() if dtype == torch.float32
+                    else 2 * bf16_ulp(fy.float().abs().max().item()))
+            ferr = (got[0].float() - fy.float()).abs().max().item()
+            print(f"B4 {dtype} rate {rate}: y against the flat route (linear, "
+                  f"B1, linear) on one seed: max abs diff {ferr:.3g} (tol {ftol:.3g})")
+            check(ferr <= ftol, f"B4 y differs from the flat route: {ferr}")
+        a = block_grads(fused_attention_block, args, dy, **kw)
+        b = block_grads(fused_attention_block, args, dy, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"B4 {dtype}: two runs with one seed differ")
+        check(not torch.equal(a[0], block_grads(fused_attention_block, args, dy,
+                                                dropout_rate=RATE, seed=12)[0]),
+              f"B4 {dtype}: another seed, same output")
+        print(f"B4 {dtype}: y and every gradient bit-equal over two runs; "
+              f"another seed changes y")
+        if dtype == torch.float32:
+            continue
+
+        ins = [x.detach().requires_grad_() for x in args]
+        y_k = fused_attention_block(*ins, H, **kw)
+        y_p = fused_attention_block_plain(*ins, H, **kw)
+        y_f = flat_route(*ins, H, **kw)
+        # the library call: the same block at rate 0, its biases in bf16 (it
+        # takes one dtype), on seq-first views
+        lw = (torch.cat(ins[1:7:2]), torch.cat(ins[2:7:2]).to(dtype))
+        kpm = ins[9].detach()[:, 0, 0, :].to(dtype)
+
+        def library():
+            xs = ins[0].transpose(0, 1)
+            return torch.nn.functional.multi_head_attention_forward(
+                xs, xs, xs, D, H, lw[0], lw[1], None, None, False, 0.0,
+                ins[7], ins[8].to(dtype), training=True, key_padding_mask=kpm,
+                need_weights=False)[0]
+
+        y_l = library()
+        dy_l = dy.transpose(0, 1)
+        with torch.no_grad():
+            fwd = {name: time_ms(lambda f=f: f(*args, H, **kw))
+                   for name, f in (("kernel", fused_attention_block),
+                                   ("plain", fused_attention_block_plain),
+                                   ("flat", flat_route))}
+            fwd["library"] = time_ms(library)
+        bwd = {name: time_ms(lambda y=y: torch.autograd.grad(
+                   y, ins, dy, retain_graph=True, allow_unused=True))
+               for name, y in (("kernel", y_k), ("plain", y_p), ("flat", y_f))}
+        bwd["library"] = time_ms(lambda: torch.autograd.grad(
+            y_l, ins[:9], dy_l, retain_graph=True, allow_unused=True))
+        e = args[0].element_size()
+        act, wts = N * D * e, D * D * e
+        # forward: x, 4 weights, 4 biases and the key bias in; y and the
+        # residuals q, k, v, ctx out. 8 N D^2 for the four projections, 4
+        # B H S^2 hd for the core. Backward: x, q, k, v, ctx, g, the weights
+        # and the key bias in; dx, dW, db and the key bias's gradient out;
+        # 16 N D^2 (dctx, four dW, three dx) and 10 B H S^2 hd for the core
+        fwd_bytes = 6 * act + 4 * wts + 4 * D * 4 + B * S * 4
+        bwd_bytes = 7 * act + 8 * wts + 4 * D * 4 + 2 * B * S * 4
+        core = B * H * S * S * hd
+        fwd_ops, bwd_ops = 8 * N * D * D + 4 * core, 16 * N * D * D + 10 * core
+        for name, t, nbytes, ops, key in (
+                ("fwd", fwd, fwd_bytes, fwd_ops, "y"),
+                ("bwd", bwd, bwd_bytes, bwd_ops, None)):
+            bms, by = bound_ms(nbytes, ops, dtype)
+            print(f"B4 {name} {dtype} rate {RATE}: kernel {t['kernel']:.4f} ms, "
+                  f"plain {t['plain']:.4f} ms, flat route (cuBLAS linears + "
+                  f"B1) {t['flat']:.4f} ms, multi_head_attention_forward "
+                  f"(rate 0) {t['library']:.4f} ms, bound {bms:.4f} ms ({by}; "
+                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+                  f"{ops / t['kernel'] / 1e9:.1f} TFLOP/s")
+            out[f"block_attention_train_{name}/{dtype}"] = dict(
+                max_abs_err=(err["y"] if key else max(
+                    v for n, v in err.items() if n != "y")),
+                ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+                bound_ms=bms, bound_by=by, flat_route_ms=t["flat"])
+
+    # the kernel's own keep bits, read back through its forward, are B1's
+    # kernel's and the plain mask's
+    t = keep_threshold(RATE)
+    got = realized_block_keep_mask(11, B, H, S, hd, RATE, "cuda")
+    check(torch.equal(got, dropout_keep_mask(11, B, H, S, t, "cuda")),
+          "B4 keep mask differs from the plain mask")
+    check(torch.equal(got, realized_keep_mask(11, B, H, S, hd, RATE, "cuda")),
+          "B4 keep mask differs from B1's")
+    frac = got.float().mean().item()
+    print(f"B4 keep mask [{B},{H},{S},{S}] = B1's = dropout_keep_mask; keep "
+          f"fraction {frac:.5f} (t/256 = {t / 256:.5f})")
+    check(abs(frac - t / 256) <= 0.005, f"B4 keep fraction {frac}")
+    return out
+
+
 COUNTERS = {
     "flat_attention": (fused_attention_flat, "launches"),
     "rows_gather": (rows_gather, "launches"),
@@ -512,6 +701,8 @@ COUNTERS = {
     "smajor_attention_train_fwd": (fused_attention_train_smajor, "launches"),
     "smajor_attention_train_bwd": (fused_attention_train_smajor,
                                    "backward_launches"),
+    "block_attention_train_fwd": (fused_attention_block, "launches"),
+    "block_attention_train_bwd": (fused_attention_block, "backward_launches"),
 }
 
 
@@ -642,10 +833,15 @@ def phase_parity(cfg: UC2Config, model: UC2, ds, bank) -> None:
     check(err <= 1e-4, f"card vs CPU logits differ by {err}")
 
 
-def phase_train(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
+TRAIN_KERNELS = {"flat": "flat_attention_train", "proj": "block_attention_train"}
+
+
+def phase_train(cfg: UC2Config, model: UC2, world, smi: str,
+                fused: str = "flat") -> dict:
     """The UC2 GQA fine-tune step at full width (bench.py:54-92's envelope),
-    fed by TrainPipeline over the eval world's store and device bank.
-    Returns the timed steps' launch counts."""
+    fed by TrainPipeline over the eval world's store and device bank, with
+    the training attention of ``fused``: "flat" (B1) or "proj" (B4, the
+    whole block). Returns the timed steps' launch counts."""
     ds = train_dataset(world, (WARMUP_STEPS + TIMED_STEPS) * ACC * MBS)
     pipe = TrainPipeline(ds, micro_batch_size=MBS, grad_acc_steps=ACC,
                          seed=0, device="cuda", with_features=False)
@@ -655,7 +851,7 @@ def phase_train(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
     opt = make_optimizer(list(params), warmup_linear_schedule(4e-5, 2000, 20000))
     state = TrainState(model, opt.init(params), 0)
     step = make_train_step(opt, D, semantic_lambda=LAMBDA,
-                           compute_dtype=torch.bfloat16, fused_attn="flat")
+                           compute_dtype=torch.bfloat16, fused_attn=fused)
     bank = world.bank.tensors()
     before = {k: p.detach().clone() for k, p in params.items()}
     batches = pipe.epoch(0)
@@ -674,16 +870,17 @@ def phase_train(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
     counts = read_counts()
     batches.close()
     n_blocks = cfg.num_layers * ACC
-    print(f"train: {TIMED_STEPS} steps of {ACC} x {MBS} in {dt:.3f} s -> "
-          f"{dt / TIMED_STEPS * 1e3:.2f} ms/step, "
+    kern = TRAIN_KERNELS[fused]
+    print(f"train ({fused}): {TIMED_STEPS} steps of {ACC} x {MBS} in "
+          f"{dt:.3f} s -> {dt / TIMED_STEPS * 1e3:.2f} ms/step, "
           f"{TIMED_STEPS * ACC * MBS / dt:.1f} QA/s (bf16, fp32 master "
-          f"weights, dropout {RATE}, lambda {LAMBDA}, flat training attention, "
+          f"weights, dropout {RATE}, lambda {LAMBDA}, fused_attn={fused!r}, "
           f"bank on) on {smi}; launches {counts}")
     check(counts == only(rows_gather=ACC * TIMED_STEPS,
-                         flat_attention_train_fwd=n_blocks * TIMED_STEPS,
-                         flat_attention_train_bwd=n_blocks * TIMED_STEPS),
-          f"train launches {counts}, expected per step {n_blocks} B1 forward, "
-          f"{n_blocks} B1 backward and {ACC} rows_gather")
+                         **{f"{kern}_fwd": n_blocks * TIMED_STEPS,
+                            f"{kern}_bwd": n_blocks * TIMED_STEPS}),
+          f"train launches {counts}, expected per step {n_blocks} {kern} "
+          f"forward, {n_blocks} backward, {ACC} rows_gather and nothing else")
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
     norms = torch.stack([m["grad_norm"] for m in metrics]).cpu()
     print(f"train loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
@@ -739,6 +936,82 @@ def phase_train_ab(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
           f"{sm_wins} of {len(ms['sm'])} pairs; flat quartile spread "
           f"{q3 - q1:.2f} ms; on {smi}")
     return out
+
+
+def phase_cli(tmp: str, world, smi: str) -> dict:
+    """``python -m clg_vqa_tpu_torch.cli train --fused_attn proj`` at UC2's
+    full width (configs/uc2_base.json, random weights), run in this process
+    so the launch counters see it: CLI_STEPS steps of acc 2 x mbs 128
+    (bf16, dropout 0.1, device bank) over the eval world's CFS store, with
+    its questions written as train/val annotation pickles, then one val
+    pass over CLI_VAL questions and the saves. Returns its launch counts."""
+    root = os.path.join(tmp, "cli")
+    data = os.path.join(root, "annotations")
+    os.makedirs(data)
+    with open(os.path.join(data, "trainval_ans2label.pkl"), "wb") as f:
+        pickle.dump({a: i for i, a in enumerate(world.label2ans)}, f)
+    with open(os.path.join(data, "trainval_label2ans.pkl"), "wb") as f:
+        pickle.dump(world.label2ans, f)
+    n_train = CLI_STEPS * ACC * MBS
+    for split, es in (("train", world.entries[:n_train]),
+                      ("val", world.entries[n_train:n_train + CLI_VAL])):
+        with open(os.path.join(data, f"{split}_target.pkl"), "wb") as f:
+            pickle.dump([{"question_id": e.question_id, "image_id": e.image_id,
+                          "question": e.question, "labels": e.labels,
+                          "scores": e.scores} for e in es], f)
+    store = os.path.join(tmp, "feats.cfs")
+    task = os.path.join(root, "task.yml")
+    with open(task, "w") as f:
+        f.write(f"TASK15:\n  name: GQA\n  type: VL-classifier-GQA\n"
+                f"  num_labels: {len(world.label2ans)}\n"
+                f"  loss: CrossEntropyLoss\n  dataroot: {data}\n"
+                f"  features_h5path1: {store}\n  features_h5path2: {store}\n"
+                f"  max_seq_length: 40\n  max_region_num: 36\n"
+                f"  batch_size: {ACC * MBS}\n  eval_batch_size: {EVAL_BS}\n"
+                f"  train_split: train\n  val_split: val\n  lr: 4.0e-5\n"
+                f"  num_epoch: 1\n  semantic_lambda: {LAMBDA}\n"
+                f"  semantic_dict_path: ''\n")
+    out = os.path.join(root, "run")
+    argv = ["train", "--config_file",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                         "uc2_base.json"),
+            "--tasks_config_file", task, "--output_dir", out,
+            "--grad_acc_steps", str(ACC), "--fused_attn", "proj"]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                         (signal.SIGINT, signal.default_int_handler)):
+        signal.signal(sig, handler)
+    n_blocks = 12 * ACC
+    print(f"cli train --fused_attn proj: {CLI_STEPS} steps of {ACC} x {MBS} "
+          f"at full width + val over {CLI_VAL} questions + saves in {dt:.2f} s "
+          f"on {smi}; launches {counts}")
+    check(counts["block_attention_train_fwd"] == n_blocks * CLI_STEPS
+          and counts["block_attention_train_bwd"] == n_blocks * CLI_STEPS
+          and counts["flat_attention_train_fwd"] == 0
+          and counts["flat_attention_train_bwd"] == 0
+          and counts["smajor_attention_train_fwd"] == 0
+          and counts["flat_attention"] > 0 and counts["rows_gather"] > 0,
+          f"cli launches {counts}, expected {n_blocks} B4 forward and backward "
+          f"per step, no B1 or B5, some K1 and K2")
+    with open(os.path.join(out, "meta.json")) as f:
+        meta = json.load(f)
+    recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    check(meta["step"] == CLI_STEPS and os.path.exists(
+        os.path.join(out, "params_best", "params.pt")) and os.path.exists(
+        os.path.join(out, meta["state_dir"], "state.pt")), f"cli meta {meta}")
+    check(len(losses) == CLI_STEPS and all(map(math.isfinite, losses)),
+          f"cli train records {losses}")
+    print(f"cli: train losses {[round(x, 4) for x in losses]}; params_best and "
+          f"{meta['state_dir']} saved")
+    return counts
 
 
 def _tiny_batch(r: np.random.RandomState, acc: int, mbs: int, T: int, R: int,
@@ -801,20 +1074,22 @@ def phase_train_parity() -> None:
     model = UC2(cfg, device="cuda", seed=5)
     params = dict(model.named_parameters())
     grads = {}
-    for fused in ("flat", False):
+    for fused in (False, "flat", "proj"):
         loss_fn = make_loss_fn(D, semantic_lambda=LAMBDA, compute_dtype=None,
                                fused_attn=fused)
         loss, _ = loss_fn(model, {k: v[0] for k, v in batch.items()}, seed=0)
         gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads[fused] = (loss.item(), [g for g in gs if g is not None])
-    (lk, gk), (lp, gp) = grads["flat"], grads[False]
+    lp, gp = grads[False]
     gmax = max(g.abs().max().item() for g in gp)
-    gerr = max((a - b).abs().max().item() for a, b in zip(gk, gp))
-    print(f"train parity, full width fp32 mbs 32: loss {lk:.6f} vs {lp:.6f}; "
-          f"grads max abs diff {gerr:.3g} of max |grad| {gmax:.3g} (tol 1e-4 "
-          f"of it)")
-    check(abs(lk - lp) <= 1e-4 * abs(lp) and gerr <= 1e-4 * gmax,
-          "full-width kernel route vs plain route gradients differ")
+    for fused in ("flat", "proj"):
+        lk, gk = grads[fused]
+        gerr = max((a - b).abs().max().item() for a, b in zip(gk, gp))
+        print(f"train parity, full width fp32 mbs 32, {fused!r} route vs plain: "
+              f"loss {lk:.6f} vs {lp:.6f}; grads max abs diff {gerr:.3g} of max "
+              f"|grad| {gmax:.3g} (tol 1e-4 of it)")
+        check(abs(lk - lp) <= 1e-4 * abs(lp) and gerr <= 1e-4 * gmax,
+              f"full-width {fused} route vs plain route gradients differ")
     del grads, gk, gp
     stepped = {}
     for fused in ("flat", False):
@@ -929,7 +1204,7 @@ def phase_recipe(smi: str) -> dict:
 
 def phase_recipe_parity() -> None:
     """A tiny UC2 (hd 64) fine-tuned 2 epochs of 4 steps on the card, bf16,
-    dropout 0.1, for fused_attn "flat" and "sm": preempted after step 2
+    dropout 0.1, for fused_attn "flat", "sm" and "proj": preempted after step 2
     through the _step_callback seam and resumed in a fresh runner, it ends
     with the uninterrupted run's parameters bit for bit."""
     tiny = UC2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
@@ -964,7 +1239,7 @@ def phase_recipe_parity() -> None:
                 compute_dtype=torch.bfloat16, seed=3, train_bank=bank,
                 fused_attn=fused)
 
-        for fused in ("flat", "sm"):
+        for fused in ("flat", "sm", "proj"):
             a = runner(f"a_{fused}", fused)
             a.finetune()
             b = runner(f"b_{fused}", fused)
@@ -1008,6 +1283,7 @@ def main() -> int:
     kern = phase_kernels()
     kern.update(phase_train_kernel(torch.Generator("cuda").manual_seed(1)))
     kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
+    kern.update(phase_block_kernel(torch.Generator("cuda").manual_seed(3)))
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
@@ -1018,7 +1294,9 @@ def main() -> int:
         w = main_path["world"]
         phase_parity(cfg, model, w.dataset, w.bank)
         train = phase_train(cfg, model, w, smi)
+        train_proj = phase_train(cfg, model, w, smi, fused="proj")
         phase_train_ab(cfg, model, w, smi)
+        cli = phase_cli(tmp, w, smi)
     del model
     torch.cuda.empty_cache()
     phase_train_parity()
@@ -1026,9 +1304,11 @@ def main() -> int:
     phase_recipe_parity()
     # `launches`: the count of the kernel's own slice's main path (run_eval
     # for the eval kernels, the train step for B1, the fine-tune recipe for
-    # B5); `launches_by_path` gives each path's own count
+    # B5, the proj train step for B4); `launches_by_path` gives each path's
+    # own count
     by_path = dict(main_path["launches"], train=train["launches"],
-                   finetune=recipe["launches"])
+                   train_proj=train_proj["launches"],
+                   finetune=recipe["launches"], cli_proj=cli)
     bf16 = torch.bfloat16
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1057,7 +1337,15 @@ def main() -> int:
             ("smajor_attention_train_bwd", "finetune",
              f"smajor_attention_train_bwd/{bf16}",
              "clg_vqa_tpu_torch/csrc/smajor_attention_train.cu",
-             "clg_vqa_tpu/ops/attention.py:1100"))
+             "clg_vqa_tpu/ops/attention.py:1100"),
+            ("block_attention_train_fwd", "train_proj",
+             f"block_attention_train_fwd/{bf16}",
+             "clg_vqa_tpu_torch/csrc/block_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:678"),
+            ("block_attention_train_bwd", "train_proj",
+             f"block_attention_train_bwd/{bf16}",
+             "clg_vqa_tpu_torch/csrc/block_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:726"))
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

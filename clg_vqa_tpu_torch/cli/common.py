@@ -89,7 +89,8 @@ def add_train_args(p: argparse.ArgumentParser):
                    help="training attention: 'auto' = the flat kernel for "
                         "bf16 on CUDA, 'on' = the flat kernel, 'off' = plain "
                         "PyTorch, 'flat'/'sm' force the flat or the S-major "
-                        "kernel; 'proj' is not ported yet")
+                        "kernel, 'proj' the whole-block kernel (projections "
+                        "inside)")
     p.add_argument("--no_train_bank", action="store_true",
                    help="stream features host->device per batch instead of "
                         "keeping the train store on the device")

@@ -1,6 +1,7 @@
 // Training attention for Hopper (sm_90a): the per-(head, sample) device code
-// shared by the flat kernels (flat_attention_train.cu, B1) and the S-major
-// kernels (smajor_attention_train.cu, B5).
+// shared by the flat kernels (flat_attention_train.cu, B1), the S-major
+// kernels (smajor_attention_train.cu, B5) and the core of the whole-block
+// kernels (block_attention_train.cu, B4), whose backward reads an fp32 do.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
 // gradients sits at b * sample_stride + s * row_stride + h * hd + d:
@@ -225,10 +226,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-template <typename T, int HDIM>
+// TD, the type of do: T for B1 and B5; float for B4, whose do is the fp32
+// product g Wo^T.
+template <typename T, typename TD, int HDIM>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, const T* __restrict__ dout,
+           const float* __restrict__ bias, const TD* __restrict__ dout,
            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
            float* __restrict__ dbias_heads, int S, Layout lay, float scale, int keep_t,
            float rscale, uint64_t seed) {
@@ -369,18 +372,18 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
-template <typename T, int HDIM>
+template <typename T, typename TD, int HDIM>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                        const void* dout, void* dq, void* dk, void* dv, float* dbh,
                        int B, int S, int H, Layout lay, int keep_t, float rscale,
                        uint64_t seed, cudaStream_t st) {
   const size_t smem = bwd_smem_floats(S, HDIM) * sizeof(float);
-  auto kern = bwd_kernel<T, HDIM>;
+  auto kern = bwd_kernel<T, TD, HDIM>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3(H, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<const TD*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), dbh, S, lay, inv_sqrt(HDIM), keep_t, rscale, seed);
   return cudaGetLastError();
 }
@@ -397,20 +400,20 @@ cudaError_t fwd_hd(int hd, const void* q, const void* k, const void* v, const fl
   }
 }
 
-template <typename T>
+template <typename T, typename TD>
 cudaError_t bwd_hd(int hd, const void* q, const void* k, const void* v, const float* bias,
                    const void* dout, void* dq, void* dk, void* dv, float* dbh, int B,
                    int S, int H, Layout lay, int keep_t, float rscale, uint64_t seed,
                    cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch_bwd<T, 32>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+      return launch_bwd<T, TD, 32>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
                                rscale, seed, st);
     case 64:
-      return launch_bwd<T, 64>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+      return launch_bwd<T, TD, 64>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
                                rscale, seed, st);
     case 128:
-      return launch_bwd<T, 128>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+      return launch_bwd<T, TD, 128>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
                                 rscale, seed, st);
     default: return cudaErrorInvalidValue;
   }
@@ -436,19 +439,23 @@ inline int forward(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// dout_f32 = 0: do in the operands' dtype (B1, B5); 1: do in float32 (B4).
 inline int backward(int dtype, const void* q, const void* k, const void* v,
                     const void* bias, const void* dout, void* dq, void* dk, void* dv,
                     void* dbias_heads, int B, int S, int H, int hd, Layout lay, int keep_t,
-                    float rscale, unsigned long long seed, void* stream) {
+                    float rscale, unsigned long long seed, void* stream, int dout_f32 = 0) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   float* dbh = static_cast<float*>(dbias_heads);
   if (dtype == 0)
-    return (int)bwd_hd<float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
-                              rscale, seed, st);
+    return (int)bwd_hd<float, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, lay,
+                                     keep_t, rscale, seed, st);
+  if (dtype == 1 && dout_f32)
+    return (int)bwd_hd<__nv_bfloat16, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S,
+                                             H, lay, keep_t, rscale, seed, st);
   if (dtype == 1)
-    return (int)bwd_hd<__nv_bfloat16>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, lay,
-                                      keep_t, rscale, seed, st);
+    return (int)bwd_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, bf, dout, dq, dk, dv, dbh,
+                                                     B, S, H, lay, keep_t, rscale, seed, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.attention import (fused_attention_flat, fused_attention_train_flat,
                              fused_attention_train_smajor)
+from ..ops.block_attention import fused_attention_block
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -224,11 +225,11 @@ class LayerNorm(nn.Module):
 
 def check_fused(fused) -> None:
     """Raise for an attention route the port does not have yet."""
-    if fused not in (False, "flat", "sm"):
+    if fused not in (False, "flat", "proj", "sm"):
         raise NotImplementedError(
-            f"fused_attn={fused!r}: only False, 'flat' and 'sm' are ported; "
-            f"the whole-block (B4, 'proj') and head-blocked (B2 and B3, True "
-            f"and 'hm') kernels are queued in ROADMAP.md §B")
+            f"fused_attn={fused!r}: only False, 'flat', 'proj' and 'sm' are "
+            f"ported; the head-blocked kernels (B2 and B3, True and 'hm') are "
+            f"queued in ROADMAP.md §B")
 
 
 class SelfAttention(nn.Module):
@@ -256,11 +257,23 @@ class SelfAttention(nn.Module):
         fused="sm": the S-major training kernel
         (ops/attention.fused_attention_train_smajor, :225-245) with a seed;
         without one the flat eval kernel, as the JAX package routes the
-        deterministic "sm" forward (:257-267)."""
+        deterministic "sm" forward (:257-267).
+        fused="proj": with a seed the whole block, projections included,
+        goes through ops/block_attention.fused_attention_block (B4) with x
+        and the four weights cast to the compute dtype (:205-221); without
+        one the normal projections and the flat eval kernel (:257-267)."""
         check_fused(fused)
         B, S, D = x.shape
         H = self.num_heads
         hd = D // H
+        if fused == "proj" and seed is not None:
+            def c(t):
+                return t if compute_dtype is None else t.to(compute_dtype)
+
+            return fused_attention_block(
+                c(x), c(self.q.weight), self.q.bias, c(self.k.weight),
+                self.k.bias, c(self.v.weight), self.v.bias, c(self.o.weight),
+                self.o.bias, attn_bias, H, dropout_rate=dropout_rate, seed=seed)
         q = self.q(x, compute_dtype)
         k = self.k(x, compute_dtype)
         v = self.v(x, compute_dtype)

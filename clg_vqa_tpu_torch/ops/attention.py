@@ -78,20 +78,27 @@ def _bias2(bias: torch.Tensor, B: int, S: int) -> torch.Tensor:
     return bias.expand(B, 1, 1, S)[:, 0, 0, :].float().contiguous()
 
 
+def split_heads(x: torch.Tensor, num_heads: int, dtype) -> torch.Tensor:
+    """[B, S, H*hd] -> [B, H, S, hd] in ``dtype``."""
+    B, S, HD = x.shape
+    return x.to(dtype).reshape(B, S, num_heads, HD // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, hd] -> [B, S, H*hd]."""
+    B, H, S, hd = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * hd)
+
+
 def fused_attention_flat_plain(q, k, v, bias, num_heads: int) -> torch.Tensor:
     """The plain PyTorch version: upcast, matmul, fp32 softmax, matmul, cast."""
     B, S, HD = q.shape
-    hd = HD // num_heads
-
-    def heads(x):
-        return x.float().reshape(B, S, num_heads, hd).transpose(1, 2)
-
-    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (
-        1.0 / math.sqrt(hd))
+    qh, kh, vh = (split_heads(x, num_heads, torch.float32) for x in (q, k, v))
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * (
+        1.0 / math.sqrt(HD // num_heads))
     scores = scores + _bias2(bias, B, S)[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs, heads(v))
-    return out.transpose(1, 2).reshape(B, S, HD).to(q.dtype)
+    return merge_heads(torch.matmul(probs, vh)).to(q.dtype)
 
 
 def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,6 +207,26 @@ def dropout_keep_mask(seed: int, B: int, H: int, S: int, keep_t: int,
     return bits.reshape(B, H, S, G * 16)[..., :S] < keep_t
 
 
+def plain_probs(q, k, b2, num_heads: int, keep_t: int, seed: int | None):
+    """B1's attention probabilities on the plain side, in b2's dtype (fp32,
+    or fp64 for fp64 inputs): p = softmax(q k^T / sqrt(hd) + bias) [B, H, S,
+    S] and the keep mask of (seed, sample, head, row, column), or None
+    without dropout. b2: [B, S]."""
+    B, S, HD = q.shape
+    scores = torch.matmul(split_heads(q, num_heads, b2.dtype),
+                          split_heads(k, num_heads, b2.dtype).transpose(-1, -2)
+                          ) * (1.0 / math.sqrt(HD // num_heads))
+    p = torch.softmax(scores + b2[:, None, None, :], dim=-1)
+    keep = (dropout_keep_mask(seed, B, num_heads, S, keep_t, q.device)
+            if keep_t < 256 else None)
+    return p, keep
+
+
+def apply_keep(x: torch.Tensor, keep, keep_t: int) -> torch.Tensor:
+    """x where kept, rescaled by 256/t; 0 where dropped; x without a mask."""
+    return x if keep is None else torch.where(keep, x * (256.0 / keep_t), 0.0)
+
+
 def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
                                      dropout_rate: float = 0.0,
                                      seed: int | None = None) -> torch.Tensor:
@@ -211,19 +238,10 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
     if t < 256 and seed is None:
         raise ValueError("dropout_rate > 0 needs a seed")
     ct = torch.promote_types(q.dtype, torch.float32)
-
-    def heads(x):
-        return x.to(ct).reshape(B, S, num_heads, hd).transpose(1, 2)
-
     b2 = bias.expand(B, 1, 1, S)[:, 0, 0, :].to(ct)
-    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (
-        1.0 / math.sqrt(hd))
-    p = torch.softmax(scores + b2[:, None, None, :], dim=-1)
-    if t < 256:
-        keep = dropout_keep_mask(seed, B, num_heads, S, t, q.device)
-        p = torch.where(keep, p * (256.0 / t), 0.0)
-    out = torch.matmul(p, heads(v))
-    return out.transpose(1, 2).reshape(B, S, num_heads * hd).to(q.dtype)
+    p, keep = plain_probs(q, k, b2, num_heads, t, seed)
+    out = torch.matmul(apply_keep(p, keep, t), split_heads(v, num_heads, ct))
+    return merge_heads(out).to(q.dtype)
 
 
 @functools.cache

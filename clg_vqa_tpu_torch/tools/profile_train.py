@@ -1,6 +1,6 @@
 """Where the time of one full-width UC2 fine-tune step goes on the GPU.
 
-    python3 -m clg_vqa_tpu_torch.tools.profile_train [--no-fused | --sm]
+    python3 -m clg_vqa_tpu_torch.tools.profile_train [--no-fused | --sm | --proj]
         [--out PATH]
 
 The train twin of tools/profile_eval.py. Builds UC2 at its published width
@@ -12,7 +12,9 @@ step, QA/s) and 3 steps under torch.profiler, and prints device time per
 step by kernel group, the device's busy share of the traced window and the
 top kernels. The training attention is the flat kernels (B1) by default,
 the S-major ones (B5, with their entry's layout copies) with --sm, the
-plain path with --no-fused. Needs a CUDA device.
+whole-block ones (B4: the q/k/v/o products and their gradients inside the
+kernel entries, around B1's core) with --proj, the plain path with
+--no-fused. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ from .profile_eval import union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-GROUPS = (("attention forward (B1/B5)", ("fwd_kernel<",)),
-          ("attention backward (B1/B5)", ("bwd_kernel<",)),
+GROUPS = (("attention core forward (B1/B5/B4)", ("fwd_kernel<",)),
+          ("attention core backward (B1/B5/B4)", ("bwd_kernel<",)),
+          ("B4 products and sums", ("b4_",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
           ("softmax", ("softmax",)),
@@ -58,6 +61,9 @@ def main(argv=None) -> int:
                        help="plain attention path instead of the B1 kernels")
     route.add_argument("--sm", action="store_true",
                        help="the S-major training kernels (B5) instead of B1")
+    route.add_argument("--proj", action="store_true",
+                       help="the whole-block training kernels (B4) instead "
+                            "of the projections and B1")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -72,7 +78,8 @@ def main(argv=None) -> int:
     state = TrainState(model, opt.init(params), 0)
     D = torch.from_numpy(np.random.RandomState(0).rand(
         cfg.num_labels, cfg.num_labels).astype(np.float32)).cuda()
-    fused = False if args.no_fused else "sm" if args.sm else "flat"
+    fused = (False if args.no_fused else "sm" if args.sm
+             else "proj" if args.proj else "flat")
     step = make_train_step(opt, D, semantic_lambda=10.0,
                            compute_dtype=torch.bfloat16, fused_attn=fused)
     lines = []

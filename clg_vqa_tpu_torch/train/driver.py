@@ -34,16 +34,11 @@ def resolve_train_fused(fused_attn: str, compute_dtype,
     """The training attention route of a ``--fused_attn`` choice
     (clg_vqa_tpu/train/driver.py:126-146, the TPU read as CUDA): "auto"
     and "on" mean the flat kernel B1 ("on" everywhere, "auto" for bf16 on
-    CUDA only), "off" the plain path, "flat" and "sm" force that kernel.
-    "proj" (B4) is not ported and raises NotImplementedError; anything
-    else raises ValueError."""
+    CUDA only), "off" the plain path, "flat", "sm" and "proj" force that
+    kernel (B1, B5, the whole-block B4); anything else raises ValueError."""
     if fused_attn not in FUSED_CHOICES:
         raise ValueError(f"fused_attn must be auto/on/off/flat/proj/sm, "
                          f"got {fused_attn!r}")
-    if fused_attn == "proj":
-        raise NotImplementedError(
-            "fused_attn='proj' (the whole-block attention kernel B4) is not "
-            "ported yet: ROADMAP.md §B, the next kernel")
     if fused_attn in ("on", "off"):
         return "flat" if fused_attn == "on" else False
     return resolve_fused(fused_attn, compute_dtype, device)

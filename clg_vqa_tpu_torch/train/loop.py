@@ -39,7 +39,7 @@ class TrainState:
 
 
 def resolve_fused(fused_attn, compute_dtype, device: torch.device):
-    """False, "flat" and "sm" pass through; "auto" is the flat training
+    """False, "flat", "proj" and "sm" pass through; "auto" is the flat training
     kernel for bf16 on CUDA and the plain path otherwise (the JAX
     FinetuneRunner's fused_attn="auto" rule, with the TPU read as CUDA)."""
     if fused_attn == "auto":
@@ -96,7 +96,8 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
     step's dropout: microbatch a draws from fold_seed(seed, a). ``grad_mask``
     maps parameter names to 0/1 tensors or None (pass-through).
     fused_attn: False, "flat" (ops/attention.fused_attention_train_flat),
-    "sm" (ops/attention.fused_attention_train_smajor) or "auto". Metrics:
+    "sm" (ops/attention.fused_attention_train_smajor), "proj"
+    (ops/block_attention.fused_attention_block) or "auto". Metrics:
     ``loss``, ``score`` and ``grad_norm``, the norm of the masked gradients
     before the clip."""
     loss_fn = make_loss_fn(distance_matrix, semantic_lambda=semantic_lambda,

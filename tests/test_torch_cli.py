@@ -178,6 +178,8 @@ def test_jax_export_evaluates_identically_in_both_clis(cli_world, capsys):
 
 @pytest.mark.parametrize("case", ["m3p", "gated", "lmdb", "proj"])
 def test_cli_unported_paths_raise(cli_world, case):
+    """M3P, the gated zoo and LMDB stores raise NotImplementedError naming
+    the ROADMAP; "--fused_attn proj" (B4) is ported and trains and saves."""
     tmp = cli_world
     argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2"]
     if case == "m3p":
@@ -189,6 +191,12 @@ def test_cli_unported_paths_raise(cli_world, case):
         argv += ["--features_path", str(tmp / "feats_lmdb")]
     else:
         argv += ["--fused_attn", "proj"]
+        main(argv)
+        out = tmp / f"bad_{case}"
+        meta = json.load(open(out / "meta.json"))
+        assert (out / "params_best" / "params.pt").exists()
+        assert (out / meta["state_dir"] / "state.pt").exists()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv)
 

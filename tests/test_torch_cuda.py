@@ -11,6 +11,7 @@ import torch
 from clg_vqa_tpu_torch.models import layers as TL
 from clg_vqa_tpu_torch.ops import attention as TA
 from clg_vqa_tpu_torch.ops import bank_gather as TG
+from clg_vqa_tpu_torch.ops import block_attention as TB
 
 
 @pytest.fixture
@@ -229,3 +230,231 @@ def test_smajor_eval_twin_matches_plain_and_refuses_grad_mode(cuda):
         TA.fused_attention_smajor(q.requires_grad_(), k, v, bias, 12)
     with pytest.raises(ValueError, match="batch"):
         TA.fused_attention_smajor(q[:3].detach(), k[:3], v[:3], bias[:3], 12)
+
+
+# ---------------------------------------------------------------------------
+# B4: the whole-block training attention ("proj")
+# ---------------------------------------------------------------------------
+
+BLOCK_GRADS = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "bias")
+
+
+def _block_inputs(dev, B, S, H, hd, dtype, seed=0):
+    """x [B, S, H*hd], four [out, in] weights in dtype, four fp32 biases,
+    a key bias with padded keys, and a cotangent weighting."""
+    g = torch.Generator(dev).manual_seed(seed)
+    D = H * hd
+    x = torch.randn(B, S, D, device=dev, generator=g).to(dtype)
+    ws = [(torch.randn(D, D, device=dev, generator=g) / D ** 0.5).to(dtype)
+          for _ in range(4)]
+    bs = [torch.randn(D, device=dev, generator=g) * 0.1 for _ in range(4)]
+    mask = torch.ones(B, S, device=dev)
+    mask[1, -(S // 3):] = 0
+    bias = ((1.0 - mask) * -10000.0)[:, None, None, :]
+    w = torch.randn(B, S, D, device=dev, generator=g)
+    args = [x]
+    for wi, bi in zip(ws, bs):
+        args += [wi, bi]
+    return args + [bias], w
+
+
+def _block_grads(fn, args, w, H, **kw):
+    """y and the gradients of sum(y * w) in the order of BLOCK_GRADS."""
+    ins = [a.detach().clone().requires_grad_() for a in args]
+    y = fn(*ins, H, **kw)
+    (y.float() * w).sum().backward()
+    return y.detach(), [a.grad for a in ins]
+
+
+def _grad_scales(want):
+    """Each gradient's scale: its largest magnitude, except the key bias's,
+    whose gradient is zero in exact arithmetic (softmax does not see a shift
+    shared by all keys) and is held at the query bias's scale."""
+    scales = [g.float().abs().max().item() for g in want]
+    scales[BLOCK_GRADS.index("bk")] = scales[BLOCK_GRADS.index("bq")]
+    return scales
+
+
+def _assert_block_close(got, want, dtype):
+    """fp32: y within 2e-5 of max|y|, every gradient within 1e-4 of its
+    scale (summation order only). bf16: y within two bf16 ulps of max|y|,
+    every gradient within 1e-2 of its scale (a rounded q, k, v, ctx or core
+    gradient may flip by one bf16 ulp, 2^-8 of its size)."""
+    (y, gs), (wy, wgs) = got, want
+    assert y.dtype == wy.dtype == dtype
+    ymax = wy.float().abs().max().item()
+    ytol = 2e-5 * ymax if dtype == torch.float32 else 2 * _bf16_ulp(ymax)
+    assert (y.float() - wy.float()).abs().max().item() <= ytol
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b, scale, name in zip(gs, wgs, _grad_scales(wgs), BLOCK_GRADS):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [13, 76, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_match_plain(cuda, S, dtype, rate):
+    """B4 forward and backward (8 x S x 768, 12 heads of 64) against the
+    plain version on the same inputs and seed, one launch of each entry."""
+    args, w = _block_inputs(cuda, 8, S, 12, 64, dtype)
+    kw = dict(dropout_rate=rate, seed=1234)
+    f0, b0 = TB.fused_attention_block.launches, TB.fused_attention_block.backward_launches
+    got = _block_grads(TB.fused_attention_block, args, w, 12, **kw)
+    torch.cuda.synchronize()
+    assert TB.fused_attention_block.launches == f0 + 1
+    assert TB.fused_attention_block.backward_launches == b0 + 1
+    want = _block_grads(TB.fused_attention_block_plain, args, w, 12, **kw)
+    _assert_block_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_block_kernels_full_width_bf16_and_deterministic(cuda):
+    """At the fine-tune step's shapes (128 x 76 x 768, bf16, rate 0.1) B4
+    matches its plain version, and two runs on one seed agree bit for bit
+    (no float atomics in any reduction)."""
+    args, w = _block_inputs(cuda, 128, 76, 12, 64, torch.bfloat16, seed=3)
+    kw = dict(dropout_rate=0.1, seed=99)
+    a = _block_grads(TB.fused_attention_block, args, w, 12, **kw)
+    b = _block_grads(TB.fused_attention_block, args, w, 12, **kw)
+    assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    _assert_block_close(a, _block_grads(TB.fused_attention_block_plain, args,
+                                        w, 12, **kw), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 140])
+def test_block_kernel_mask_is_b1s_mask(cuda, S):
+    """B4's realized keep bits equal B1's kernel's and dropout_keep_mask's on
+    one seed: "proj" and "flat" drop the same attention probabilities."""
+    got = TB.realized_block_keep_mask(42, 4, 12, S, 64, 0.1, cuda)
+    assert torch.equal(got, TA.realized_keep_mask(42, 4, 12, S, 64, 0.1, cuda))
+    assert torch.equal(got.cpu(), TA.dropout_keep_mask(42, 4, 12, S,
+                                                       TA.keep_threshold(0.1)))
+
+
+@pytest.mark.cuda
+def test_block_kernel_rejects_unsupported_operands(cuda):
+    args, _ = _block_inputs(cuda, 2, 9, 4, 16, torch.float32)
+    with pytest.raises(ValueError, match="hd"):
+        TB.fused_attention_block(*args, 4)
+    args, _ = _block_inputs(cuda, 2, 9, 2, 32, torch.float64)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        TB.fused_attention_block(*args, 2)
+
+
+PROPERTIES = ("parity_rate0", "determinism", "seed_sensitivity", "keep_rate",
+              "kept_entries", "mask_agreement", "dropout_vjp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prop", PROPERTIES)
+def test_block_on_chip_properties(cuda, prop):
+    """The seven on-chip properties tools/check_attention_tpu.py checks for
+    the TPU's attention kernels (clg_vqa_tpu/ops/attention.py:53-56), held
+    for B4 on the card:
+    parity_rate0: fp32 at rate 0 against the unfused block (linears and the
+        plain attention of SelfAttention), y and every gradient;
+    determinism: one seed gives bit-equal y and gradients twice;
+    seed_sensitivity: another seed gives another y, and dropout changes y;
+    keep_rate: the realized keep fraction is t/256;
+    kept_entries: kept probabilities are p * 256/t, exactly at rate 0.5 in
+        bf16 (the rescale by 2 commutes with bf16 rounding);
+    mask_agreement: with bv = bo = 0 the block is linear in Wv under a fixed
+        mask, so loss == <dWv, Wv> (the forward and the backward realize one
+        mask), far below what a mismatched seed gives;
+    dropout_vjp: fp32 gradients at rate 0.3 against the plain version in
+        fp64 on the CPU, whose mask is the realized one."""
+    H, hd = 12, 64
+    D = H * hd
+    if prop == "parity_rate0":
+        args, w = _block_inputs(cuda, 8, 140, H, hd, torch.float32, seed=5)
+        got = _block_grads(TB.fused_attention_block, args, w, H, seed=1)
+        attn = TL.SelfAttention(D, H, device=cuda)
+        with torch.no_grad():
+            for i, n in enumerate("qkvo"):
+                getattr(attn, n).weight.copy_(args[1 + 2 * i])
+                getattr(attn, n).bias.copy_(args[2 + 2 * i])
+        x = args[0].clone().requires_grad_()
+        bias = args[-1].clone().requires_grad_()
+        y = attn(x, bias)
+        (y * w).sum().backward()
+        want = (y.detach(), [x.grad] + [t for n in "qkvo" for t in (
+            getattr(attn, n).weight.grad, getattr(attn, n).bias.grad)] + [bias.grad])
+        _assert_block_close(got, want, torch.float32)
+        return
+    if prop in ("determinism", "seed_sensitivity"):
+        args, w = _block_inputs(cuda, 8, 76, H, hd, torch.bfloat16, seed=6)
+        a = _block_grads(TB.fused_attention_block, args, w, H, dropout_rate=0.5, seed=7)
+        if prop == "determinism":
+            b = _block_grads(TB.fused_attention_block, args, w, H, dropout_rate=0.5, seed=7)
+            assert torch.equal(a[0], b[0])
+            assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            return
+        c = _block_grads(TB.fused_attention_block, args, w, H, dropout_rate=0.5, seed=8)
+        d = _block_grads(TB.fused_attention_block, args, w, H, seed=7)
+        assert (a[0] - c[0]).abs().max() > 1e-2 and (a[0] - d[0]).abs().max() > 1e-2
+        assert (a[1][0] - c[1][0]).abs().max() > 1e-2
+        return
+    if prop == "keep_rate":
+        for rate in (0.1, 0.5):
+            t = TA.keep_threshold(rate)
+            frac = TB.realized_block_keep_mask(3, 8, H, 76, hd, rate, cuda).float().mean().item()
+            assert abs(frac - t / 256) < 0.005, (rate, frac)
+        return
+    if prop == "kept_entries":
+        # x one-hot on column h*hd + j in every head, Wv = Wo = I: y holds the
+        # probabilities; random Wq, Wk make them non-uniform
+        B, S = 4, 64
+        g = torch.Generator(cuda).manual_seed(9)
+        x = torch.zeros(B, S, H, hd, device=cuda)
+        x[:, torch.arange(S), :, torch.arange(S)] = 1.0
+        x = x.reshape(B, S, D).bfloat16()
+        wq, wk = (torch.randn(D, D, device=cuda, generator=g).bfloat16()
+                  for _ in range(2))
+        eye = torch.eye(D, device=cuda).bfloat16()
+        zb = torch.zeros(D, device=cuda)
+        bias = torch.zeros(B, 1, 1, S, device=cuda)
+
+        def probs(**kw):
+            with torch.no_grad():
+                y = TB.fused_attention_block(x, wq, zb, wk, zb, eye, zb, eye, zb,
+                                             bias, H, **kw)
+            return y.view(B, S, H, hd).float()
+
+        p0, pd = probs(seed=4), probs(dropout_rate=0.5, seed=4)
+        kept = pd != 0
+        assert torch.equal(pd[kept], 2 * p0[kept])
+        keep = TA.dropout_keep_mask(4, B, H, S, 128, cuda).transpose(1, 2)
+        assert torch.equal(kept, keep)
+        return
+    if prop == "mask_agreement":
+        args, w = _block_inputs(cuda, 8, 76, H, hd, torch.float32, seed=10)
+        args[6] = torch.zeros_like(args[6])          # bv
+        args[8] = torch.zeros_like(args[8])          # bo
+
+        def loss_and_dwv(seed):
+            ins = [a.detach().clone().requires_grad_() for a in args]
+            y = TB.fused_attention_block(*ins, H, dropout_rate=0.3, seed=seed)
+            loss = (y * w).sum()
+            loss.backward()
+            return loss.item(), ins[5].grad
+
+        lv, dwv = loss_and_dwv(7)
+        inner = (dwv.double() * args[5].double()).sum().item()
+        signal = abs(lv - loss_and_dwv(8)[0])
+        assert abs(inner - lv) < signal / 100, (inner, lv, signal)
+        return
+    assert prop == "dropout_vjp"
+    args, w = _block_inputs(cuda, 4, 40, H, hd, torch.float32, seed=11)
+    kw = dict(dropout_rate=0.3, seed=12)
+    assert torch.equal(TB.realized_block_keep_mask(12, 4, H, 40, hd, 0.3, cuda).cpu(),
+                       TA.dropout_keep_mask(12, 4, H, 40, TA.keep_threshold(0.3)))
+    got = _block_grads(TB.fused_attention_block, args, w, H, **kw)
+    want = _block_grads(TB.fused_attention_block_plain,
+                        [a.double().cpu() for a in args], w.double().cpu(), H, **kw)
+    for a, b, scale, name in zip(got[1], want[1], _grad_scales(want[1]), BLOCK_GRADS):
+        err = (a.double().cpu() - b).abs().max().item()
+        assert err <= 1e-4 * scale, (name, err, scale)

@@ -198,8 +198,8 @@ def test_schedule_horizon_and_lr_match_jax(world):
                                     "proj", "yes"])
 def test_fused_attn_resolution_matches_jax(world, choice):
     """Each --fused_attn choice resolves to the JAX runner's route on the
-    CPU; "proj" (B4, not ported) raises NotImplementedError naming the
-    ROADMAP, an unknown choice raises ValueError in both."""
+    CPU ("proj" to the whole-block kernel B4 in both); an unknown choice
+    raises ValueError in both."""
     if choice == "yes":
         with pytest.raises(ValueError):
             _jax_runner(world, "fa_bad_jax", fused_attn=choice)
@@ -207,12 +207,9 @@ def test_fused_attn_resolution_matches_jax(world, choice):
             _port_runner(world, "fa_bad", fused_attn=choice)
         return
     jr, _ = _jax_runner(world, f"fa_jax_{choice}", fused_attn=choice)
-    if choice == "proj":
-        assert jr.train_fused == "proj"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_runner(world, "fa_proj", fused_attn=choice)
-        return
     tr, _ = _port_runner(world, f"fa_{choice}", fused_attn=choice)
+    if choice == "proj":
+        assert tr.train_fused == jr.train_fused == "proj"
     assert tr.train_fused == jr.train_fused
 
 
@@ -242,13 +239,13 @@ SM_CFG = dict(TINY, hidden_size=128, intermediate_size=128, pooler_size=128)
 
 
 @pytest.mark.parametrize("kill_at", [2, 6])     # epoch 0 step 2, epoch 1 step 2
-@pytest.mark.parametrize("fused", ["off", "sm"])
+@pytest.mark.parametrize("fused", ["off", "sm", "proj"])
 def test_resume_bit_identical_with_dropout(world, kill_at, fused):
     """Preempted after kill_at steps and resumed in a fresh runner, a run
     with dropout ends with the uninterrupted run's parameters bit for bit
-    (tests/test_preemption_resume.py for the port). "sm" runs B5's plain
-    version (hidden 128, 2 heads of 64)."""
-    cfg = UC2Config(**(SM_CFG if fused == "sm" else TINY))
+    (tests/test_preemption_resume.py for the port). "sm" and "proj" run
+    B5's and B4's plain versions (hidden 128, 2 heads of 64)."""
+    cfg = UC2Config(**(SM_CFG if fused in ("sm", "proj") else TINY))
     assert cfg.hidden_dropout_prob == cfg.attention_probs_dropout_prob == 0.1
     a, _ = _port_runner(world, f"res_a_{fused}_{kill_at}", cfg=cfg,
                         fused_attn=fused)

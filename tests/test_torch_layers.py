@@ -151,13 +151,27 @@ def test_unported_attention_variants_raise(fused):
     """The unported kernels raise NotImplementedError naming the ROADMAP.
     The S-major kernel ("sm") is ported: like the JAX route, it raises
     ValueError on shapes its grid cannot take (here H*hd = 64 and batch 3)
-    and never falls back to another kernel."""
+    and never falls back to another kernel. The whole-block kernel ("proj",
+    B4) is ported: with a seed the route runs on these shapes and gives the
+    plain whole-block function's output."""
     x, p, mask, attn = _mha_world(8)
     bias = TL.additive_mask(torch.from_numpy(mask))
     if fused == "sm":
         with pytest.raises(ValueError, match="sm kernel needs"):
             attn(torch.from_numpy(x), bias, fused=fused, dropout_rate=0.1,
                  seed=1)
+        return
+    if fused == "proj":
+        from clg_vqa_tpu_torch.ops.block_attention import \
+            fused_attention_block_plain
+        with torch.no_grad():
+            got = attn(torch.from_numpy(x), bias, fused=fused,
+                       dropout_rate=0.1, seed=1)
+            want = fused_attention_block_plain(
+                torch.from_numpy(x), attn.q.weight, attn.q.bias, attn.k.weight,
+                attn.k.bias, attn.v.weight, attn.v.bias, attn.o.weight,
+                attn.o.bias, bias, attn.num_heads, dropout_rate=0.1, seed=1)
+        assert torch.equal(got, want)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attn(torch.from_numpy(x), bias, fused=fused)
