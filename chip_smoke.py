@@ -6,7 +6,7 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the five CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the seven CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
@@ -48,6 +48,19 @@ final line:
  9. recipe parity at tiny width, for fused_attn "flat", "sm" and "proj": a run
     preempted at step 2 and resumed in a fresh runner ends with the
     uninterrupted run's parameters, bit for bit.
+10. M3P at its published width (S = 140) over a world whose images hold
+    10-100 boxes (the prefix-length mask quirk and -inf keys occur): run_eval
+    with the auto rule (K1) and with fused_attn=True (B2), Predictor
+    requests, fp32 logits of K1 and B2 against the plain route; the train
+    step with fused_attn "flat" (B1) and True (B3; "hm" is the same route
+    in the port); `cli train --is_m3p` in process with a .bin export that
+    reloads to equal logits; then a tiny M3P on the card against the CPU
+    (eval, and 3 train steps through "hm") and full-width fp32 gradients of
+    True against the plain route.
+Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
+at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
+entries) against their plain versions, B3 equal to B1 bit for bit, its keep
+mask B1's whatever the batch size.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -64,37 +77,45 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from clg_vqa_tpu_torch.cli.__main__ import main as cli_main
+from clg_vqa_tpu_torch.cli.common import build_model as cli_build_model
 from clg_vqa_tpu_torch.cli.common import load_pretrained
-from clg_vqa_tpu_torch.config import OptimConfig, TaskConfig, UC2Config
+from clg_vqa_tpu_torch.config import (M3PConfig, OptimConfig, TaskConfig,
+                                      UC2Config)
 from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.data.device_bank import DeviceFeatureBank
 from clg_vqa_tpu_torch.data.gqa import GQADataset
 from clg_vqa_tpu_torch.data.pipeline import TrainPipeline
 from clg_vqa_tpu_torch.data.synthetic import (REGIONS as R, eval_world,
-                                              make_entries, train_dataset,
-                                              write_store)
+                                              m3p_world, make_entries,
+                                              train_dataset, write_store)
 from clg_vqa_tpu_torch.data.tokenizer import HashTokenizer
 from clg_vqa_tpu_torch.eval.predictor import Predictor
 from clg_vqa_tpu_torch.eval.runner import make_predict_step, run_eval
+from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
 from clg_vqa_tpu_torch.ops.attention import (
-    dropout_keep_mask, fused_attention_flat, fused_attention_flat_plain,
-    fused_attention_smajor, fused_attention_smajor_plain,
+    _bias2, _launch_eval, _launch_train_bwd, _launch_train_fwd,
+    dropout_keep_mask, fused_attention, fused_attention_flat,
+    fused_attention_flat_plain, fused_attention_smajor,
+    fused_attention_smajor_plain, fused_attention_train,
     fused_attention_train_flat, fused_attention_train_flat_plain,
-    fused_attention_train_smajor, fused_attention_train_smajor_plain,
-    keep_threshold, realized_keep_mask, smajor_attention_core,
-    smajor_attention_core_plain)
+    fused_attention_train_hm, fused_attention_train_hm_plain,
+    fused_attention_train_smajor,
+    fused_attention_train_smajor_plain, keep_threshold, realized_keep_mask,
+    smajor_attention_core, smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
 from clg_vqa_tpu_torch.ops.block_attention import (
     fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
+from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
                                           make_train_step)
@@ -118,6 +139,9 @@ RECIPE_STEPS, N_VAL = 12, 1024
 CLI_STEPS, CLI_VAL = 3, 1024
 # ten (flat, sm) pairs of blocks, alternating which route runs first
 AB_STEPS, AB_ORDER = 10, ("flat", "sm", "sm", "flat") * 5
+# M3P's world: images of 10..100 boxes, as a detector's confidence
+# threshold leaves them (X101 features, max_region_num 100)
+M3P_MIN_REGIONS = 10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -169,7 +193,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build(["flat_attention", "flat_attention_train",
                           "rows_gather", "smajor_attention_train",
-                          "block_attention_train"])
+                          "block_attention_train", "blocked_attention",
+                          "blocked_attention_train"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -359,26 +384,31 @@ def phase_train_kernel(gen) -> dict:
             qh, kh, vh, attn_mask=bias.to(dtype))
         do_s = do.view(B, S, H, hd).transpose(1, 2)
         mask_s = bias.to(dtype)
+        fwd_ms, bwd_ms = bare_train_ms("flat_attention_train", q, k, v, bias,
+                                       do, B, S, H, **kw)
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: fused_attention_train_flat(q, k, v, bias,
-                                                                H, **kw))
+            fwd_entry = time_ms(lambda: fused_attention_train_flat(
+                q, k, v, bias, H, **kw))
             fwd_plain = time_ms(lambda: fused_attention_train_flat_plain(
                 q, k, v, bias, H, **kw))
             fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask_s))
-        bwd_ms = time_ms(lambda: torch.autograd.grad(
+        bwd_entry = time_ms(lambda: torch.autograd.grad(
             o_k, (qr, kr, vr, br), do, retain_graph=True))
         bwd_plain = time_ms(lambda: torch.autograd.grad(
             o_p, (qr, kr, vr, br), do, retain_graph=True))
         bwd_lib = time_ms(lambda: torch.autograd.grad(
             o_s, (qr, kr, vr), do_s, retain_graph=True))
-        for name, ms, plain, lib, nbytes, ops in (
-                ("fwd", fwd_ms, fwd_plain, fwd_lib, fwd_bytes, fwd_ops),
-                ("bwd", bwd_ms, bwd_plain, bwd_lib, bwd_bytes, bwd_ops)):
+        for name, ms, entry, plain, lib, nbytes, ops in (
+                ("fwd", fwd_ms, fwd_entry, fwd_plain, fwd_lib, fwd_bytes,
+                 fwd_ops),
+                ("bwd", bwd_ms, bwd_entry, bwd_plain, bwd_lib, bwd_bytes,
+                 bwd_ops)):
             bms, by = bound_ms(nbytes, ops, dtype)
             fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            print(f"B1 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound "
+            print(f"B1 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms (bare "
+                  f"launch; through the entry and autograd {entry:.4f} ms), "
+                  f"plain {plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound "
                   f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
                   f"{ops / 1e9:.2f} GFLOP); on fp32 CUDA cores {fp32_bms:.4f} ms")
             out[f"flat_attention_train_{name}/{dtype}"] = dict(
@@ -386,7 +416,7 @@ def phase_train_kernel(gen) -> dict:
                              else max(err["dq"], err["dk"], err["dv"],
                                       err["dbias"])),
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, entry_ms=entry)
 
     # the kernels' own keep bits, read back through the forward, are the
     # plain version's, on the card and on the CPU
@@ -409,6 +439,22 @@ def value_and_grads(fn, q, k, v, bias, do, H, **kw):
     ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
     out = fn(*ins, H, **kw)
     return (out.detach(), *torch.autograd.grad(out, ins, do))
+
+
+def bare_train_ms(name, q, k, v, bias, do, B, S, H, *, dropout_rate, seed):
+    """Median ms of the training kernels of ``csrc/<name>.cu`` on prepared
+    contiguous operands of their layout, as B2 is timed: the forward launch
+    into a preallocated output, and the backward launch with its gradients'
+    allocation and the fixed-order head sum of the bias gradient. No
+    autograd and no operand copies are in the interval."""
+    t = keep_threshold(dropout_rate)
+    b2 = _bias2(bias, B, S)
+    q, k, v, do = (x.detach().contiguous() for x in (q, k, v, do))
+    o = torch.empty_like(q)
+    return (time_ms(lambda: _launch_train_fwd(name, q, k, v, b2, o, B, S, H,
+                                              t, seed)),
+            time_ms(lambda: _launch_train_bwd(name, q, k, v, b2, do, B, S, H,
+                                              t, seed)))
 
 
 def phase_smajor_kernel(gen) -> dict:
@@ -692,6 +738,244 @@ def phase_block_kernel(gen) -> dict:
     return out
 
 
+def neg_inf_inputs(B, S, H, hd, dtype, gen):
+    """q/k/v [B, S, H*hd] and M3P's key bias: 0 on a prefix of S//2..S keys
+    and -inf on the trailing ones (models/m3p.py's masked_fill)."""
+    q, k, v = (torch.randn(B, S, H * hd, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    lens = torch.randint(S // 2, S + 1, (B,), device="cuda", generator=gen)
+    lens[0] = S // 2
+    invalid = torch.arange(S, device="cuda")[None, :] >= lens[:, None]
+    bias = torch.zeros(B, 1, 1, S, device="cuda").masked_fill(
+        invalid[:, None, None, :], float("-inf"))
+    return q, k, v, bias
+
+
+def hm(x: torch.Tensor, H: int = 12) -> torch.Tensor:
+    """[B, S, H*hd] -> contiguous [B, H, S, hd]."""
+    B, S, D = x.shape
+    return x.view(B, S, H, D // H).transpose(1, 2).contiguous()
+
+
+def train_hm(q, k, v, bias, H, **kw):
+    """B3's head-major entry on [B, S, H*hd] operands split outside it, its
+    output merged back: autograd reaches the kernels' own gradients."""
+    out = fused_attention_train_hm(hm(q, H), hm(k, H), hm(v, H), bias, **kw)
+    B, _, S, hd = out.shape
+    return out.transpose(1, 2).reshape(B, S, H * hd)
+
+
+def grad_errors(got, want, dtype, what: str) -> dict:
+    """B1's tolerances (check_train_attention) on (out, dq, dk, dv, dbias)."""
+    errs = {}
+    for i, name in enumerate(("out", "dq", "dk", "dv", "dbias")):
+        scale = want[i].float().abs().max().item()
+        if name == "dbias":
+            tol = 1e-4 * scale
+        elif dtype == torch.float32:
+            tol = 1e-5 if name == "out" else 2e-4 * scale
+        else:
+            tol = bf16_ulp(scale) * (1 if name == "out" else 2)
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        check(got[i].dtype == want[i].dtype, f"{what} {name} dtype")
+        check(bool(torch.isfinite(got[i]).all()), f"{what} {name} not finite")
+        check(err <= tol, f"{what} {name} disagrees: {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def phase_blocked_kernel(gen) -> dict:
+    """The M3P path's attention kernels under M3P's -inf key bias with
+    trailing keys invalid: K1 and B1 against their plain versions at S 140;
+    B2 (head-blocked eval) against its plain version at S 13 and 140 and at
+    M3P eval's [1024, 140, 768], fp32 and bf16; B3 (head-blocked training,
+    both entries) against its plain version and equal to B1 bit for bit
+    (output and every gradient), S 13 and 140 and M3P training's
+    [128, 140, 768], fp32 and bf16, rates 0 and 0.1; B3's keep mask, its
+    bit-determinism and keep fraction. Times (median of 25 CUDA events):
+    B2 at [1024, 140, 768] bf16, B3 forward and backward at
+    [128, 140, 768] bf16 rate 0.1 on head-major operands, each beside its
+    bound, its plain version and SDPA (B3 at rate 0)."""
+    H, hd = 12, 64
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = neg_inf_inputs(16, 140, H, hd, dtype, gen)
+        with torch.no_grad():
+            got = fused_attention_flat(q, k, v, bias, H)
+            ref = fused_attention_flat_plain(q, k, v, bias, H)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.float().abs().max().item())
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"K1 -inf bias {dtype}: {err} > {tol}")
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        e = check_train_attention(q, k, v, bias, do, f"-inf bias S=140 {dtype}",
+                                  dropout_rate=RATE, seed=5)
+        print(f"-inf key bias, S=140 {dtype}: K1 max abs err {err:.3g}, B1 "
+              f"out {e['out']:.3g}; finite")
+
+    for S in (13, 140):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = neg_inf_inputs(32, S, H, hd, dtype, gen)
+            with torch.no_grad():
+                got = fused_attention(q, k, v, bias, H)
+            ref = fused_attention_flat_plain(q, k, v, bias, H)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.float().abs().max().item())
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"B2 S={S} {dtype} disagrees: {err} > {tol}")
+            do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+            for rate in (0.0, RATE):
+                kw = dict(dropout_rate=rate, seed=9)
+                flat = value_and_grads(fused_attention_train_flat, q, k, v,
+                                       bias, do, H, **kw)
+                for name, fn in (("split", fused_attention_train),
+                                 ("hm", train_hm)):
+                    b3 = value_and_grads(fn, q, k, v, bias, do, H, **kw)
+                    grad_errors(b3, value_and_grads(
+                        fused_attention_train_flat_plain, q, k, v, bias, do, H,
+                        **kw), dtype, f"B3 {name} S={S} {dtype} rate {rate}")
+                    check(all(torch.equal(a, b) for a, b in zip(b3, flat)),
+                          f"B3 {name} S={S} {dtype} rate {rate} is not B1's "
+                          f"bit for bit")
+            print(f"B2 S={S} {dtype}: max abs err {err:.3g} (tol {tol:.3g}); "
+                  f"B3 (split and head-major entries) S={S} {dtype} rates 0 "
+                  f"and {RATE}: within tolerance of its plain version, equal "
+                  f"to B1 bit for bit")
+    try:
+        fused_attention(q.detach().requires_grad_(), k, v, bias, H)
+        check(False, "B2 accepted grad mode")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"B2: {e}")
+
+    B, S = EVAL_BS, 140
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = neg_inf_inputs(B, S, H, hd, dtype, gen)
+        with torch.no_grad():
+            got = fused_attention(q, k, v, bias, H)
+            ref = fused_attention_flat_plain(q, k, v, bias, H)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = 1e-5 if dtype == torch.float32 else bf16_ulp(scale)
+        print(f"B2 B={B} S={S} {dtype} (-inf bias): max abs err {err:.3g} "
+              f"(tol {tol:.3g})")
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"B2 {dtype} disagrees: {err} > {tol}")
+        if dtype == torch.float32:
+            continue
+        qh, kh, vh = (hm(x, H) for x in (q, k, v))
+        mask = bias.to(dtype)
+        with torch.no_grad():
+            ms = time_ms(lambda: _launch_eval("blocked_attention", qh, kh, vh,
+                                              bias, B, S, H, hd))
+            plain = time_ms(lambda: fused_attention_flat_plain(q, k, v, bias, H))
+            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask))
+            split = time_ms(lambda: fused_attention(q, k, v, bias, H))
+        nbytes = 4 * B * S * H * hd * q.element_size() + B * S * 4
+        ops = 4 * B * H * S * S * hd
+        bms, by = bound_ms(nbytes, ops, dtype)
+        fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
+        print(f"B2 {dtype}: kernel {ms:.4f} ms ([B, H, S, hd] operands; the "
+              f"entry with its head split and merge {split:.4f} ms), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 CUDA "
+              f"cores {fp32_bms:.4f} ms")
+        out["blocked_attention"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=bms, bound_by=by, entry_ms=split)
+
+    B = MBS
+    t = keep_threshold(RATE)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = neg_inf_inputs(B, S, H, hd, dtype, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        err = {}
+        for rate in (0.0, RATE):
+            kw = dict(dropout_rate=rate, seed=21)
+            b3 = value_and_grads(train_hm, q, k, v, bias, do, H, **kw)
+            e = grad_errors(b3, value_and_grads(
+                fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
+                dtype, f"B3 B={B} S={S} {dtype} rate {rate}")
+            check(all(torch.equal(a, b) for a, b in zip(b3, value_and_grads(
+                fused_attention_train_flat, q, k, v, bias, do, H, **kw))),
+                f"B3 B={B} {dtype} rate {rate} is not B1's bit for bit")
+            err = {n: max(err.get(n, 0.0), x) for n, x in e.items()}
+            print(f"B3 B={B} S={S} {dtype} rate {rate} (-inf bias): max abs "
+                  f"err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+                  + "; equal to B1 bit for bit")
+        kw = dict(dropout_rate=RATE, seed=21)
+        a = value_and_grads(train_hm, q, k, v, bias, do, H, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(a, value_and_grads(
+            train_hm, q, k, v, bias, do, H, **kw))),
+            f"B3 {dtype}: two runs with one seed differ")
+        check(not torch.equal(a[0], value_and_grads(
+            train_hm, q, k, v, bias, do, H, dropout_rate=RATE, seed=22)[0]),
+            f"B3 {dtype}: another seed, same output")
+        if dtype == torch.float32:
+            continue
+        qh, kh, vh, dh = (hm(x, H).requires_grad_(x is not do)
+                          for x in (q, k, v, do))
+        br = bias.detach().requires_grad_()
+        o_k = fused_attention_train_hm(qh, kh, vh, br, **kw)
+        o_p = fused_attention_train_hm_plain(qh, kh, vh, br, **kw)
+        o_s = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(dtype))
+        fwd_ms, bwd_ms = bare_train_ms("blocked_attention_train", qh, kh, vh,
+                                       bias, dh, B, S, H, **kw)
+        with torch.no_grad():
+            fwd = [fwd_ms,
+                   time_ms(lambda: fused_attention_train_hm(qh, kh, vh, bias, **kw)),
+                   time_ms(lambda: fused_attention_train_hm_plain(qh, kh, vh,
+                                                                  bias, **kw)),
+                   time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=bias.to(dtype)))]
+        bwd = [bwd_ms,
+               time_ms(lambda: torch.autograd.grad(o_k, (qh, kh, vh, br), dh,
+                                                   retain_graph=True)),
+               time_ms(lambda: torch.autograd.grad(o_p, (qh, kh, vh, br), dh,
+                                                   retain_graph=True)),
+               time_ms(lambda: torch.autograd.grad(o_s, (qh, kh, vh), dh,
+                                                   retain_graph=True))]
+        e = q.element_size()
+        for name, (ms, entry, plain, lib), nbytes, ops in (
+                ("fwd", fwd, 4 * B * S * H * hd * e + B * S * 4,
+                 4 * B * H * S * S * hd),
+                ("bwd", bwd, 7 * B * S * H * hd * e + 2 * B * S * 4,
+                 10 * B * H * S * S * hd)):
+            bms, by = bound_ms(nbytes, ops, dtype)
+            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
+            print(f"B3 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms (bare "
+                  f"launch on [B, H, S, hd] operands; through the entry and "
+                  f"autograd {entry:.4f} ms), plain {plain:.4f} ms, sdpa "
+                  f"(rate 0) {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
+                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 "
+                  f"CUDA cores {fp32_bms:.4f} ms")
+            out[f"blocked_attention_train_{name}"] = dict(
+                max_abs_err=(err["out"] if name == "fwd" else max(
+                    err["dq"], err["dk"], err["dv"], err["dbias"])),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, entry_ms=entry)
+
+    got = realized_keep_mask(21, B, H, S, hd, RATE, "cuda",
+                             train=fused_attention_train)
+    check(torch.equal(got, dropout_keep_mask(21, B, H, S, t, "cuda")),
+          "B3 keep mask differs from the plain mask")
+    check(torch.equal(got, realized_keep_mask(21, B, H, S, hd, RATE, "cuda")),
+          "B3 keep mask differs from B1's")
+    # the mask of a sample is its own: the first 3 samples of a batch of 5
+    # see the mask they see in the batch of 128
+    check(torch.equal(got[:5], realized_keep_mask(
+        21, 5, H, S, hd, RATE, "cuda", train=fused_attention_train)),
+        "B3 keep mask depends on the batch size")
+    frac = got.float().mean().item()
+    print(f"B3 keep mask [{B},{H},{S},{S}] = B1's = dropout_keep_mask, the "
+          f"same in a batch of 5; keep fraction {frac:.5f} (t/256 = "
+          f"{t / 256:.5f})")
+    check(abs(frac - t / 256) <= 0.005, f"B3 keep fraction {frac}")
+    return out
+
+
 COUNTERS = {
     "flat_attention": (fused_attention_flat, "launches"),
     "rows_gather": (rows_gather, "launches"),
@@ -703,6 +987,9 @@ COUNTERS = {
                                    "backward_launches"),
     "block_attention_train_fwd": (fused_attention_block, "launches"),
     "block_attention_train_bwd": (fused_attention_block, "backward_launches"),
+    "blocked_attention": (fused_attention, "launches"),
+    "blocked_attention_train_fwd": (fused_attention_train, "launches"),
+    "blocked_attention_train_bwd": (fused_attention_train, "backward_launches"),
 }
 
 
@@ -833,15 +1120,16 @@ def phase_parity(cfg: UC2Config, model: UC2, ds, bank) -> None:
     check(err <= 1e-4, f"card vs CPU logits differ by {err}")
 
 
-TRAIN_KERNELS = {"flat": "flat_attention_train", "proj": "block_attention_train"}
+TRAIN_KERNELS = {"flat": "flat_attention_train", "proj": "block_attention_train",
+                 True: "blocked_attention_train"}
 
 
-def phase_train(cfg: UC2Config, model: UC2, world, smi: str,
-                fused: str = "flat") -> dict:
-    """The UC2 GQA fine-tune step at full width (bench.py:54-92's envelope),
-    fed by TrainPipeline over the eval world's store and device bank, with
-    the training attention of ``fused``: "flat" (B1) or "proj" (B4, the
-    whole block). Returns the timed steps' launch counts."""
+def phase_train(cfg, model, world, smi: str, fused="flat") -> dict:
+    """The GQA fine-tune step of UC2 or M3P at full width (bench.py:54-92's
+    envelope), fed by TrainPipeline over the eval world's store and device
+    bank, with the training attention of ``fused``: "flat" (B1), "proj"
+    (B4, the whole block) or True (B3 on split heads). Returns the timed
+    steps' launch counts."""
     ds = train_dataset(world, (WARMUP_STEPS + TIMED_STEPS) * ACC * MBS)
     pipe = TrainPipeline(ds, micro_batch_size=MBS, grad_acc_steps=ACC,
                          seed=0, device="cuda", with_features=False)
@@ -871,7 +1159,8 @@ def phase_train(cfg: UC2Config, model: UC2, world, smi: str,
     batches.close()
     n_blocks = cfg.num_layers * ACC
     kern = TRAIN_KERNELS[fused]
-    print(f"train ({fused}): {TIMED_STEPS} steps of {ACC} x {MBS} in "
+    print(f"train {type(model).__name__} ({fused}): {TIMED_STEPS} steps of "
+          f"{ACC} x {MBS} (S = {world.regions + 40}) in "
           f"{dt:.3f} s -> {dt / TIMED_STEPS * 1e3:.2f} ms/step, "
           f"{TIMED_STEPS * ACC * MBS / dt:.1f} QA/s (bf16, fp32 master "
           f"weights, dropout {RATE}, lambda {LAMBDA}, fused_attn={fused!r}, "
@@ -938,14 +1227,11 @@ def phase_train_ab(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
     return out
 
 
-def phase_cli(tmp: str, world, smi: str) -> dict:
-    """``python -m clg_vqa_tpu_torch.cli train --fused_attn proj`` at UC2's
-    full width (configs/uc2_base.json, random weights), run in this process
-    so the launch counters see it: CLI_STEPS steps of acc 2 x mbs 128
-    (bf16, dropout 0.1, device bank) over the eval world's CFS store, with
-    its questions written as train/val annotation pickles, then one val
-    pass over CLI_VAL questions and the saves. Returns its launch counts."""
-    root = os.path.join(tmp, "cli")
+def write_cli_task(root: str, world) -> str:
+    """The CLI's inputs over ``world``'s CFS store, under ``root``: its
+    questions as train (CLI_STEPS steps) and val (CLI_VAL) annotation
+    pickles, the answer vocabulary, and a TASK15 YAML. Returns the YAML's
+    path."""
     data = os.path.join(root, "annotations")
     os.makedirs(data)
     with open(os.path.join(data, "trainval_ans2label.pkl"), "wb") as f:
@@ -959,18 +1245,30 @@ def phase_cli(tmp: str, world, smi: str) -> dict:
             pickle.dump([{"question_id": e.question_id, "image_id": e.image_id,
                           "question": e.question, "labels": e.labels,
                           "scores": e.scores} for e in es], f)
-    store = os.path.join(tmp, "feats.cfs")
+    store = world.reader.path
     task = os.path.join(root, "task.yml")
     with open(task, "w") as f:
         f.write(f"TASK15:\n  name: GQA\n  type: VL-classifier-GQA\n"
                 f"  num_labels: {len(world.label2ans)}\n"
                 f"  loss: CrossEntropyLoss\n  dataroot: {data}\n"
                 f"  features_h5path1: {store}\n  features_h5path2: {store}\n"
-                f"  max_seq_length: 40\n  max_region_num: 36\n"
+                f"  max_seq_length: 40\n  max_region_num: {world.regions}\n"
                 f"  batch_size: {ACC * MBS}\n  eval_batch_size: {EVAL_BS}\n"
                 f"  train_split: train\n  val_split: val\n  lr: 4.0e-5\n"
                 f"  num_epoch: 1\n  semantic_lambda: {LAMBDA}\n"
                 f"  semantic_dict_path: ''\n")
+    return task
+
+
+def phase_cli(tmp: str, world, smi: str) -> dict:
+    """``python -m clg_vqa_tpu_torch.cli train --fused_attn proj`` at UC2's
+    full width (configs/uc2_base.json, random weights), run in this process
+    so the launch counters see it: CLI_STEPS steps of acc 2 x mbs 128
+    (bf16, dropout 0.1, device bank) over the eval world's CFS store, with
+    its questions written as train/val annotation pickles, then one val
+    pass over CLI_VAL questions and the saves. Returns its launch counts."""
+    root = os.path.join(tmp, "cli")
+    task = write_cli_task(root, world)
     out = os.path.join(root, "run")
     argv = ["train", "--config_file",
             os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
@@ -1108,6 +1406,285 @@ def phase_train_parity() -> None:
           f"grad_norm {nk:.6f} vs {np_:.6f}, params max abs diff {perr:.3g}")
     check(abs(lk - lp) <= 1e-4 * abs(lp) and abs(nk - np_) <= 1e-4 * abs(np_)
           and perr <= 1e-4, "full-width train step: kernel vs plain route")
+
+
+def m3p_eval_step_counts(model, w, smi: str, fused, label: str) -> dict:
+    """run_eval of the M3P world with ``fused`` (None = the auto rule):
+    one warm-up run, then the counted and timed run. Returns its counts."""
+    step = (None if fused is None else
+            make_predict_step(model, device_bank=w.bank, fused_attn=fused))
+    kw = dict(batch_size=EVAL_BS, device_bank=w.bank, step=step)
+    run_eval(model, w.dataset, w.label2ans, **kw)                     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_eval(model, w.dataset, w.label2ans, **kw)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    n_batches = math.ceil(N_QA / EVAL_BS)
+    kern = "flat_attention" if fused is None else "blocked_attention"
+    print(f"run_eval M3P ({label}): {res['n']} QA in {dt:.3f} s -> "
+          f"{res['n'] / dt:.1f} QA/s (bs {EVAL_BS}, bf16, bank on, "
+          f"{n_batches} batches) on {smi}; launches {counts}")
+    check(res["n"] == N_QA, f"M3P run_eval scored {res['n']} of {N_QA}")
+    check(counts == only(rows_gather=n_batches,
+                         **{kern: 12 * n_batches}),
+          f"M3P run_eval ({label}) launches {counts}, expected 12 x "
+          f"{n_batches} {kern} and {n_batches} rows_gather")
+    return counts, res["n"] / dt
+
+
+def phase_m3p_eval(cfg, model, w, smi: str) -> dict:
+    """M3P's eval path at full width: run_eval over the M3P world (bs 1024,
+    bf16, bank on) with the auto rule (K1) and with fused_attn=True (B2),
+    Predictor requests, then the fp32 logits of K1 and B2 against the plain
+    route on one batch that holds images with fewer than 100 boxes."""
+    eval_counts, qa = m3p_eval_step_counts(model, w, smi, None, "auto: K1")
+    blocked_counts, qa_b = m3p_eval_step_counts(model, w, smi, True,
+                                                "fused_attn=True: B2")
+    pred = Predictor(model, w.reader, w.tokenizer, w.label2ans,
+                     batch_capacity=8, max_region_num=w.regions)
+    reqs = [(e.question, e.image_id) for e in w.entries[:N_REQUESTS]]
+    pred.predict_batch(reqs[:8])                                        # warm-up
+    lat, answers = [], []
+    reset_counts()
+    for i in range(0, N_REQUESTS, 8):
+        t1 = time.perf_counter()
+        answers += pred.predict_batch(reqs[i:i + 8])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    pred_counts = read_counts()
+    check(pred_counts == only(rows_gather=N_REQUESTS // 8),
+          f"M3P Predictor launches {pred_counts}")
+    check(len(answers) == N_REQUESTS and all(
+        a["answer"] in w.label2ans and 0.0 <= a["confidence"] <= 1.0
+        for a in answers), "M3P Predictor returned a malformed answer")
+    print(f"Predictor M3P: {N_REQUESTS} requests in chunks of 8, bf16: "
+          f"per-chunk latency median {statistics.median(lat):.2f} ms, max "
+          f"{max(lat):.2f} ms; launches {pred_counts}")
+
+    batch = w.dataset.make_batch(list(range(EVAL_BS)), with_features=False)
+    t = {k: torch.from_numpy(batch[k]).cuda()
+         for k in ("input_ids", "input_mask", "store_idx")}
+    f, l, m = DeviceFeatureBank.gather_from(w.bank.tensors(), t.pop("store_idx"))
+    t.update(features=f, locs=l, image_mask=m)
+    n_boxes = m.sum(1)
+    check(bool((n_boxes < w.regions).any()), "no image with fewer boxes")
+    with torch.inference_mode():
+        plain = model(t, compute_dtype=None, fused_attn=False)
+        for fused, name in (("flat", "K1"), (True, "B2")):
+            got = model(t, compute_dtype=None, fused_attn=fused)
+            err = (got - plain).abs().max().item()
+            print(f"M3P fp32 logits, {name} vs plain route (full width, "
+                  f"B={EVAL_BS}, {int((n_boxes < w.regions).sum())} images "
+                  f"with 10-99 boxes): max abs diff {err:.3g} (tol 1e-4), max "
+                  f"|logit| {plain.abs().max().item():.3g}")
+            check(bool(torch.isfinite(got).all()) and got.shape == (
+                EVAL_BS, cfg.num_labels), f"M3P {name}: bad fp32 logits")
+            check(err <= 1e-4, f"M3P {name} vs plain fp32 logits differ by {err}")
+        a = model(t, compute_dtype=torch.bfloat16, fused_attn=True).argmax(-1)
+        b = model(t, compute_dtype=torch.bfloat16, fused_attn="flat").argmax(-1)
+        print(f"M3P bf16 argmax agreement B2 vs K1: "
+              f"{(a == b).float().mean().item() * 100:.2f}%")
+    return {"m3p_eval": eval_counts, "m3p_eval_blocked": blocked_counts,
+            "m3p_predictor": pred_counts, "qa_per_s": qa, "qa_per_s_b2": qa_b}
+
+
+def phase_m3p_cli(tmp: str, w, smi: str) -> dict:
+    """``python -m clg_vqa_tpu_torch.cli train --is_m3p`` at M3P's full
+    width (configs/m3p_base.json, random weights) in this process, over the
+    M3P world's CFS store: CLI_STEPS steps of acc 2 x mbs 128 (bf16, dropout
+    0.1, device bank; --fused_attn auto, the flat kernels), one val pass over
+    CLI_VAL questions, the saves; then the trained params exported as a
+    VOLTA .bin and reloaded the way --from_pretrained reads it, with equal
+    fp32 logits. Returns the CLI run's launch counts."""
+    root = os.path.join(tmp, "m3p_cli")
+    task = write_cli_task(root, w)
+    out = os.path.join(root, "run")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "m3p_base.json")
+    argv = ["train", "--config_file", config, "--tasks_config_file", task,
+            "--output_dir", out, "--grad_acc_steps", str(ACC), "--is_m3p"]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                         (signal.SIGINT, signal.default_int_handler)):
+        signal.signal(sig, handler)
+    n_blocks = 12 * ACC
+    print(f"cli train --is_m3p: {CLI_STEPS} steps of {ACC} x {MBS} at full "
+          f"width + val over {CLI_VAL} questions + saves in {dt:.2f} s on "
+          f"{smi}; launches {counts}")
+    check(counts["flat_attention_train_fwd"] == n_blocks * CLI_STEPS
+          and counts["flat_attention_train_bwd"] == n_blocks * CLI_STEPS
+          and counts["blocked_attention_train_fwd"] == 0
+          and counts["block_attention_train_fwd"] == 0
+          and counts["flat_attention"] > 0 and counts["rows_gather"] > 0,
+          f"M3P cli launches {counts}, expected {n_blocks} B1 forward and "
+          f"backward per step, some K1 and K2")
+    with open(os.path.join(out, "meta.json")) as f:
+        meta = json.load(f)
+    recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    check(meta["step"] == CLI_STEPS and os.path.exists(os.path.join(
+        out, meta["state_dir"], "state.pt")), f"M3P cli meta {meta}")
+    check(len(losses) == CLI_STEPS and all(map(math.isfinite, losses)),
+          f"M3P cli train records {losses}")
+
+    cfg = M3PConfig.from_json(config, num_labels=len(w.label2ans))
+    trained = cli_build_model(SimpleNamespace(
+        device="cuda", seed=0, from_pretrained=os.path.join(out, "params_best")),
+        cfg)
+    bin_path = os.path.join(out, "model.bin")
+    export_torch_bin(bin_path, trained, "m3p")
+    fresh = load_numpy_state(M3P(cfg, device="cuda", seed=1),
+                             load_pretrained(bin_path, cfg))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             w.dataset.make_batch(list(range(256))).items()
+             if k in ("input_ids", "input_mask", "features", "locs",
+                      "image_mask")}
+    with torch.no_grad():
+        a = trained(batch, compute_dtype=None, fused_attn="flat")
+        b = fresh(batch, compute_dtype=None, fused_attn="flat")
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+          "the M3P .bin reloads to other fp32 logits")
+    print(f"cli: M3P train losses {[round(x, 4) for x in losses]}; "
+          f"params_best and {meta['state_dir']} saved; the .bin export "
+          f"reloads to equal fp32 logits [256, {cfg.num_labels}]")
+    return counts
+
+
+M3P_TINY = dict(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                intermediate_size=512, v_feature_size=64, num_locs=5,
+                max_boxes=9, pooler_size=128, clf_hidden_size=64,
+                num_labels=40, dropout=0.0, attention_dropout=0.0,
+                clf_dropout_prob=0.0)
+
+
+def _m3p_batch(r: np.random.RandomState, lead: tuple, T: int, R: int,
+               feat: int, vocab: int, num_labels: int) -> dict:
+    """Random M3P batch whose images have 2..R boxes."""
+    ids = r.randint(3, vocab, (*lead, T)).astype(np.int32)
+    ids[..., 1, T - 3:] = 1
+    n = r.randint(2, R + 1, lead)
+    imask = (np.arange(R) < n[..., None]).astype(np.int32)
+    return {"input_ids": ids, "input_mask": (ids != 1).astype(np.int32),
+            "features": r.randn(*lead, R, feat).astype(np.float32),
+            "locs": r.rand(*lead, R, 5).astype(np.float32),
+            "image_mask": imask,
+            "labels": r.randint(0, num_labels, lead).astype(np.int32)}
+
+
+def phase_m3p_parity() -> None:
+    """fp32, dropout 0: (a) a tiny M3P (hd 64, images of 2-9 boxes) on the
+    card against the same weights on the CPU: eval logits through K1 and B2
+    against the CPU's plain route, and 3 train steps through "hm" (the True
+    route, B3) against the CPU's plain route; (b) at full width (mbs 32,
+    images of 2-100 boxes) the gradients of the True route (B3) against the
+    plain route's. Tolerance 1e-4: of the largest logit or gradient, relative for
+    losses and gradient norms, absolute for parameters (lr 1e-5)."""
+    tiny = M3PConfig(**M3P_TINY)
+    r = np.random.RandomState(7)
+    gpu = M3P(tiny, device="cuda", seed=2)
+    cpu = load_numpy_state(M3P(tiny, device="cpu"),
+                           {k: v.cpu().numpy() for k, v in gpu.state_dict().items()})
+    b = _m3p_batch(r, (6,), 11, 9, 64, 300, 40)
+    del b["labels"]
+    with torch.inference_mode():
+        want = cpu({k: torch.from_numpy(v) for k, v in b.items()})
+        for fused in ("flat", True):
+            got = gpu({k: torch.from_numpy(v).cuda() for k, v in b.items()},
+                      fused_attn=fused).cpu()
+            err = (got - want).abs().max().item()
+            print(f"tiny M3P fp32 eval, card {fused!r} route vs CPU plain: "
+                  f"max abs diff {err:.3g} (tol 1e-4)")
+            check(err <= 1e-4, f"tiny M3P card vs CPU logits differ by {err}")
+
+    batches = [_m3p_batch(r, (2, 4), 11, 9, 64, 300, 40) for _ in range(3)]
+    D = r.rand(40, 40).astype(np.float32)
+    runs = {}
+    for dev, fused, model in (("cuda", "hm", gpu), ("cpu", False, cpu)):
+        params = dict(model.named_parameters())
+        opt = make_optimizer(list(params), warmup_constant_schedule(1e-5, 0))
+        state = TrainState(model, opt.init(params), 0)
+        step = make_train_step(opt, torch.from_numpy(D).to(dev),
+                               semantic_lambda=LAMBDA, compute_dtype=None,
+                               fused_attn=fused)
+        ms = []
+        for i, bb in enumerate(batches):
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in bb.items()}, seed=i)
+            ms.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[dev] = ms, {k: p.detach().cpu() for k, p in params.items()}
+    (mk, pk), (mp, pp) = runs["cuda"], runs["cpu"]
+    rel = max(abs(x - y) / abs(y) for u, v in zip(mk, mp) for x, y in zip(u, v))
+    perr = max((pk[k] - pp[k]).abs().max().item() for k in pp)
+    print(f"train parity, tiny M3P fp32, 3 steps, card 'hm' (B3) vs CPU plain: "
+          f"loss/grad_norm max rel diff {rel:.3g}, params max abs diff "
+          f"{perr:.3g} (tol 1e-4)")
+    check(rel <= 1e-4 and perr <= 1e-4, "tiny M3P train parity failed")
+
+    cfg = M3PConfig(dropout=0.0, attention_dropout=0.0, clf_dropout_prob=0.0)
+    bb = _m3p_batch(r, (32,), 40, 100, cfg.v_feature_size, cfg.vocab_size,
+                    cfg.num_labels)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bb.items()}
+    D = torch.from_numpy(r.rand(cfg.num_labels, cfg.num_labels)
+                         .astype(np.float32)).cuda()
+    model = M3P(cfg, device="cuda", seed=5)
+    params = list(model.parameters())
+    grads = {}
+    for fused in (False, True):
+        loss_fn = make_loss_fn(D, semantic_lambda=LAMBDA, compute_dtype=None,
+                               fused_attn=fused)
+        loss, _ = loss_fn(model, batch, seed=0)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        grads[fused] = (loss.item(), [g for g in gs if g is not None])
+    (lp, gp), (lk, gk) = grads[False], grads[True]
+    gmax = max(g.abs().max().item() for g in gp)
+    gerr = max((x - y).abs().max().item() for x, y in zip(gk, gp))
+    print(f"train parity, M3P full width fp32 mbs 32, True route (B3) vs "
+          f"plain: loss {lk:.6f} vs {lp:.6f}; grads max abs diff {gerr:.3g} "
+          f"of max |grad| {gmax:.3g} (tol 1e-4 of it)")
+    check(abs(lk - lp) <= 1e-4 * abs(lp) and gerr <= 1e-4 * gmax,
+          "M3P full-width True route vs plain route gradients differ")
+    del grads, model
+    torch.cuda.empty_cache()
+
+
+def phase_m3p(smi: str) -> dict:
+    """M3P at its published width (M3PConfig(): 12 x 768, 12 heads, FFN
+    3072, vocab 250002, 100 regions x 2048 with 5 locs, 40 tokens, S = 140,
+    1842 answers; random weights from seed 0) over the M3P world (images of
+    M3P_MIN_REGIONS..100 boxes, so padding slots and -inf keys occur): the
+    eval path, the train step with "flat" (B1) and True (B3), the CLI; then
+    the parity phase. Returns each path's launch counts."""
+    cfg = M3PConfig()
+    model = M3P(cfg, device="cuda", seed=0)
+    print(f"M3P {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
+          f"{cfg.num_labels} labels: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params")
+    with tempfile.TemporaryDirectory() as tmp:
+        w = m3p_world(tmp, N_QA, min_regions=M3P_MIN_REGIONS,
+                      num_labels=cfg.num_labels, vocab_size=cfg.vocab_size,
+                      device="cuda")
+        print(f"M3P bank: {w.bank.nbytes / 1e6:.0f} MB on the card")
+        ev = phase_m3p_eval(cfg, model, w, smi)
+        by_path = {k: ev[k] for k in ("m3p_eval", "m3p_eval_blocked",
+                                      "m3p_predictor")}
+        trains = {}
+        for fused, name in (("flat", "m3p_train_flat"),
+                            (True, "m3p_train_blocked")):
+            trains[name] = phase_train(cfg, model, w, smi, fused)
+            by_path[name] = trains[name]["launches"]
+        by_path["m3p_cli"] = phase_m3p_cli(tmp, w, smi)
+    del model
+    torch.cuda.empty_cache()
+    phase_m3p_parity()
+    return {"launches": by_path, "eval": ev, "train": trains}
 
 
 def uc2_distance_matrix(cfg: UC2Config, seed: int = 0) -> np.ndarray:
@@ -1284,6 +1861,7 @@ def main() -> int:
     kern.update(phase_train_kernel(torch.Generator("cuda").manual_seed(1)))
     kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
     kern.update(phase_block_kernel(torch.Generator("cuda").manual_seed(3)))
+    kern.update(phase_blocked_kernel(torch.Generator("cuda").manual_seed(4)))
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
@@ -1302,13 +1880,16 @@ def main() -> int:
     phase_train_parity()
     recipe = phase_recipe(smi)
     phase_recipe_parity()
+    m3p = phase_m3p(smi)
     # `launches`: the count of the kernel's own slice's main path (run_eval
     # for the eval kernels, the train step for B1, the fine-tune recipe for
-    # B5, the proj train step for B4); `launches_by_path` gives each path's
-    # own count
+    # B5, the proj train step for B4, M3P's run_eval with fused_attn=True
+    # for B2 and its train step with fused_attn=True for B3);
+    # `launches_by_path` gives each path's own count
     by_path = dict(main_path["launches"], train=train["launches"],
                    train_proj=train_proj["launches"],
-                   finetune=recipe["launches"], cli_proj=cli)
+                   finetune=recipe["launches"], cli_proj=cli,
+                   **m3p["launches"])
     bf16 = torch.bfloat16
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1345,7 +1926,18 @@ def main() -> int:
             ("block_attention_train_bwd", "train_proj",
              f"block_attention_train_bwd/{bf16}",
              "clg_vqa_tpu_torch/csrc/block_attention_train.cu",
-             "clg_vqa_tpu/ops/attention.py:726"))
+             "clg_vqa_tpu/ops/attention.py:726"),
+            ("blocked_attention", "m3p_eval_blocked", "blocked_attention",
+             "clg_vqa_tpu_torch/csrc/blocked_attention.cu",
+             "clg_vqa_tpu/ops/attention.py:117"),
+            ("blocked_attention_train_fwd", "m3p_train_blocked",
+             "blocked_attention_train_fwd",
+             "clg_vqa_tpu_torch/csrc/blocked_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:209"),
+            ("blocked_attention_train_bwd", "m3p_train_blocked",
+             "blocked_attention_train_bwd",
+             "clg_vqa_tpu_torch/csrc/blocked_attention_train.cu",
+             "clg_vqa_tpu/ops/attention.py:223"))
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

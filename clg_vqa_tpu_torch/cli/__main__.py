@@ -73,7 +73,8 @@ def cmd_train(args):
         output_dir=args.output_dir,
         compute_dtype=None if args.fp32 else torch.bfloat16, seed=args.seed,
         train_bank=train_bank, save_every=args.save_every,
-        mid_save=args.mid_save, fused_attn=args.fused_attn)
+        mid_save=args.mid_save, fused_attn=args.fused_attn,
+        model_name=C.model_name(cfg))
     best = runner.finetune(resume=args.resume)
     print(f"Best validation score: {100*best:.3f}")
 

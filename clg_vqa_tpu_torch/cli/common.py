@@ -1,12 +1,12 @@
-"""Shared CLI construction (port of clg_vqa_tpu/cli/common.py, the UC2 path):
-config ingest (JSON model config + YAML task config + flag overrides, the
-reference's three-tier scheme), and model, dataset and feature-bank
-assembly on the ``--device``.
+"""Shared CLI construction (port of clg_vqa_tpu/cli/common.py, the UC2 and
+M3P paths): config ingest (JSON model config + YAML task config + flag
+overrides, the reference's three-tier scheme), and model, dataset and
+feature-bank assembly on the ``--device``. ``--is_m3p`` reads the config as
+M3P's (M3PConfig.from_json) and builds an M3P.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-slice: gated-zoo model configs (§A slice 8), M3P (``--is_m3p``, slice 4), and
-LMDB or QA-joined td-lmdb feature stores (slice 11); the port reads CFS
-stores.
+slice: gated-zoo model configs (§A slice 8) and LMDB or QA-joined td-lmdb
+feature stores (slice 11); the port reads CFS stores.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from ..config import OptimConfig, TaskConfig, UC2Config
+from ..config import M3PConfig, OptimConfig, TaskConfig, UC2Config
 
 # image_embeddings values of the gated zoo's configs (clg_vqa_tpu/models/
 # gated.py: DUAL_EMBEDDINGS + SHARED_EMBEDDINGS)
@@ -123,15 +123,17 @@ def build_configs(args):
         task_cfg = dataclasses.replace(task_cfg, **overrides)
 
     if args.is_m3p:
-        raise NotImplementedError(
-            "--is_m3p: M3P is not ported yet (ROADMAP.md §A slice 4)")
-    with open(args.config_file) as f:
-        raw = json.load(f)
-    if raw.get("image_embeddings", "uc2") in GATED_EMBEDDINGS:
-        raise NotImplementedError(
-            f"image_embeddings={raw['image_embeddings']!r}: the gated model "
-            f"zoo is not ported yet (ROADMAP.md §A slice 8)")
-    cfg = UC2Config.from_json(args.config_file, num_labels=task_cfg.num_labels)
+        cfg = M3PConfig.from_json(args.config_file,
+                                  num_labels=task_cfg.num_labels)
+    else:
+        with open(args.config_file) as f:
+            raw = json.load(f)
+        if raw.get("image_embeddings", "uc2") in GATED_EMBEDDINGS:
+            raise NotImplementedError(
+                f"image_embeddings={raw['image_embeddings']!r}: the gated "
+                f"model zoo is not ported yet (ROADMAP.md §A slice 8)")
+        cfg = UC2Config.from_json(args.config_file,
+                                  num_labels=task_cfg.num_labels)
 
     optim_cfg = OptimConfig(
         lr=task_cfg.lr,
@@ -148,13 +150,18 @@ def build_configs(args):
     return cfg, task_cfg, optim_cfg
 
 
+def model_name(cfg) -> str:
+    """"m3p" for an M3P config, else "uc2" (the FinetuneRunner's and the
+    ``.bin`` export's name)."""
+    return "m3p" if isinstance(cfg, M3PConfig) else "uc2"
+
+
 def build_model(args, cfg):
-    """A UC2 on ``args.device``: random from ``args.seed``, then the
-    ``--from_pretrained`` weights when given (a checkpoint without a
-    classifier keeps the fresh one)."""
-    from ..models.uc2 import UC2
-    from ..utils.convert import load_numpy_state
-    model = UC2(cfg, device=args.device, seed=args.seed)
+    """A UC2 or an M3P (by the config) on ``args.device``: random from
+    ``args.seed``, then the ``--from_pretrained`` weights when given (a
+    checkpoint without a classifier keeps the fresh one)."""
+    from ..utils.convert import load_numpy_state, model_class
+    model = model_class(cfg)(cfg, device=args.device, seed=args.seed)
     if args.from_pretrained:
         sd = load_pretrained(args.from_pretrained, cfg)
         load_numpy_state(model, sd, allow_missing=("classifier.",))
@@ -163,11 +170,17 @@ def build_model(args, cfg):
 
 def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
     """Port state-dict names -> arrays from a params dir written by
-    train/checkpoints.save_params, a VOLTA torch ``.bin`` or a raw HF XLM-R
-    ``.bin`` (detected by its ``.attention.self.`` keys and renumbered through
-    the UC2 sublayer collapse like conversions/convert_uc2.py)."""
+    train/checkpoints.save_params or a torch ``.bin``. For UC2 the ``.bin``
+    holds VOLTA names or is a raw HF XLM-R checkpoint (detected by its
+    ``.attention.self.`` keys and renumbered through the UC2 sublayer
+    collapse like conversions/convert_uc2.py); for M3P it holds VOLTA names
+    or is an original microsoft/M3P checkpoint (detected by its
+    ``module.attentions.`` keys), as clg_vqa_tpu/cli/common.py:158-182
+    reads them."""
     from ..utils.convert import (hf_xlmr_to_uc2_state_dict,
-                                 normalize_volta_keys, volta_uc2_to_state_dict)
+                                 m3p_original_to_state_dict,
+                                 normalize_volta_keys, volta_m3p_to_state_dict,
+                                 volta_uc2_to_state_dict)
     if os.path.isdir(path):
         from ..train import checkpoints as ckpt
         sd = ckpt.load_params(os.path.dirname(path) or ".",
@@ -175,6 +188,10 @@ def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
         return {k: v.numpy() for k, v in sd.items()}
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v.float().numpy() for k, v in sd.items()}
+    if isinstance(cfg, M3PConfig):
+        if any(k.startswith("module.attentions.") for k in sd):
+            return m3p_original_to_state_dict(sd, cfg)
+        return volta_m3p_to_state_dict(normalize_volta_keys(sd), cfg)
     if any(".attention.self." in k for k in sd):
         return hf_xlmr_to_uc2_state_dict(sd, cfg)
     return volta_uc2_to_state_dict(normalize_volta_keys(sd), cfg)
@@ -232,7 +249,9 @@ def build_dataset(args, cfg, task_cfg, split: str, features_path: str,
         entries, store, tok, max_seq_length=task_cfg.max_seq_length,
         max_region_num=task_cfg.max_region_num, num_locs=cfg.num_locs,
         num_labels=task_cfg.num_labels,
-        add_global_imgfeat=cfg.add_global_imgfeat, code_mixer=code_mixer)
+        add_global_imgfeat=getattr(cfg, "add_global_imgfeat", None),
+        norm_embeddings=getattr(cfg, "norm_embeddings", False),
+        code_mixer=code_mixer)
 
 
 @torch.no_grad()
@@ -272,4 +291,6 @@ def maybe_device_bank(ds, cfg, task_cfg, *, budget_bytes: int = 6 << 30,
         return None
     return DeviceFeatureBank(
         ds.store, max_regions=task_cfg.max_region_num, num_locs=cfg.num_locs,
-        add_global_imgfeat=cfg.add_global_imgfeat, device=device)
+        norm_embeddings=getattr(cfg, "norm_embeddings", False),
+        add_global_imgfeat=getattr(cfg, "add_global_imgfeat", None),
+        device=device)

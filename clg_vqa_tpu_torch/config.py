@@ -1,10 +1,11 @@
-"""Typed configurations (own copy of clg_vqa_tpu/config.py:30-133, 203-285):
-the UC2 model, the GQA task and the fine-tuning optimizer.
+"""Typed configurations (own copy of clg_vqa_tpu/config.py:30-285): the UC2
+and M3P models, the GQA task and the fine-tuning optimizer.
 
-UC2 is the only model ported so far. The VOLTA JSON config
-(volta/config/uc2_base.json) describes 24 gated sublayers; CLG-VQA only
-uses the wiring in which they collapse to a 12-block joint-sequence
-post-LN transformer, and ``from_json`` rejects any other wiring.
+The UC2 VOLTA JSON config (volta/config/uc2_base.json) describes 24 gated
+sublayers; CLG-VQA only uses the wiring in which they collapse to a
+12-block joint-sequence post-LN transformer, and ``from_json`` rejects any
+other wiring. M3P (volta/config/m3p_base.json) is a flat XLM-style
+transformer.
 """
 from __future__ import annotations
 
@@ -110,6 +111,68 @@ def _validate_collapsed_wiring(d: Mapping[str, Any]) -> None:
             raise ValueError(f"Per-sublayer size overrides unsupported: {key}={d[key]}")
     if d["hidden_size"] != d["v_hidden_size"]:
         raise ValueError("hidden_size != v_hidden_size cannot collapse")
+
+
+@dataclasses.dataclass(frozen=True)
+class M3PConfig:
+    """M3P flat XLM-style transformer config (volta/config/m3p_base.json,
+    volta/volta/config.py:416-609, m3p_transformer.py:609-750)."""
+
+    vocab_size: int = 250002
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072     # hidden_dim = 4*dim (m3p_transformer.py:640)
+    max_position_embeddings: int = 514
+    pad_token_id: int = 1
+    layer_norm_eps: float = 1e-12     # hardcoded in m3p_transformer.py (LN eps)
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    gelu_activation: bool = True
+    # vision
+    v_feature_size: int = 2048
+    num_locs: int = 5
+    max_boxes: int = 100
+    norm_embeddings: bool = True
+    # head
+    pooler_size: int = 768
+    clf_hidden_size: int = 1536
+    num_labels: int = 1842
+    clf_dropout_prob: float = 0.1
+
+    @classmethod
+    def from_json(cls, path: str, num_labels: int = 1842) -> "M3PConfig":
+        """Ingest an M3P-style VOLTA JSON. A key the file lacks takes the
+        reference's default (norm_embeddings False, volta/config.py:284),
+        while the dataclass default is the shipped m3p_base.json's True.
+        The reference hardcodes the FFN width to 4*hidden
+        (m3p_transformer.py:640), so a file that says otherwise raises."""
+        with open(path) as f:
+            d = json.load(f)
+        inter = d.get("intermediate_size", 4 * d["hidden_size"])
+        if inter != 4 * d["hidden_size"]:
+            raise ValueError(
+                f"M3P FFN width is hardcoded to 4*hidden in the reference "
+                f"(m3p_transformer.py:640); config says {inter} != "
+                f"{4 * d['hidden_size']}")
+        return cls(
+            vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            num_layers=d.get("n_layers", 12),
+            num_heads=d.get("n_heads", 12),
+            intermediate_size=inter,
+            max_position_embeddings=d["max_position_embeddings"],
+            pad_token_id=d["pad_token_id"],
+            dropout=d.get("hidden_dropout_prob", 0.1),
+            attention_dropout=d.get("attention_probs_dropout_prob", 0.1),
+            v_feature_size=d["v_feature_size"],
+            num_locs=d["num_locs"],
+            max_boxes=d.get("max_boxes", 100),
+            norm_embeddings=d.get("norm_embeddings", False),
+            pooler_size=d["pooler_size"],
+            clf_hidden_size=d["clf_hidden_size"],
+            num_labels=num_labels,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

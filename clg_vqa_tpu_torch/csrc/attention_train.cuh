@@ -1,15 +1,18 @@
 // Training attention for Hopper (sm_90a): the per-(head, sample) device code
 // shared by the flat kernels (flat_attention_train.cu, B1), the S-major
-// kernels (smajor_attention_train.cu, B5) and the core of the whole-block
-// kernels (block_attention_train.cu, B4), whose backward reads an fp32 do.
+// kernels (smajor_attention_train.cu, B5), the head-major kernels
+// (blocked_attention_train.cu, B3, and its eval twin blocked_attention.cu,
+// B2) and the core of the whole-block kernels (block_attention_train.cu,
+// B4), whose backward reads an fp32 do.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
-// gradients sits at b * sample_stride + s * row_stride + h * hd + d:
-//   flat     [B, S, H*hd]: row_stride = H*hd,     sample_stride = S*H*hd;
-//   S-major  [S, B, H*hd]: row_stride = B*H*hd,   sample_stride = H*hd.
+// gradients sits at b * sample + s * row + h * head + d:
+//   flat        [B, S, H*hd]: row = H*hd,   head = hd,    sample = S*H*hd;
+//   S-major     [S, B, H*hd]: row = B*H*hd, head = hd,    sample = H*hd;
+//   head-major  [B, H, S, hd]: row = hd,    head = S*hd,  sample = H*S*hd.
 // The additive key bias is float32 [B, S] and the per-head bias gradient
-// float32 [B, H, S] in both. The arithmetic does not depend on the strides,
-// so on the same values both layouts give the same bits.
+// float32 [B, H, S] in all three. The arithmetic does not depend on the
+// strides, so on the same values every layout gives the same bits.
 //
 // Forward, per (b, h): s = (q k^T) * (1/sqrt(hd)) + bias in fp32, p = a
 // max-subtracted fp32 softmax, p_d = keep ? p * 256/t : 0, o = p_d v with an
@@ -64,6 +67,7 @@ constexpr int kThreads = kWarps * 32;
 struct Layout {
   long long row;     // query row s -> s + 1
   long long sample;  // sample b -> b + 1
+  long long head;    // head h -> h + 1
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -190,7 +194,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float* ws = bs + S;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const long long base = (long long)b * lay.sample + (long long)h * HDIM;
+  const long long base = (long long)b * lay.sample + (long long)h * lay.head;
   for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
     const int s = i / HDIM, d = i % HDIM;
     const long long g = base + (long long)s * lay.row + d;
@@ -246,7 +250,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float* ws = bs + S;
 
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
-  const long long base = (long long)b * lay.sample + (long long)h * HDIM;
+  const long long base = (long long)b * lay.sample + (long long)h * lay.head;
   for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
     const int s = i / HDIM, d = i % HDIM;
     const long long g = base + (long long)s * lay.row + d;

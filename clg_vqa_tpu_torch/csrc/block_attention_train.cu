@@ -459,7 +459,7 @@ __global__ void b4_wgrad_reduce_kernel(const float* __restrict__ part,
 
 attn_train::Layout flat(int S, int H, int hd) {
   const long long HD = (long long)H * hd;
-  return {HD, (long long)S * HD};
+  return {HD, (long long)S * HD, hd};
 }
 
 template <typename T>

@@ -13,7 +13,7 @@ namespace {
 
 attn_train::Layout flat(int S, int H, int hd) {
   const long long HD = (long long)H * hd;
-  return {HD, (long long)S * HD};
+  return {HD, (long long)S * HD, hd};
 }
 
 }  // namespace

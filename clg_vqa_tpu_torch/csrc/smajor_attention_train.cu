@@ -20,7 +20,7 @@ namespace {
 
 attn_train::Layout smajor(int B, int H, int hd) {
   const long long HD = (long long)H * hd;
-  return {(long long)B * HD, HD};
+  return {(long long)B * HD, HD, hd};
 }
 
 }  // namespace

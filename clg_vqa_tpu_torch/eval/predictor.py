@@ -14,8 +14,9 @@ from ..data.tokenizer import encode_padded
 
 
 class Predictor:
-    """Runs on the model's device; serving-size batches take the plain
-    attention path, as in the JAX package."""
+    """Runs on the model's device (a UC2 or an M3P; M3P callers pass
+    ``max_region_num=100``); serving-size batches take the plain attention
+    path, as in the JAX package."""
 
     def __init__(self, model, store, tokenizer, label2ans: list, *,
                  max_seq_length: int = 40, max_region_num: int = 36,
@@ -27,9 +28,11 @@ class Predictor:
         self.cap = batch_capacity
         self.compute_dtype = compute_dtype
         self.device = model.device
+        cfg = model.cfg
         self.bank = DeviceFeatureBank(
-            store, max_regions=max_region_num, num_locs=model.cfg.num_locs,
-            add_global_imgfeat=model.cfg.add_global_imgfeat,
+            store, max_regions=max_region_num, num_locs=cfg.num_locs,
+            norm_embeddings=getattr(cfg, "norm_embeddings", False),
+            add_global_imgfeat=getattr(cfg, "add_global_imgfeat", None),
             device=self.device)
 
     @torch.inference_mode()

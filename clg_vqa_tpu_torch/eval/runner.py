@@ -25,7 +25,8 @@ def make_predict_step(model, *, device_bank=None,
 
     With a device bank the batch carries ``store_idx`` and the features are
     gathered on the device. fused_attn="flat" routes attention through the
-    flat eval kernel (ops/attention.fused_attention_flat)."""
+    flat eval kernel (ops/attention.fused_attention_flat), True or "hm"
+    through the head-blocked one (ops/attention.fused_attention)."""
     check_fused(fused_attn)
     bank = device_bank.tensors() if device_bank is not None else None
 

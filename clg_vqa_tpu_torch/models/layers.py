@@ -7,11 +7,12 @@ JAX package (and through it from the reference):
 - ``linear`` with a compute dtype: low-precision operands, fp32
   accumulation, fp32 bias added to the fp32 accumulator, ONE cast (:41-55);
   its backward is the JAX VJP of that function (:class:`_LowPrecisionLinear`).
-- Masks: additive ``(1 - m) * -10000`` (:127-130), RoBERTa position ids
-  (:119-124).
-- Unfused attention: QK^T post-scaled in fp32, fp32 softmax, probs cast to
-  the compute dtype before P.V, and the backward reads those low-precision
-  probs (``softmax_lowp``, :61-92).
+- Masks: additive ``(1 - m) * -10000`` (:127-130) for UC2, -inf for M3P
+  (models/m3p.py), RoBERTa position ids (:119-124).
+- Unfused attention: QK^T post-scaled in fp32 (UC2) or q pre-scaled in its
+  own dtype (M3P), fp32 softmax, probs cast to the compute dtype before
+  P.V, and the backward reads those low-precision probs (``softmax_lowp``,
+  :61-92).
 - Dropout: u8 threshold ``t = round((1-p)*256)``, rescale 256/t in the
   input's dtype (:95-116), bits from an explicit ``torch.Generator``.
 """
@@ -22,7 +23,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import (fused_attention_flat, fused_attention_train_flat,
+from ..ops.attention import (fused_attention, fused_attention_flat,
+                             fused_attention_train, fused_attention_train_flat,
                              fused_attention_train_smajor)
 from ..ops.block_attention import fused_attention_block
 
@@ -224,17 +226,16 @@ class LayerNorm(nn.Module):
 
 
 def check_fused(fused) -> None:
-    """Raise for an attention route the port does not have yet."""
-    if fused not in (False, "flat", "proj", "sm"):
-        raise NotImplementedError(
-            f"fused_attn={fused!r}: only False, 'flat', 'proj' and 'sm' are "
-            f"ported; the head-blocked kernels (B2 and B3, True and 'hm') are "
-            f"queued in ROADMAP.md §B")
+    """Raise ValueError for a value that names no attention route."""
+    if not (isinstance(fused, bool) or fused in ("flat", "hm", "proj", "sm")):
+        raise ValueError(f"fused_attn={fused!r}: the attention routes are "
+                         f"False, True, 'flat', 'hm', 'proj' and 'sm'")
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with q/k/v/o projections (UC2 post-scales
-    QK^T, volta/volta/encoders.py:266)."""
+    """Multi-head self-attention with q/k/v/o projections (port of
+    clg_vqa_tpu/models/layers.py:multi_head_attention, :133-327, for
+    self-attention with a key-side bias)."""
 
     def __init__(self, d: int, num_heads: int, *, device, dtype=torch.float32):
         super().__init__()
@@ -245,23 +246,34 @@ class SelfAttention(nn.Module):
         self.o = Linear(d, d, device=device, dtype=dtype)
 
     def forward(self, x, attn_bias, *, compute_dtype=None, fused=False,
-                dropout_rate: float = 0.0, seed: int | None = None):
+                dropout_rate: float = 0.0, seed: int | None = None,
+                scale_query: bool = False):
         """x [B, S, D], attn_bias additive [B, 1, 1, S]. seed None is the
         deterministic (eval) forward; with a seed the attention
         probabilities are dropped at ``dropout_rate``.
 
-        fused=False: plain PyTorch core (clg_vqa_tpu/models/layers.py:294-327).
-        fused="flat": the flat eval kernel (ops/attention.fused_attention_flat)
-        without a seed, the flat training kernel
-        (ops/attention.fused_attention_train_flat, :246-256) with one.
-        fused="sm": the S-major training kernel
-        (ops/attention.fused_attention_train_smajor, :225-245) with a seed;
-        without one the flat eval kernel, as the JAX package routes the
-        deterministic "sm" forward (:257-267).
+        fused=False: plain PyTorch core (:294-327). scale_query=False
+        post-scales QK^T in fp32 (UC2, volta encoders.py:266); True
+        pre-scales q by 1/sqrt(hd) in q's dtype (M3P,
+        m3p_transformer.py:196). The kernel routes post-scale in fp32
+        whatever ``scale_query`` says (:160-162).
+        fused="flat": the flat eval kernel K1 without a seed, the flat
+        training kernel B1 (:246-256) with one.
+        fused="sm": the S-major training kernel B5 (:225-245) with a seed.
         fused="proj": with a seed the whole block, projections included,
-        goes through ops/block_attention.fused_attention_block (B4) with x
-        and the four weights cast to the compute dtype (:205-221); without
-        one the normal projections and the flat eval kernel (:257-267)."""
+        goes through B4 with x and the four weights cast to the compute
+        dtype (:205-221).
+        fused=True: the head-blocked eval kernel B2 without a seed
+        (ops/attention.fused_attention), the head-blocked training kernel B3
+        (fused_attention_train) with one (:268-282).
+        fused="hm" is the True route. JAX projects q/k/v straight into
+        head-major [B, H, S, hd] and the output from it (:173-204) to spare
+        the TPU's split and merge relayouts; in PyTorch a head-major product
+        is the flat product (same dot products, fp32 accumulation, fp32 bias,
+        one cast) followed by the split copy that fused_attention_train
+        makes, so both values run the same work.
+        Without a seed "flat", "sm" and "proj" take K1, True and "hm" take
+        B2, as the JAX package routes the deterministic forward (:257-271)."""
         check_fused(fused)
         B, S, D = x.shape
         H = self.num_heads
@@ -277,15 +289,24 @@ class SelfAttention(nn.Module):
         q = self.q(x, compute_dtype)
         k = self.k(x, compute_dtype)
         v = self.v(x, compute_dtype)
-        if fused:
+        if fused is not False:
+            blocked = fused is True or fused == "hm"
             if seed is None:
-                ctx = fused_attention_flat(q, k, v, attn_bias, H)
+                ctx = (fused_attention if blocked
+                       else fused_attention_flat)(q, k, v, attn_bias, H)
             else:
-                train = (fused_attention_train_smajor if fused == "sm"
+                train = (fused_attention_train if blocked
+                         else fused_attention_train_smajor if fused == "sm"
                          else fused_attention_train_flat)
                 ctx = train(q, k, v, attn_bias, H, dropout_rate=dropout_rate,
                             seed=seed)
             return self.o(ctx, compute_dtype)
+
+        scale = 1.0 / math.sqrt(hd)
+        if scale_query:
+            # in q's dtype, the scale rounded to it first, as JAX multiplies
+            # by a weakly typed scalar
+            q = q * float(torch.tensor(scale, dtype=q.dtype))
 
         def heads(t):
             return t.float().reshape(B, S, H, hd).transpose(1, 2)
@@ -293,7 +314,9 @@ class SelfAttention(nn.Module):
         # products of low-precision values are exact in fp32, so the fp32
         # matmul on upcast operands is the fp32-accumulated product
         scores = torch.matmul(heads(q), heads(k).transpose(-1, -2))
-        scores = scores * (1.0 / math.sqrt(hd)) + attn_bias
+        if not scale_query:
+            scores = scores * scale
+        scores = scores + attn_bias
         if compute_dtype is not None:
             probs = softmax_lowp(scores, compute_dtype)
         else:

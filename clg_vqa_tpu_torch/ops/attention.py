@@ -14,10 +14,17 @@ plain PyTorch versions.
   (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
   ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device code
   (``csrc/attention_train.cuh``) on [S, B, H*hd] operands.
+- Head-blocked eval (B2): ``csrc/blocked_attention.cu``, port of
+  ``fused_attention`` (:135-175, body ``_attn_kernel`` :117-132), and
+  head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
+  ``fused_attention_train`` (:976-1002) and ``fused_attention_train_hm``
+  (:344-372; ``_train_fwd_kernel`` / ``_train_bwd_kernel`` :209-263 via
+  ``_attn_train_fwd/_bwd`` :289-322): B1's device code on head-major
+  [B, H, S, hd] operands.
 
 q/k/v keep the projections' [B, S, H*hd] layout (B5: swapped to
-[S, B, H*hd]) and the kernels loop over heads themselves, so no head
-split/merge transposes exist around them.
+[S, B, H*hd]; B2 and B3: split into [B, H, S, hd]) and the kernels loop
+over heads themselves.
 Numerics: QK^T post-scaled by 1/sqrt(hd) in fp32, additive key-side bias,
 fp32 softmax, fp32 P.V accumulation, output cast to q's dtype.
 
@@ -48,13 +55,16 @@ _MAX_SMEM = 232448          # bytes of shared memory one H100 block may use
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("flat_attention")
-    fn = lib.flat_attention_fwd
+def _eval_kernel(name: str):
+    """(forward, smem_bytes) of the eval kernel ``csrc/<name>.cu``: K1's
+    ``flat_attention`` or B2's ``blocked_attention``, which share one C
+    interface."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_fwd")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    smem = lib.flat_attention_smem_bytes
+    smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
     return fn, smem
@@ -101,32 +111,29 @@ def fused_attention_flat_plain(q, k, v, bias, num_heads: int) -> torch.Tensor:
     return merge_heads(torch.matmul(probs, vh)).to(q.dtype)
 
 
-def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         bias: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + bias) v per head on [B, S, H*hd] operands.
-
-    bias: additive key-side, broadcastable to [B, 1, 1, S]. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (fp32 or bf16,
-    hd in {32, 64, 128}) or raise."""
-    B, S, hd = _check_qkv(q, k, v, num_heads)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
+def _refuse_grad(name: str, train_name: str, *tensors) -> None:
+    """Eval kernels have no backward: raise in grad mode when an input
+    requires grad, rather than return a result that drops the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "fused_attention_flat is the eval kernel and has no backward; "
-            "use fused_attention_train_flat for training, or call it under "
-            "torch.no_grad()")
-    if q.device.type == "cpu":
-        return fused_attention_flat_plain(q, k, v, bias, num_heads)
+            f"{name} is the eval kernel and has no backward; use "
+            f"{train_name} for training, or call it under torch.no_grad()")
+
+
+def _launch_eval(name: str, q, k, v, bias, B: int, S: int, num_heads: int,
+                 hd: int) -> torch.Tensor:
+    """Run the eval kernel ``csrc/<name>.cu`` on contiguous operands of
+    its layout (K1 [B, S, H*hd], B2 [B, H, S, hd]) into a new tensor, or
+    raise on what it does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernel takes fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
-    fn, smem_bytes = _kernel()
+    fn, smem_bytes = _eval_kernel(name)
     if smem_bytes(S, hd) > _MAX_SMEM:
         raise ValueError(f"S={S} needs {smem_bytes(S, hd)} bytes of shared "
                          f"memory per block, over the {_MAX_SMEM} limit")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b2 = _bias2(bias.to(q.device), B, S)
     out = torch.empty_like(q)
     if B == 0 or S == 0:
@@ -135,8 +142,26 @@ def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              b2.data_ptr(), out.data_ptr(), B, S, num_heads, hd,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flat_attention kernel launch failed: CUDA error {err}")
-    fused_attention_flat.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def fused_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + bias) v per head on [B, S, H*hd] operands.
+
+    bias: additive key-side, broadcastable to [B, 1, 1, S]. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (fp32 or bf16,
+    hd in {32, 64, 128}) or raise."""
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    _refuse_grad("fused_attention_flat", "fused_attention_train_flat",
+                 q, k, v, bias)
+    if q.device.type == "cpu":
+        return fused_attention_flat_plain(q, k, v, bias, num_heads)
+    out = _launch_eval("flat_attention", q.contiguous(), k.contiguous(),
+                       v.contiguous(), bias, B, S, num_heads, hd)
+    if B and S:
+        fused_attention_flat.launches += 1
     return out
 
 
@@ -247,8 +272,8 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
 @functools.cache
 def _train_kernels(name: str = "flat_attention_train"):
     """(forward, backward, smem_bytes) of ``csrc/<name>.cu``: B1's
-    ``flat_attention_train`` or B5's ``smajor_attention_train``, which share
-    one C interface."""
+    ``flat_attention_train``, B5's ``smajor_attention_train`` or B3's
+    ``blocked_attention_train``, which share one C interface."""
     lib = _build.load(name)
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -292,7 +317,7 @@ def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
     fwd, _, _ = _train_kernels(name)
     err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
               b2.data_ptr(), out.data_ptr(), B, S, num_heads,
-              q.shape[-1] // num_heads, keep_t, 256.0 / keep_t, seed,
+              q.numel() // (B * S * num_heads), keep_t, 256.0 / keep_t, seed,
               torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} forward launch failed: CUDA error {err}")
@@ -310,7 +335,7 @@ def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
     err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
               b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
               dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads,
-              q.shape[-1] // num_heads, keep_t, 256.0 / keep_t, seed,
+              q.numel() // (B * S * num_heads), keep_t, 256.0 / keep_t, seed,
               torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} backward launch failed: CUDA error {err}")
@@ -375,13 +400,15 @@ fused_attention_train_flat.backward_launches = 0
 
 @torch.no_grad()
 def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
-                       dropout_rate: float, device) -> torch.Tensor:
-    """Bool [B, H, S, S]: the keep mask that :func:`fused_attention_train_flat`
+                       dropout_rate: float, device, train=None) -> torch.Tensor:
+    """Bool [B, H, S, S]: the keep mask that ``train`` (a training entry on
+    [B, S, H*hd] operands, :func:`fused_attention_train_flat` by default)
     realizes on ``device``, read back through its forward. With q = k = 0
     and no bias every probability is 1/S, and v one-hot on key column j
     copies p_d[..., j] into an output column, so the nonzero outputs are the
     kept entries; ceil(S/hd) calls cover every key column. On the card this
     shows the kernel's own bits, to compare with :func:`dropout_keep_mask`."""
+    train = train or fused_attention_train_flat
     z = torch.zeros(B, S, H * hd, device=device)
     bias = torch.zeros(B, 1, 1, S, device=device)
     mask = torch.empty(B, H, S, S, dtype=torch.bool, device=device)
@@ -390,8 +417,8 @@ def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
         v = torch.zeros(B, S, H, hd, device=device)
         cols = torch.arange(n, device=device)
         v[:, j0 + cols, :, cols] = 1.0
-        o = fused_attention_train_flat(z, z, v.reshape(B, S, H * hd), bias, H,
-                                       dropout_rate=dropout_rate, seed=seed)
+        o = train(z, z, v.reshape(B, S, H * hd), bias, H,
+                  dropout_rate=dropout_rate, seed=seed)
         mask[..., j0:j0 + n] = (o.view(B, S, H, hd)[..., :n] != 0).transpose(1, 2)
     return mask
 
@@ -562,12 +589,8 @@ def fused_attention_smajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     has no backward and raises in grad mode when an input requires grad."""
     B, S, hd = _check_qkv(q, k, v, num_heads)
     sm_dims(S, B, q.shape[-1], num_heads)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise RuntimeError(
-            "fused_attention_smajor is the eval kernel and has no backward; "
-            "use fused_attention_train_smajor for training, or call it under "
-            "torch.no_grad()")
+    _refuse_grad("fused_attention_smajor", "fused_attention_train_smajor",
+                 q, k, v, bias)
     if q.device.type == "cpu":
         return fused_attention_smajor_plain(q, k, v, bias, num_heads)
     _check_train_cuda(q, S, hd, _SM)
@@ -581,3 +604,152 @@ def fused_attention_smajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention_smajor.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B2 / B3: head-blocked attention on head-major [B, H, S, hd] operands
+# ---------------------------------------------------------------------------
+
+_HM = "blocked_attention_train"
+
+
+def _check_hm(qh, kh, vh) -> tuple[int, int, int, int]:
+    """(B, H, S, hd) of head-major operands of one shape and dtype."""
+    if qh.dim() != 4 or kh.shape != qh.shape or vh.shape != qh.shape:
+        raise ValueError(f"q/k/v must share one [B, H, S, hd] shape, got "
+                         f"{tuple(qh.shape)} {tuple(kh.shape)} {tuple(vh.shape)}")
+    if kh.dtype != qh.dtype or vh.dtype != qh.dtype:
+        raise ValueError("q/k/v must share one dtype")
+    return tuple(qh.shape)
+
+
+def _split_hm(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*hd] -> contiguous [B, H, S, hd], the TPU entries' split."""
+    return split_heads(x, num_heads, x.dtype).contiguous()
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Head-blocked eval attention (B2; port of
+    clg_vqa_tpu/ops/attention.py:fused_attention, :135-175, kernel body
+    ``_attn_kernel`` :117-132) on [B, S, H*hd] operands: heads split into
+    contiguous [B, H, S, hd] copies, ``csrc/blocked_attention.cu`` over them,
+    the output merged back. The TPU entry pads S to a multiple of 8 with
+    -1e9 keys; a padded key's probability is exactly 0 in fp32, and the
+    kernel bounds S by loop limits, so nothing is padded here.
+
+    bias: additive key-side, broadcastable to [B, 1, 1, S]. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (fp32 or bf16, hd in
+    {32, 64, 128}) or raise. No backward: raises in grad mode when an input
+    requires grad."""
+    B, S, hd = _check_qkv(q, k, v, num_heads)
+    _refuse_grad("fused_attention", "fused_attention_train", q, k, v, bias)
+    if q.device.type == "cpu":
+        return fused_attention_flat_plain(q, k, v, bias, num_heads)
+    qh, kh, vh = (_split_hm(x, num_heads) for x in (q, k, v))
+    out = _launch_eval("blocked_attention", qh, kh, vh, bias, B, S, num_heads,
+                       hd)
+    if B and S:
+        fused_attention.launches += 1
+    return merge_heads(out)
+
+
+fused_attention.launches = 0
+
+
+def fused_attention_train_hm_plain(qh, kh, vh, bias, *,
+                                   dropout_rate: float = 0.0,
+                                   seed: int | None = None) -> torch.Tensor:
+    """The plain version of B3 on head-major operands [B, H, S, hd]: B1's
+    plain math on the same values (merged to [B, S, H*hd] and split back),
+    so on one seed it equals :func:`fused_attention_train_flat_plain` bit for
+    bit. Differentiated by autograd."""
+    B, H, S, hd = _check_hm(qh, kh, vh)
+    out = fused_attention_train_flat_plain(
+        *(merge_heads(x) for x in (qh, kh, vh)), bias, H,
+        dropout_rate=dropout_rate, seed=seed)
+    return split_heads(out, H, out.dtype)
+
+
+class _BlockedTrainFn(torch.autograd.Function):
+    """B3 on the card, on contiguous head-major operands: the forward
+    kernel, and the backward kernel that recomputes the probabilities and
+    replays the keep mask (clg_vqa_tpu/ops/attention.py:_attn_train_core,
+    :283-327). The TPU kernel sums the bias gradient over heads in its head
+    grid loop (:259-263); here it comes out as [B, H, S] and is summed over
+    heads 0..H-1 in a fixed order, as B1's is. Both train entries count
+    their launches in ``fused_attention_train``."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, b2, keep_t, seed):
+        B, H, S, _ = qh.shape
+        out = torch.empty_like(qh)
+        _launch_train_fwd(_HM, qh, kh, vh, b2, out, B, S, H, keep_t, seed)
+        fused_attention_train.launches += 1
+        ctx.save_for_backward(qh, kh, vh, b2)
+        ctx.meta = (H, keep_t, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qh, kh, vh, b2 = ctx.saved_tensors
+        B, _, S, _ = qh.shape
+        grads = _launch_train_bwd(_HM, qh, kh, vh, b2, dout, B, S, *ctx.meta)
+        fused_attention_train.backward_launches += 1
+        return (*grads, None, None)
+
+
+def fused_attention_train_hm(qh: torch.Tensor, kh: torch.Tensor,
+                             vh: torch.Tensor, bias: torch.Tensor, *,
+                             dropout_rate: float = 0.0,
+                             seed: int | None = None) -> torch.Tensor:
+    """Head-major training entry of B3 (port of
+    clg_vqa_tpu/ops/attention.py:fused_attention_train_hm, :344-372): q/k/v
+    arrive pre-split as [B, H, S, hd] and the context returns [B, H, S, hd],
+    differentiable in q, k, v and bias (key-side, broadcastable to
+    [B, 1, 1, S]).
+
+    Dropout as B1's: u8 threshold t, Philox keyed by (seed, absolute sample,
+    head, row, column // 16), so the mask does not depend on the batch size
+    (the TPU kernel seeds per grid cell, and its mask moves with the batch
+    tile). seed: a host integer, required when ``dropout_rate > 0``. S is
+    not padded (see :func:`fused_attention`). CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/blocked_attention_train.cu`` (fp32
+    or bf16, hd in {32, 64, 128}) or raise."""
+    B, H, S, hd = _check_hm(qh, kh, vh)
+    t, seed = _train_seed(dropout_rate, seed)
+    if qh.device.type == "cpu":
+        return fused_attention_train_hm_plain(qh, kh, vh, bias,
+                                              dropout_rate=dropout_rate,
+                                              seed=seed)
+    _check_train_cuda(qh, S, hd, _HM)
+    b2 = _bias2(bias.to(qh.device), B, S)
+    if B == 0 or S == 0:
+        return torch.zeros_like(qh)
+    return _BlockedTrainFn.apply(qh.contiguous(), kh.contiguous(),
+                                 vh.contiguous(), b2, t, seed)
+
+
+def fused_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, num_heads: int, *,
+                          dropout_rate: float = 0.0,
+                          seed: int | None = None) -> torch.Tensor:
+    """Head-blocked training attention (B3; port of
+    clg_vqa_tpu/ops/attention.py:fused_attention_train, :976-1002) on
+    [B, S, H*hd] operands: heads split into [B, H, S, hd] copies,
+    :func:`fused_attention_train_hm`, the output merged back; the copies are
+    differentiated by autograd. bias and seed as for
+    :func:`fused_attention_train_hm`. Counters ``launches`` and
+    ``backward_launches`` count B3's kernels from either entry."""
+    _check_qkv(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return fused_attention_train_flat_plain(q, k, v, bias, num_heads,
+                                                dropout_rate=dropout_rate,
+                                                seed=seed)
+    out = fused_attention_train_hm(*(_split_hm(x, num_heads) for x in (q, k, v)),
+                                   bias, dropout_rate=dropout_rate, seed=seed)
+    return merge_heads(out)
+
+
+fused_attention_train.launches = 0
+fused_attention_train.backward_launches = 0

@@ -1,14 +1,16 @@
-"""Where the time of one full-width UC2 eval goes on the GPU.
+"""Where the time of one full-width UC2 or M3P eval goes on the GPU.
 
-    python3 -m clg_vqa_tpu_torch.tools.profile_eval [--no-fused]
-        [--out chiprun_out/profile_eval.txt]
+    python3 -m clg_vqa_tpu_torch.tools.profile_eval [--m3p]
+        [--no-fused | --blocked] [--out PATH]
 
-Builds UC2 at its published width (random weights from seed 0) and the
-synthetic eval data and device feature bank of chip_smoke.py
-(data/synthetic.eval_world), runs run_eval over 4 batches of 1024 once
-untraced (QA/s) and once under torch.profiler, and
-prints device time by kernel group (GEMM, flat attention, bank gather, the
+Builds UC2 (M3P with --m3p) at its published width (random weights from
+seed 0) and the synthetic eval data and device feature bank of
+chip_smoke.py (data/synthetic.eval_world, m3p_world), runs run_eval over 4
+batches of 1024 once untraced (QA/s) and once under torch.profiler, and
+prints device time by kernel group (GEMM, attention, bank gather, the
 rest), the device's busy share of the traced window and the top kernels.
+The attention is the flat eval kernel (K1) by default, the head-blocked one
+(B2, fused_attn=True) with --blocked, the plain path with --no-fused.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -21,14 +23,16 @@ import time
 
 import torch
 
-from ..config import UC2Config
-from ..data.synthetic import eval_world
+from ..config import M3PConfig, UC2Config
+from ..data.synthetic import eval_world, m3p_world
 from ..eval.runner import make_predict_step, run_eval
+from ..models.m3p import M3P
 from ..models.uc2 import UC2
 
 BATCHES, BS = 4, 1024
 
 GROUPS = (("flat_attention", ("flat_attention_kernel",)),
+          ("blocked attention (B2)", ("fwd_kernel<",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
           ("softmax", ("softmax",)),
@@ -53,10 +57,25 @@ def union_us(intervals) -> float:
     return total
 
 
+def model_and_world(m3p: bool, directory: str, n_qa: int):
+    """(config, model on the card from seed 0, synthetic world of n_qa
+    questions) at UC2's or M3P's published width."""
+    cfg = M3PConfig() if m3p else UC2Config()
+    model = (M3P if m3p else UC2)(cfg, device="cuda", seed=0)
+    world = (m3p_world if m3p else eval_world)(
+        directory, n_qa, num_labels=cfg.num_labels,
+        vocab_size=cfg.vocab_size, device="cuda")
+    return cfg, model, world
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--no-fused", action="store_true",
-                    help="plain attention path instead of the flat kernel")
+    ap.add_argument("--m3p", action="store_true", help="M3P instead of UC2")
+    route = ap.add_mutually_exclusive_group()
+    route.add_argument("--no-fused", action="store_true",
+                       help="plain attention path instead of the flat kernel")
+    route.add_argument("--blocked", action="store_true",
+                       help="the head-blocked eval kernel (B2) instead of K1")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,15 +83,12 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = UC2Config()
-    model = UC2(cfg, device="cuda", seed=0)
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         n = BATCHES * BS
-        w = eval_world(tmp, n, num_labels=cfg.num_labels,
-                       vocab_size=cfg.vocab_size, device="cuda")
+        cfg, model, w = model_and_world(args.m3p, tmp, n)
         ds, label2ans = w.dataset, w.label2ans
-        fused = False if args.no_fused else "flat"
+        fused = False if args.no_fused else True if args.blocked else "flat"
         step = make_predict_step(model, device_bank=w.bank, fused_attn=fused)
         kw = dict(batch_size=BS, device_bank=w.bank, step=step)
         run_eval(model, ds, label2ans, **kw)                      # warm-up
@@ -80,7 +96,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run_eval(model, ds, label2ans, **kw)
         dt = time.perf_counter() - t0
-        lines.append(f"untraced: {n} QA in {dt:.4f} s -> {n / dt:.1f} QA/s "
+        lines.append(f"untraced: {'M3P' if args.m3p else 'UC2'}, {n} QA in "
+                     f"{dt:.4f} s -> {n / dt:.1f} QA/s "
                      f"(bs {BS}, bf16, fused_attn={fused}) on "
                      f"{torch.cuda.get_device_name(0)}")
 

@@ -1,10 +1,12 @@
-"""Where the time of one full-width UC2 fine-tune step goes on the GPU.
+"""Where the time of one full-width UC2 or M3P fine-tune step goes on the GPU.
 
-    python3 -m clg_vqa_tpu_torch.tools.profile_train [--no-fused | --sm | --proj]
-        [--out PATH]
+    python3 -m clg_vqa_tpu_torch.tools.profile_train [--m3p]
+        [--no-fused | --sm | --proj | --blocked] [--out PATH]
 
-The train twin of tools/profile_eval.py. Builds UC2 at its published width
-(random weights from seed 0) and chip_smoke.py's training envelope
+The train twin of tools/profile_eval.py. Builds UC2 (M3P with --m3p, 100
+regions and 140 positions, tools/profile_train.py:98-102 of the JAX
+package) at its published width (random weights from seed 0) and
+chip_smoke.py's training envelope
 (bench.py:54-92: acc 2 x mbs 128, bf16 with fp32 master weights, dropout
 0.1, lambda 10, the device feature bank, TrainPipeline over
 data/synthetic.train_dataset), runs 2 warm-up steps, 5 untraced steps (ms per
@@ -13,8 +15,10 @@ step by kernel group, the device's busy share of the traced window and the
 top kernels. The training attention is the flat kernels (B1) by default,
 the S-major ones (B5, with their entry's layout copies) with --sm, the
 whole-block ones (B4: the q/k/v/o products and their gradients inside the
-kernel entries, around B1's core) with --proj, the plain path with
---no-fused. Needs a CUDA device.
+kernel entries, around B1's core) with --proj, the head-blocked ones (B3)
+with --blocked (fused_attn=True: heads split around the kernel; "hm" is the
+same route in the port), the plain path with --no-fused.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,18 +31,16 @@ import time
 import numpy as np
 import torch
 
-from ..config import UC2Config
 from ..data.pipeline import TrainPipeline
-from ..data.synthetic import eval_world, train_dataset
-from ..models.uc2 import UC2
+from ..data.synthetic import train_dataset
 from ..train.loop import TrainState, make_train_step
 from ..train.optim import make_optimizer, warmup_linear_schedule
-from .profile_eval import union_us
+from .profile_eval import model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-GROUPS = (("attention core forward (B1/B5/B4)", ("fwd_kernel<",)),
-          ("attention core backward (B1/B5/B4)", ("bwd_kernel<",)),
+GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<",)),
+          ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<",)),
           ("B4 products and sums", ("b4_",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
@@ -56,6 +58,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--m3p", action="store_true", help="M3P instead of UC2")
     route = ap.add_mutually_exclusive_group()
     route.add_argument("--no-fused", action="store_true",
                        help="plain attention path instead of the B1 kernels")
@@ -64,6 +67,9 @@ def main(argv=None) -> int:
     route.add_argument("--proj", action="store_true",
                        help="the whole-block training kernels (B4) instead "
                             "of the projections and B1")
+    route.add_argument("--blocked", action="store_true",
+                       help="the head-blocked training kernels (B3), "
+                            "fused_attn=True")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -71,22 +77,20 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = UC2Config()
-    model = UC2(cfg, device="cuda", seed=0)
-    params = dict(model.named_parameters())
-    opt = make_optimizer(list(params), warmup_linear_schedule(4e-5, 2000, 20000))
-    state = TrainState(model, opt.init(params), 0)
-    D = torch.from_numpy(np.random.RandomState(0).rand(
-        cfg.num_labels, cfg.num_labels).astype(np.float32)).cuda()
     fused = (False if args.no_fused else "sm" if args.sm
-             else "proj" if args.proj else "flat")
-    step = make_train_step(opt, D, semantic_lambda=10.0,
-                           compute_dtype=torch.bfloat16, fused_attn=fused)
+             else "proj" if args.proj else True if args.blocked else "flat")
     lines = []
     n_steps = WARMUP + UNTRACED + TRACED
     with tempfile.TemporaryDirectory() as tmp:
-        w = eval_world(tmp, 8, num_labels=cfg.num_labels,
-                       vocab_size=cfg.vocab_size, device="cuda")
+        cfg, model, w = model_and_world(args.m3p, tmp, 8)
+        params = dict(model.named_parameters())
+        opt = make_optimizer(list(params),
+                             warmup_linear_schedule(4e-5, 2000, 20000))
+        state = TrainState(model, opt.init(params), 0)
+        D = torch.from_numpy(np.random.RandomState(0).rand(
+            cfg.num_labels, cfg.num_labels).astype(np.float32)).cuda()
+        step = make_train_step(opt, D, semantic_lambda=10.0,
+                               compute_dtype=torch.bfloat16, fused_attn=fused)
         pipe = TrainPipeline(train_dataset(w, n_steps * ACC * MBS),
                              micro_batch_size=MBS, grad_acc_steps=ACC,
                              device="cuda", with_features=False)
@@ -105,7 +109,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run(UNTRACED)
         dt = (time.perf_counter() - t0) / UNTRACED
-        lines.append(f"untraced: {dt * 1e3:.2f} ms/step, "
+        lines.append(f"untraced: {'M3P' if args.m3p else 'UC2'}, "
+                     f"{dt * 1e3:.2f} ms/step, "
                      f"{ACC * MBS / dt:.1f} QA/s (acc {ACC} x mbs {MBS}, bf16, "
                      f"fused_attn={fused}) on {torch.cuda.get_device_name(0)}")
         acts = [torch.profiler.ProfilerActivity.CPU,

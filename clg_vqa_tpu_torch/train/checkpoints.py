@@ -247,16 +247,18 @@ class AsyncSaver:
 def export_torch_bin(path: str, params, model: str = "uc2",
                      task_key: str = "TASK15", *,
                      log: list | None = None) -> dict:
-    """A torch-loadable ``.bin`` with VOLTA parameter names, ``v_`` aliases
-    included, so the JAX package (cli/common.load_pretrained) and the
+    """A torch-loadable ``.bin`` with VOLTA parameter names (UC2's ``v_``
+    aliases included), so the JAX package (cli/common.load_pretrained) and the
     reference tooling (eval_task.py) load the port's fine-tuned weights.
-    ``params``: a UC2 model or its state dict."""
-    if model != "uc2":
-        raise NotImplementedError(
-            f"export of model {model!r}: only UC2 is ported (M3P is "
-            f"ROADMAP.md §A slice 4)")
-    from ..utils.convert import state_dict_to_volta_uc2
+    ``params``: a UC2 or M3P model or its state dict; ``model`` ("uc2" or
+    "m3p") names its format (clg_vqa_tpu/train/checkpoints.py:223-230)."""
+    from ..utils.convert import (state_dict_to_volta_m3p,
+                                 state_dict_to_volta_uc2)
+    to_sd = {"uc2": state_dict_to_volta_uc2,
+             "m3p": state_dict_to_volta_m3p}.get(model)
+    if to_sd is None:
+        raise ValueError(f"model must be 'uc2' or 'm3p', got {model!r}")
     t0 = time.perf_counter()
-    sd = state_dict_to_volta_uc2(params, task_key)
+    sd = to_sd(params, task_key)
     return _write({k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in sd.items()}, path, "bin", t0, log)

@@ -1,5 +1,6 @@
 """The fine-tuning driver (port of clg_vqa_tpu/train/driver.py:33-449): the
-UC2 GQA ``finetune`` recipe of the reference (train_task.py:141-389) over the
+GQA ``finetune`` recipe of the reference (train_task.py:141-389), for UC2 or
+M3P (``model_name``, which names the ``.bin`` export's format), over the
 train step of train/loop.py — per-epoch and mid-epoch validation with
 best-params saves, resume checkpoints, SIGTERM/SIGINT preemption with a
 step-granular resume, and the fused-attention choice.
@@ -62,10 +63,9 @@ class FinetuneRunner:
                  train_bank=None, async_ckpt: bool = True,
                  save_every: int = 1, mid_save: str = "none",
                  fused_attn: str = "auto"):
-        if model_name != "uc2":
-            raise NotImplementedError(
-                f"model {model_name!r}: only UC2 is ported (M3P is "
-                f"ROADMAP.md §A slice 4)")
+        if model_name not in ("uc2", "m3p"):
+            raise ValueError(f"model_name must be 'uc2' or 'm3p', got "
+                             f"{model_name!r}")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device

@@ -39,9 +39,10 @@ class TrainState:
 
 
 def resolve_fused(fused_attn, compute_dtype, device: torch.device):
-    """False, "flat", "proj" and "sm" pass through; "auto" is the flat training
-    kernel for bf16 on CUDA and the plain path otherwise (the JAX
-    FinetuneRunner's fused_attn="auto" rule, with the TPU read as CUDA)."""
+    """False, True, "flat", "hm", "proj" and "sm" pass through; "auto" is the
+    flat training kernel for bf16 on CUDA and the plain path otherwise (the
+    JAX FinetuneRunner's fused_attn="auto" rule, with the TPU read as
+    CUDA); anything else raises ValueError."""
     if fused_attn == "auto":
         return ("flat" if compute_dtype == torch.bfloat16
                 and device.type == "cuda" else False)
@@ -97,7 +98,9 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
     maps parameter names to 0/1 tensors or None (pass-through).
     fused_attn: False, "flat" (ops/attention.fused_attention_train_flat),
     "sm" (ops/attention.fused_attention_train_smajor), "proj"
-    (ops/block_attention.fused_attention_block) or "auto". Metrics:
+    (ops/block_attention.fused_attention_block), True
+    (ops/attention.fused_attention_train), "hm" (the True route, see
+    models/layers.SelfAttention) or "auto". Metrics:
     ``loss``, ``score`` and ``grad_norm``, the norm of the masked gradients
     before the clip."""
     loss_fn = make_loss_fn(distance_matrix, semantic_lambda=semantic_lambda,

@@ -1,5 +1,6 @@
-"""Checkpoint ingest and export for the port's UC2 (the UC2 half of
-clg_vqa_tpu/utils/convert.py:26-215, raw HF XLM-R ingest included).
+"""Checkpoint ingest and export for the port's UC2 and M3P (port of
+clg_vqa_tpu/utils/convert.py:26-322: the UC2 half with raw HF XLM-R ingest,
+and the M3P half with the original microsoft/M3P checkpoint's loader).
 
 Three weight formats meet here, all as plain numpy mappings:
 - VOLTA state dicts (the reference's torch names, Linear weights [out, in]);
@@ -12,6 +13,8 @@ Three weight formats meet here, all as plain numpy mappings:
   whole JAX ``TrainState`` with its AdamW moments and a gradient mask:
   :func:`from_jax_train_state`.
 - The port's own ``state_dict`` names.
+The model-level entries (:func:`from_jax_params`, :func:`from_volta`,
+:func:`from_jax_train_state`) build a UC2 or an M3P by the config's type.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..config import UC2Config
+from ..config import M3PConfig, UC2Config
+from ..models.m3p import M3P
 from ..models.uc2 import UC2
 from ..train.loop import TrainState
 from ..train.optim import AdamWState
@@ -168,8 +172,95 @@ def hf_xlmr_to_uc2_state_dict(sd: Mapping[str, np.ndarray], cfg: UC2Config, *,
     return volta_uc2_to_state_dict(merged, cfg)
 
 
+def _m3p_names(num_layers: int, task_key: str) -> list[tuple[str, str]]:
+    """(port key, VOLTA key) for every M3P parameter. VOLTA's M3P keeps the
+    original module names under ``bert.encoder.``
+    (clg_vqa_tpu/utils/convert.py:217-258)."""
+    enc = "bert.encoder"
+    rows = [("embeddings.word", f"{enc}.embeddings.weight"),
+            ("embeddings.position", f"{enc}.position_embeddings.weight")]
+
+    def pair(port, volta):
+        rows.extend((f"{port}.{s}", f"{volta}.{s}") for s in ("weight", "bias"))
+
+    pair("embeddings.ln", f"{enc}.layer_norm_emb")
+    pair("embeddings.image", f"{enc}.image_embeddings.image_embeddings")
+    pair("embeddings.loc", f"{enc}.image_embeddings.image_location_embeddings")
+    pair("embeddings.img_ln", f"{enc}.image_embeddings.LayerNorm")
+    for i in range(num_layers):
+        for port, name in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"),
+                           ("o", "out_lin")):
+            pair(f"encoder.{i}.attn.{port}", f"{enc}.attentions.{i}.{name}")
+        pair(f"encoder.{i}.ln1", f"{enc}.layer_norm1.{i}")
+        pair(f"encoder.{i}.ffn.w1", f"{enc}.ffns.{i}.lin1")
+        pair(f"encoder.{i}.ffn.w2", f"{enc}.ffns.{i}.lin2")
+        pair(f"encoder.{i}.ln2", f"{enc}.layer_norm2.{i}")
+    pair("pooler", f"{enc}.pooled_layer.dense")
+    clf = f"clfs_dict.{task_key}.logit_fc"
+    pair("classifier.fc1", f"{clf}.0")
+    pair("classifier.ln", f"{clf}.2")
+    pair("classifier.fc2", f"{clf}.3")
+    return rows
+
+
+def volta_m3p_to_state_dict(sd: Mapping[str, np.ndarray], cfg: M3PConfig,
+                            task_key: str = "TASK15") -> dict[str, np.ndarray]:
+    """A (normalized) VOLTA M3P state dict -> the port's state-dict names
+    (port of clg_vqa_tpu/utils/convert.py:volta_m3p_to_pytree). The
+    classifier is optional; only the jointfwd path's modules are read, as
+    the reference's prefix-tolerant load ignores the generation heads."""
+    out = {}
+    for port, volta in _m3p_names(cfg.num_layers, task_key):
+        if volta not in sd:
+            if port.startswith("classifier."):
+                continue
+            raise KeyError(f"missing {volta} in the VOLTA M3P state dict")
+        out[port] = np.asarray(sd[volta], np.float32)
+    return out
+
+
+def state_dict_to_volta_m3p(model, task_key: str = "TASK15"
+                            ) -> dict[str, np.ndarray]:
+    """Export for the reference stack (port of
+    clg_vqa_tpu/utils/convert.py:pytree_to_volta_m3p). ``model``: an M3P or
+    its state dict (tensors or arrays)."""
+    if isinstance(model, torch.nn.Module):
+        model = model.state_dict()
+    own = {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy())
+           for k, v in model.items()}
+    num_layers = sum(1 for k in own if k.startswith("encoder.")
+                     and k.endswith(".ln1.weight"))
+    names = _m3p_names(num_layers, task_key)
+    missing = [port for port, _ in names
+               if port not in own and not port.startswith("classifier.")]
+    if missing:
+        raise KeyError(f"not an M3P state dict: missing {missing[:5]}")
+    return {volta: own[port] for port, volta in names if port in own}
+
+
+def m3p_original_to_state_dict(sd: Mapping[str, np.ndarray], cfg: M3PConfig,
+                               *, seed: int = 0) -> dict[str, np.ndarray]:
+    """An original microsoft/M3P checkpoint (``module.*`` names:
+    attentions.N.q_lin, ffns.N.lin1, layer_norm1/2.N, image_embeddings,
+    pooled_layer) -> the port's state-dict names (port of
+    clg_vqa_tpu/utils/convert.py:m3p_original_to_pytree, :261-278). VOLTA's
+    M3P keeps the original module names, so the body maps by the
+    ``module.`` -> ``bert.encoder.`` prefix; what the checkpoint lacks
+    (the classifier, for one) keeps a fresh port init from ``seed``."""
+    norm = {"bert.encoder." + k[len("module."):]: np.asarray(v)
+            for k, v in sd.items() if k.startswith("module.")}
+    base = state_dict_to_volta_m3p(M3P(cfg, device="cpu", seed=seed))
+    merged = {**base, **{k: v for k, v in norm.items() if k in base}}
+    return volta_m3p_to_state_dict(merged, cfg)
+
+
+def model_class(cfg):
+    """The port model of a config: M3P for an M3PConfig, else UC2."""
+    return M3P if isinstance(cfg, M3PConfig) else UC2
+
+
 def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
-    """(port name, array) for one leaf of a JAX UC2 pytree: [in, out]
+    """(port name, array) for one leaf of a JAX UC2 or M3P pytree: [in, out]
     Linear weights become [out, in], a stacked [L, ...] encoder leaf one
     entry per block."""
     def name(p):
@@ -195,7 +286,7 @@ def _walk(tree, path=()):
 
 
 def jax_params_to_state_dict(params: Mapping) -> dict[str, np.ndarray]:
-    """The JAX package's UC2 params pytree (numpy leaves) -> the port's
+    """The JAX package's UC2 or M3P params pytree (numpy leaves) -> the port's
     state-dict names: [in, out] Linear weights become [out, in], the
     stacked [L, ...] encoder leaves become one entry per block."""
     return {n: a for path, leaf in _walk(params)
@@ -217,8 +308,8 @@ def jax_mask_to_state_dict(mask: Mapping, params: Mapping
 
 
 @torch.no_grad()
-def load_numpy_state(model: UC2, sd: Mapping[str, np.ndarray], *,
-                     allow_missing: tuple[str, ...] = ()) -> UC2:
+def load_numpy_state(model: torch.nn.Module, sd: Mapping[str, np.ndarray], *,
+                     allow_missing: tuple[str, ...] = ()) -> torch.nn.Module:
     """Copy numpy arrays into the model's parameters by state-dict name.
     Every parameter must be given unless its name starts with one of
     ``allow_missing``; unknown names and shape mismatches raise."""
@@ -235,25 +326,29 @@ def load_numpy_state(model: UC2, sd: Mapping[str, np.ndarray], *,
     return model
 
 
-def from_jax_params(params: Mapping, cfg: UC2Config, *, device=None) -> UC2:
-    """A port UC2 carrying the weights of a JAX UC2 params pytree."""
-    return load_numpy_state(UC2(cfg, device=device),
+def from_jax_params(params: Mapping, cfg, *, device=None) -> torch.nn.Module:
+    """A port UC2 or M3P (by the config's type) carrying the weights of a
+    JAX params pytree of that model."""
+    return load_numpy_state(model_class(cfg)(cfg, device=device),
                             jax_params_to_state_dict(params))
 
 
-def from_volta(sd: Mapping[str, np.ndarray], cfg: UC2Config, *, device=None,
-               task_key: str = "TASK15") -> UC2:
-    """A port UC2 from a VOLTA state dict (run :func:`normalize_volta_keys`
-    first on raw checkpoints); a missing classifier keeps its fresh init."""
-    return load_numpy_state(UC2(cfg, device=device),
-                            volta_uc2_to_state_dict(sd, cfg, task_key),
+def from_volta(sd: Mapping[str, np.ndarray], cfg, *, device=None,
+               task_key: str = "TASK15") -> torch.nn.Module:
+    """A port UC2 or M3P (by the config's type) from a VOLTA state dict (run
+    :func:`normalize_volta_keys` first on raw checkpoints); a missing
+    classifier keeps its fresh init."""
+    to_sd = (volta_m3p_to_state_dict if isinstance(cfg, M3PConfig)
+             else volta_uc2_to_state_dict)
+    return load_numpy_state(model_class(cfg)(cfg, device=device),
+                            to_sd(sd, cfg, task_key),
                             allow_missing=("classifier.",))
 
 
-def from_jax_train_state(state, cfg: UC2Config, *, grad_mask=None,
-                         device=None):
-    """A JAX ``train.loop.TrainState`` (stacked params; opt_state the
-    ``make_optimizer`` chain, whose AdamW state holds count/mu/nu) and an
+def from_jax_train_state(state, cfg, *, grad_mask=None, device=None):
+    """A JAX ``train.loop.TrainState`` of a UC2 or an M3P (stacked params;
+    opt_state the ``make_optimizer`` chain, whose AdamW state holds
+    count/mu/nu) and an
     optional JAX gradient-mask tree -> (port TrainState, port mask or None).
     The model carries the params; the AdamW moments and count become the
     port's ``AdamWState``."""

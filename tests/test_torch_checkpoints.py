@@ -234,8 +234,12 @@ def test_export_torch_bin_loads_in_jax(tmp_path):
         got = model({k: torch.from_numpy(v) for k, v in b.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # M3P export is ported (tests/test_torch_m3p.py); a UC2 is no M3P, and a
+    # name that is neither model raises
+    with pytest.raises(KeyError, match="not an M3P"):
         ckpt.export_torch_bin(path, model, "m3p")
+    with pytest.raises(ValueError, match="uc2"):
+        ckpt.export_torch_bin(path, model, "lxmert")
 
 
 def test_runner_mid_save_params_gap_epochs(tmp_path):

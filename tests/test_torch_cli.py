@@ -5,9 +5,11 @@ task YAML, CFS store): train -> eval -> score -> convert with
 
 Tolerance: the two CLIs' test_result.json files must be identical (argmax
 answers of the same fp32 weights on the same questions)."""
+import argparse
 import json
 import os
 import pickle
+import types
 
 import numpy as np
 import pytest
@@ -94,6 +96,16 @@ def cli_world(tmp_path_factory):
     # the hash tokenizer's full range, so both CLIs tokenize alike
     json.dump({**model_cfg, "vocab_size": 250002},
               open(tmp / "full_vocab.json", "w"))
+    m3p_cfg = {"hidden_size": 32, "intermediate_size": 128, "n_heads": 2,
+               "n_layers": 2, "max_position_embeddings": 514,
+               "pad_token_id": 1, "vocab_size": 128, "num_locs": 5,
+               "v_feature_size": 16, "norm_embeddings": True,
+               "pooler_size": 32, "clf_hidden_size": 48, "max_boxes": 6,
+               "hidden_dropout_prob": 0.1,
+               "attention_probs_dropout_prob": 0.1}
+    json.dump(m3p_cfg, open(tmp / "m3p.json", "w"))
+    json.dump({**m3p_cfg, "vocab_size": 250002},
+              open(tmp / "m3p_full_vocab.json", "w"))
 
     yaml_text = f"""TASK15:
   name: GQA
@@ -178,19 +190,22 @@ def test_jax_export_evaluates_identically_in_both_clis(cli_world, capsys):
 
 @pytest.mark.parametrize("case", ["m3p", "gated", "lmdb", "proj"])
 def test_cli_unported_paths_raise(cli_world, case):
-    """M3P, the gated zoo and LMDB stores raise NotImplementedError naming
-    the ROADMAP; "--fused_attn proj" (B4) is ported and trains and saves."""
+    """The gated zoo and LMDB stores raise NotImplementedError naming the
+    ROADMAP; "--fused_attn proj" (B4) and "--is_m3p" (M3P) are ported and
+    train and save."""
     tmp = cli_world
     argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2"]
     if case == "m3p":
-        argv.append("--is_m3p")
+        argv = ["train", *_common(tmp, "bad_m3p", "m3p.json"), "--is_m3p",
+                "--grad_acc_steps", "2"]
     elif case == "gated":
         argv = ["train", *_common(tmp, "bad_gated", "gated.json"),
                 "--grad_acc_steps", "2"]
     elif case == "lmdb":
         argv += ["--features_path", str(tmp / "feats_lmdb")]
-    else:
-        argv += ["--fused_attn", "proj"]
+    if case in ("m3p", "proj"):
+        if case == "proj":
+            argv += ["--fused_attn", "proj"]
         main(argv)
         out = tmp / f"bad_{case}"
         meta = json.load(open(out / "meta.json"))
@@ -199,6 +214,82 @@ def test_cli_unported_paths_raise(cli_world, case):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv)
+
+
+def test_cli_m3p_train_eval_score_convert(cli_world, capsys):
+    """--is_m3p through train -> eval -> score -> convert on the CPU: an M3P
+    config JSON (n_layers / n_heads keys, 5 locs, L2-normalized features),
+    the model's saves and a .bin export that the convert command reads
+    back to the same predictions."""
+    tmp = cli_world
+    common = _common(tmp, "m3p_ft", "m3p.json") + ["--is_m3p"]
+    main(["train", *common, "--grad_acc_steps", "2"])
+    meta = json.load(open(tmp / "m3p_ft" / "meta.json"))
+    assert meta["epoch"] == 0 and meta["step"] == 3
+    assert "Best validation score" in capsys.readouterr().out
+    cfg, _, _ = C.build_configs(
+        C.add_common_args(argparse.ArgumentParser()).parse_args(common))
+    model = C.build_model(types.SimpleNamespace(
+        device="cpu", seed=0,
+        from_pretrained=str(tmp / "m3p_ft" / "params_best")), cfg)
+    assert type(model).__name__ == "M3P" and C.model_name(cfg) == "m3p"
+    from clg_vqa_tpu_torch.train import checkpoints as ckpt
+    ckpt.export_torch_bin(str(tmp / "m3p.bin"), model, "m3p")
+
+    def ev(out, pretrained):
+        main(["eval", *_common(tmp, out, "m3p.json"), "--is_m3p",
+              "--from_pretrained", pretrained, "--split", "test"])
+        return json.load(open(tmp / out / "test_result.json"))
+
+    preds = ev("m3p_ev", str(tmp / "m3p_ft" / "params_best"))
+    assert len(preds) == 12
+    main(["score", "--preds_file", str(tmp / "m3p_ev" / "test_result.json"),
+          "--truth_file",
+          str(tmp / "annotations" / "testdev_balanced_questions.json")])
+    assert 0.0 <= float(capsys.readouterr().out.strip().splitlines()[-1]) <= 100
+    main(["convert", *_common(tmp, "m3p_conv", "m3p.json"), "--is_m3p",
+          "--from_pretrained", str(tmp / "m3p.bin"), "--name", "p"])
+    assert ev("m3p_ev2", str(tmp / "m3p_conv" / "p")) == preds
+    assert ev("m3p_ev3", str(tmp / "m3p.bin")) == preds
+
+
+def test_jax_m3p_export_evaluates_identically_in_both_clis(cli_world):
+    """A JAX M3P exported by the JAX package's export_torch_bin: the JAX CLI
+    and the port's CLI, both with --is_m3p, write the same
+    test_result.json; the original microsoft/M3P layout (module.* names, no
+    classifier) loads the body into both."""
+    from clg_vqa_tpu.config import M3PConfig as JM3PConfig
+    from clg_vqa_tpu.models import m3p as jm3p
+    from clg_vqa_tpu.utils.convert import pytree_to_volta_m3p
+    tmp = cli_world
+    cfg = JM3PConfig.from_json(str(tmp / "m3p_full_vocab.json"), num_labels=L)
+    params = jm3p.init_params(jax.random.key(4), cfg)
+    bin_path = str(tmp / "jax_m3p.bin")
+    jckpt.export_torch_bin(bin_path, params, model="m3p")
+    args = ["--is_m3p", "--from_pretrained", bin_path, "--split", "test"]
+    jax_main(["eval", *_common(tmp, "m3p_jax", "m3p_full_vocab.json")[:-2],
+              *args])
+    main(["eval", *_common(tmp, "m3p_port", "m3p_full_vocab.json"), *args])
+    want = json.load(open(tmp / "m3p_jax" / "test_result.json"))
+    got = json.load(open(tmp / "m3p_port" / "test_result.json"))
+    assert len(got) == 12 and got == want
+
+    sd = pytree_to_volta_m3p(jax.tree.map(np.asarray, params))
+    orig = {"module." + k[len("bert.encoder."):]: torch.from_numpy(v.copy())
+            for k, v in sd.items() if k.startswith("bert.encoder.")}
+    orig_path = str(tmp / "m3p_original.bin")
+    torch.save(orig, orig_path)
+    from clg_vqa_tpu_torch.config import M3PConfig
+    tcfg = M3PConfig.from_json(str(tmp / "m3p_full_vocab.json"), num_labels=L)
+    got_sd = C.load_pretrained(orig_path, tcfg)
+    from clg_vqa_tpu.cli.common import load_pretrained as jload
+    from clg_vqa_tpu_torch.utils.convert import jax_params_to_state_dict
+    want_sd = jax_params_to_state_dict(jax.tree.map(
+        np.asarray, jload(orig_path, cfg, True)))
+    assert got_sd.keys() == want_sd.keys()
+    for k, v in got_sd.items():
+        if not k.startswith("classifier."):     # fresh init on each side
+            np.testing.assert_array_equal(v, want_sd[k], err_msg=k)
 
 
 def test_cli_defaults_to_cuda(cli_world, monkeypatch):

@@ -458,3 +458,183 @@ def test_block_on_chip_properties(cuda, prop):
     for a, b, scale, name in zip(got[1], want[1], _grad_scales(want[1]), BLOCK_GRADS):
         err = (a.double().cpu() - b).abs().max().item()
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+# ---------------------------------------------------------------------------
+# B2 / B3: the head-blocked attention (M3P's fused_attn=True and "hm")
+# ---------------------------------------------------------------------------
+
+def _neg_inf_inputs(dev, B, S, H, hd, dtype, seed=0):
+    """q/k/v [B, S, H*hd] and M3P's key bias: -inf on the trailing third of
+    sample 1's keys, 0 elsewhere."""
+    q, k, v, _ = _attention_inputs(dev, B, S, H, hd, dtype)
+    valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+    valid[1, -(S // 3):] = False
+    bias = torch.zeros(B, 1, 1, S, device=dev).masked_fill(
+        ~valid[:, None, None, :], float("-inf"))
+    return q, k, v, bias
+
+
+def _hm_train(q, k, v, bias, H, **kw):
+    """B3's head-major entry on [B, S, H*hd] operands split outside it."""
+    B, S, D = q.shape
+    split = [t.view(B, S, H, D // H).transpose(1, 2).contiguous() for t in (q, k, v)]
+    out = TA.fused_attention_train_hm(*split, bias, **kw)
+    return out.transpose(1, 2).reshape(B, S, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_eval_kernel_matches_plain(cuda, S, dtype):
+    """B2 against its plain version under the -inf key bias: fp32 atol 1e-5,
+    bf16 one bf16 ulp of the largest output; finite; one launch."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 16, S, 12, 64, dtype)
+    before = TA.fused_attention.launches
+    with torch.no_grad():
+        got = TA.fused_attention(q, k, v, bias, 12)
+    torch.cuda.synchronize()
+    assert TA.fused_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = TA.fused_attention_flat_plain(q, k, v, bias, 12)
+    scale = want.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(scale)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_blocked_eval_kernel_refuses_grad_mode_and_bad_head_dim(cuda):
+    q, k, v, bias = _neg_inf_inputs(cuda, 4, 9, 12, 64, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.fused_attention(q.requires_grad_(), k, v, bias, 12)
+    q, k, v, bias = _neg_inf_inputs(cuda, 4, 9, 4, 16, torch.float32)
+    with pytest.raises(ValueError, match="hd"):
+        TA.fused_attention(q, k, v, bias, 4)
+    with pytest.raises(ValueError, match="hd"):
+        TA.fused_attention_train(q, k, v, bias, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [13, 76, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_train_kernels_match_plain_and_b1(cuda, S, dtype, rate):
+    """B3 through both entries, forward and backward, under the -inf key
+    bias: against autograd of its plain version with B1's tolerances
+    (test_flat_train_kernels_match_plain), and equal to B1's kernels bit for
+    bit (one device code, one keep mask); one launch of each kernel per
+    entry call."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    kw = dict(dropout_rate=rate, seed=4321)
+    flat = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, **kw)
+    want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w, **kw)
+    for fn in (TA.fused_attention_train, _hm_train):
+        f0 = TA.fused_attention_train.launches
+        b0 = TA.fused_attention_train.backward_launches
+        got = _train_grads(fn, q, k, v, bias, w, **kw)
+        torch.cuda.synchronize()
+        assert TA.fused_attention_train.launches == f0 + 1
+        assert TA.fused_attention_train.backward_launches == b0 + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, flat))
+        assert all(torch.isfinite(t).all() for t in got)
+        for i in range(4):
+            scale = want[i].float().abs().max().item()
+            if dtype == torch.float32:
+                tol = 1e-5 if i == 0 else 2e-4 * scale
+            else:
+                tol = _bf16_ulp(scale) * (1 if i == 0 else 2)
+            assert (got[i].float() - want[i].float()).abs().max().item() <= tol
+        assert (got[4] - want[4]).abs().max().item() <= 1e-4 * want[4].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prop", PROPERTIES)
+def test_blocked_on_chip_properties(cuda, prop):
+    """The seven on-chip properties tools/check_attention_tpu.py checks for
+    the TPU's attention kernels (clg_vqa_tpu/ops/attention.py:53-56), held
+    for B3 on the card:
+    parity_rate0: fp32 at rate 0 against the plain version in fp64 on the
+        CPU, output and every gradient;
+    determinism: one seed gives bit-equal output and gradients twice;
+    seed_sensitivity: another seed gives another output, and dropout changes
+        it;
+    keep_rate: the realized keep fraction is t/256, the same mask in a batch
+        of 3 as in a batch of 8;
+    kept_entries: with q = k = 0 every probability is 1/S, and a kept one
+        comes out as exactly 2/S at rate 0.5 in bf16 (the rescale by 2
+        commutes with bf16 rounding);
+    mask_agreement: the output is linear in v under a fixed mask, so
+        <dv, v> == loss (the forward and the backward realize one mask), far
+        below what a mismatched seed gives;
+    dropout_vjp: fp32 gradients at rate 0.3 against the plain version in
+        fp64 on the CPU, whose mask is the realized one."""
+    H, hd = 12, 64
+    if prop in ("parity_rate0", "dropout_vjp"):
+        rate = 0.0 if prop == "parity_rate0" else 0.3
+        q, k, v, bias = _neg_inf_inputs(cuda, 4, 40, H, hd, torch.float32)
+        w = torch.randn(q.shape, device=cuda)
+        kw = dict(dropout_rate=rate, seed=12)
+        got = _train_grads(TA.fused_attention_train, q, k, v, bias, w, **kw)
+        want = _train_grads(TA.fused_attention_train_flat_plain,
+                            *(t.double().cpu() for t in (q, k, v, bias, w)), **kw)
+        for a, b in zip(got, want):
+            scale = b.abs().max().item()
+            assert (a.double().cpu() - b).abs().max().item() <= 1e-4 * max(scale, 1e-6)
+        return
+    if prop in ("determinism", "seed_sensitivity"):
+        q, k, v, bias = _neg_inf_inputs(cuda, 8, 140, H, hd, torch.bfloat16)
+        w = torch.randn(q.shape, device=cuda)
+        a = _train_grads(_hm_train, q, k, v, bias, w, dropout_rate=0.5, seed=7)
+        if prop == "determinism":
+            b = _train_grads(_hm_train, q, k, v, bias, w, dropout_rate=0.5, seed=7)
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+            return
+        c = _train_grads(_hm_train, q, k, v, bias, w, dropout_rate=0.5, seed=8)
+        d = _train_grads(_hm_train, q, k, v, bias, w, seed=7)
+        assert (a[0] - c[0]).float().abs().max() > 1e-2
+        assert (a[0] - d[0]).float().abs().max() > 1e-2
+        assert (a[1] - c[1]).float().abs().max() > 1e-2
+        return
+    if prop == "keep_rate":
+        for rate in (0.1, 0.5):
+            t = TA.keep_threshold(rate)
+            m = TA.realized_keep_mask(3, 8, H, 140, hd, rate, cuda,
+                                      train=TA.fused_attention_train)
+            assert abs(m.float().mean().item() - t / 256) < 0.005, rate
+            assert torch.equal(m[:3], TA.realized_keep_mask(
+                3, 3, H, 140, hd, rate, cuda, train=TA.fused_attention_train))
+            assert torch.equal(m.cpu(), TA.dropout_keep_mask(3, 8, H, 140, t))
+        return
+    if prop == "kept_entries":
+        B, S = 4, 64
+        z = torch.zeros(B, S, H * hd, device=cuda, dtype=torch.bfloat16)
+        v = torch.zeros(B, S, H, hd, device=cuda)
+        v[:, torch.arange(S), :, torch.arange(S)] = 1.0
+        with torch.no_grad():
+            o = TA.fused_attention_train(z, z, v.reshape(B, S, H * hd).bfloat16(),
+                                         torch.zeros(B, 1, 1, S, device=cuda), H,
+                                         dropout_rate=0.5, seed=4)
+        o = o.view(B, S, H, hd).float()
+        kept = o != 0
+        assert torch.all(o[kept] == 2.0 / S)
+        assert torch.equal(kept, TA.dropout_keep_mask(4, B, H, S, 128, cuda)
+                           .transpose(1, 2))
+        return
+    assert prop == "mask_agreement"
+    q, k, v, bias = _neg_inf_inputs(cuda, 8, 76, H, hd, torch.float32)
+    w = torch.randn(q.shape, device=cuda)
+
+    def loss_and_dv(seed):
+        vv = v.detach().clone().requires_grad_()
+        out = TA.fused_attention_train(q, k, vv, bias, H, dropout_rate=0.3,
+                                       seed=seed)
+        loss = (out * w).sum()
+        loss.backward()
+        return loss.item(), vv.grad
+
+    lv, dv = loss_and_dv(7)
+    inner = (dv.double() * v.double()).sum().item()
+    signal = abs(lv - loss_and_dv(8)[0])
+    assert abs(inner - lv) < signal / 100, (inner, lv, signal)

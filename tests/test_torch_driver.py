@@ -32,11 +32,13 @@ from clg_vqa_tpu.data.tokenizer import HashTokenizer as JTok
 from clg_vqa_tpu.models import uc2 as juc2
 from clg_vqa_tpu.train import checkpoints as jckpt
 from clg_vqa_tpu.train.driver import FinetuneRunner as JRunner
-from clg_vqa_tpu_torch.config import OptimConfig, TaskConfig, UC2Config
+from clg_vqa_tpu_torch.config import (M3PConfig, OptimConfig, TaskConfig,
+                                      UC2Config)
 from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.data.gqa import Entry, GQADataset
 from clg_vqa_tpu_torch.data.pipeline import TrainPipeline
 from clg_vqa_tpu_torch.data.tokenizer import HashTokenizer
+from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.train import driver as D
 from clg_vqa_tpu_torch.utils import convert as TC
@@ -297,10 +299,84 @@ def test_val_bank_failure_warns_loudly(world, monkeypatch, capsys):
 
 
 def test_runner_defaults_to_the_models_device_and_refuses_m3p(world):
+    """The runner runs on its model's device. M3P is ported: model_name
+    "m3p" is accepted (test_m3p_finetune_matches_jax runs it); a name that
+    is neither model raises."""
     r, _ = _port_runner(world, "dev")
     assert r.device.type == "cpu" and r.D.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        _port_runner(world, "m3p", model_name="m3p")
+    r, _ = _port_runner(world, "m3p", model=M3P(M3PConfig(**M3P_TINY),
+                                                device="cpu"),
+                        model_name="m3p")
+    assert r.model_name == "m3p" and r.device.type == "cpu"
+    with pytest.raises(ValueError, match="model_name"):
+        _port_runner(world, "lxmert", model_name="lxmert")
+
+
+M3P_TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
+                intermediate_size=128, v_feature_size=16, num_locs=5,
+                max_boxes=6, pooler_size=32, clf_hidden_size=48, num_labels=L,
+                dropout=0.0, attention_dropout=0.0, clf_dropout_prob=0.0)
+
+
+def test_m3p_finetune_matches_jax(world):
+    """FinetuneRunner(model_name="m3p") against the JAX runner over the same
+    2 tiny epochs (5 locs, L2-normalized features, fp32, dropout 0), the
+    port's M3P made from the JAX params0: per-step train and val losses
+    rtol 1e-4, scores to 1e-6, final params rtol 1e-3 atol 1e-5, and the
+    .bin export reloads into both packages' M3P."""
+    from clg_vqa_tpu.config import M3PConfig as JM3PConfig
+    from clg_vqa_tpu.models import m3p as jm3p
+    from clg_vqa_tpu.cli.common import load_pretrained as jload
+    from clg_vqa_tpu_torch.cli.common import load_pretrained
+    tmp, store, qs, _, Dm = world
+    dkw = dict(max_seq_length=8, max_region_num=6, num_locs=5, num_labels=L,
+               norm_embeddings=True)
+    jentries = [JEntry(**q) for q in qs]
+    jds = JDataset(jentries, JReader(store), JTok(128), **dkw)
+    jval = JDataset(jentries[:16], JReader(store), JTok(128), **dkw)
+    jcfg = JM3PConfig(**M3P_TINY)
+    params0 = jm3p.init_params(jax.random.key(5), jcfg)
+    jout = str(tmp / "jax_m3p")
+    jr = JRunner(jm3p.forward, jcfg, params0,
+                 JPipeline(jds, micro_batch_size=8, grad_acc_steps=2, seed=0),
+                 jval, Dm, task_cfg=JTask(**TASK), optim_cfg=JOptim(**OPT),
+                 output_dir=jout, compute_dtype=None, model_name="m3p")
+    jbest = jr.finetune()
+
+    entries = [Entry(**q) for q in qs]
+    ds = GQADataset(entries, CfsReader(store), HashTokenizer(128), **dkw)
+    val = GQADataset(entries[:16], CfsReader(store), HashTokenizer(128), **dkw)
+    cfg = M3PConfig(**M3P_TINY)
+    model = TC.from_jax_params(jax.tree.map(np.asarray, params0), cfg,
+                               device="cpu")
+    tout = str(tmp / "port_m3p")
+    tr = D.FinetuneRunner(
+        model, TrainPipeline(ds, micro_batch_size=8, grad_acc_steps=2, seed=0,
+                             device="cpu"), val, Dm,
+        task_cfg=TaskConfig(**TASK), optim_cfg=OptimConfig(**OPT),
+        output_dir=tout, compute_dtype=None, model_name="m3p")
+    tbest = tr.finetune()
+    want, got = _records(jout), _records(tout)
+    assert [(r["kind"], r["epoch"], r["step"]) for r in got] == \
+        [(r["kind"], r["epoch"], r["step"]) for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+        np.testing.assert_allclose(g["score"], w["score"], atol=1e-6)
+    np.testing.assert_allclose(tbest, jbest, atol=1e-6)
+    jparams = jckpt.load_params(jout, _meta(jout)["state_dir"])["params"]
+    want_p = TC.jax_params_to_state_dict(jax.tree.map(np.asarray, jparams))
+    for k, p in tr.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want_p[k], rtol=1e-3,
+                                   atol=1e-5, err_msg=k)
+    tr.export_torch("model.bin")
+    tr.flush_saves()
+    bin_path = os.path.join(tout, "model.bin")
+    sd = load_pretrained(bin_path, cfg)
+    for k, p in tr.model.state_dict().items():
+        assert np.array_equal(sd[k], p.numpy()), k
+    jp = jload(bin_path, jcfg, True)
+    assert TC.jax_params_to_state_dict(jax.tree.map(np.asarray, jp)).keys() \
+        == sd.keys()
 
 
 def test_metrics_logger_matches_jax(tmp_path, capsys):

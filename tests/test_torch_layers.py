@@ -148,12 +148,14 @@ def test_multi_head_attention_unfused_bf16():
 
 @pytest.mark.parametrize("fused", [True, "hm", "proj", "sm"])
 def test_unported_attention_variants_raise(fused):
-    """The unported kernels raise NotImplementedError naming the ROADMAP.
-    The S-major kernel ("sm") is ported: like the JAX route, it raises
-    ValueError on shapes its grid cannot take (here H*hd = 64 and batch 3)
-    and never falls back to another kernel. The whole-block kernel ("proj",
-    B4) is ported: with a seed the route runs on these shapes and gives the
-    plain whole-block function's output."""
+    """Every attention route is ported now; none falls back to another
+    kernel. The S-major kernel ("sm") raises ValueError on shapes its grid
+    cannot take (here H*hd = 64 and batch 3), as the JAX route does. The
+    whole-block kernel ("proj", B4) with a seed gives the plain whole-block
+    function's output. The head-blocked routes (True: B2/B3 on split heads;
+    "hm", which is the True route in the port) give, on the CPU, the flat
+    route's bits with a seed (B3's plain version is B1's) and without one
+    (B2's plain version is K1's)."""
     x, p, mask, attn = _mha_world(8)
     bias = TL.additive_mask(torch.from_numpy(mask))
     if fused == "sm":
@@ -173,5 +175,30 @@ def test_unported_attention_variants_raise(fused):
                 attn.o.bias, bias, attn.num_heads, dropout_rate=0.1, seed=1)
         assert torch.equal(got, want)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn(torch.from_numpy(x), bias, fused=fused)
+    with torch.no_grad():
+        for kw in (dict(dropout_rate=0.1, seed=1), {}):
+            got = attn(torch.from_numpy(x), bias, fused=fused, **kw)
+            want = attn(torch.from_numpy(x), bias, fused="flat", **kw)
+            assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="attention routes"):
+        attn(torch.from_numpy(x), bias, fused="blocked")
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_hm_route_is_the_true_route(dtype):
+    """"hm" with a seed runs the True route: the same output and the same
+    gradients of x and of every weight and bias, bit for bit, at rate 0.1."""
+    x, _, mask, attn = _mha_world(9)
+    bias = TL.additive_mask(torch.from_numpy(mask))
+    g = torch.from_numpy(np.random.RandomState(10).randn(*x.shape)
+                         .astype(np.float32))
+    res = []
+    for fused in (True, "hm"):
+        attn.zero_grad(set_to_none=True)
+        tx = torch.from_numpy(x).requires_grad_()
+        y = attn(tx, bias, compute_dtype=dtype, fused=fused, dropout_rate=0.1,
+                 seed=3)
+        y.backward(g.to(y.dtype))
+        res.append([y.detach(), tx.grad]
+                   + [p.grad for p in attn.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*res))

@@ -500,5 +500,7 @@ def test_resolve_fused():
     assert tloop.resolve_fused("auto", None, cuda) is False
     assert tloop.resolve_fused("auto", torch.bfloat16, cpu) is False
     assert tloop.resolve_fused("flat", None, cpu) == "flat"
-    with pytest.raises(NotImplementedError):
-        tloop.resolve_fused("hm", None, cpu)
+    assert tloop.resolve_fused("hm", None, cpu) == "hm"
+    assert tloop.resolve_fused(True, None, cpu) is True
+    with pytest.raises(ValueError):
+        tloop.resolve_fused("blocked", None, cpu)

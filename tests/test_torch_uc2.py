@@ -178,13 +178,21 @@ def test_init_distributions_and_seed():
 
 
 def test_training_paths_raise(tiny):
-    """The training forward needs a dropout seed; the head-blocked kernel
-    is not ported yet."""
+    """The training forward needs a dropout seed. The head-blocked eval
+    kernel (fused_attn=True, B2) is ported: it has no backward, so it raises
+    in grad mode, and under no_grad it gives the plain route's fp32 logits;
+    a value that names no route raises ValueError."""
     cfg, _, model = tiny
     with pytest.raises(ValueError, match="seed"):
         model(_torch(_batch(2)), deterministic=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no backward"):
         model(_torch(_batch(2)), fused_attn=True)
+    with torch.no_grad():
+        got = model(_torch(_batch(2)), fused_attn=True)
+        want = model(_torch(_batch(2)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="attention routes"):
+        model(_torch(_batch(2)), fused_attn="blocked")
 
 
 def test_model_defaults_to_cuda_and_raises_without_it(monkeypatch):
