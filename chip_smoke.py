@@ -6,7 +6,7 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the seven CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the eight CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
@@ -57,10 +57,23 @@ final line:
     reloads to equal logits; then a tiny M3P on the card against the CPU
     (eval, and 3 train steps through "hm") and full-width fp32 gradients of
     True against the plain route.
+    Then the train step at a task length of 60 tokens (S = 160) on the
+    auto route, which runs B1's key-blocked backward.
+11. the detector: RoIPool (B6) at the C4 extractor's shape ([50, 84, 1024]
+    bf16, 300 rois) bit-exact against its plain version and timed; then
+    `python -m clg_vqa_tpu_torch.cli extract --detector c4` in process at
+    full width and depth (R101-C4, pad 800 x 1344, bf16, random weights
+    from seed 0) over 8 synthetic 480 x 640 images (one B6 launch each),
+    the store read back, the extractor timed warm, and a full-width UC2
+    run_eval over 64 questions on the extracted store (K1, K2).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions, B3 equal to B1 bit for bit, its keep
-mask B1's whatever the batch size.
+mask B1's whatever the batch size; and the key-blocked variant that every
+shared attention wrapper takes past its all-keys kernel's shared memory: B1
+at S 159 and 612 (values, gradients, keep mask) against its plain version,
+B5 and B3 equal to it, B4 at S 159 and 612, K1 and B2 at S 418 and 612, and
+B1's key-blocked times.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -89,7 +102,7 @@ from clg_vqa_tpu_torch.config import (M3PConfig, OptimConfig, TaskConfig,
                                       UC2Config)
 from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.data.device_bank import DeviceFeatureBank
-from clg_vqa_tpu_torch.data.gqa import GQADataset
+from clg_vqa_tpu_torch.data.gqa import Entry, GQADataset
 from clg_vqa_tpu_torch.data.pipeline import TrainPipeline
 from clg_vqa_tpu_torch.data.synthetic import (REGIONS as R, eval_world,
                                               m3p_world, make_entries,
@@ -97,6 +110,8 @@ from clg_vqa_tpu_torch.data.synthetic import (REGIONS as R, eval_world,
 from clg_vqa_tpu_torch.data.tokenizer import HashTokenizer
 from clg_vqa_tpu_torch.eval.predictor import Predictor
 from clg_vqa_tpu_torch.eval.runner import make_predict_step, run_eval
+from clg_vqa_tpu_torch.models.detector.extractor import (
+    Extractor36, ExtractorConfig, init_extractor_params)
 from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
@@ -114,6 +129,7 @@ from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
 from clg_vqa_tpu_torch.ops.block_attention import (
     fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
+from clg_vqa_tpu_torch.ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
@@ -142,6 +158,11 @@ AB_STEPS, AB_ORDER = 10, ("flat", "sm", "sm", "flat") * 5
 # M3P's world: images of 10..100 boxes, as a detector's confidence
 # threshold leaves them (X101 features, max_region_num 100)
 M3P_MIN_REGIONS = 10
+M3P_LONG_SEQ = 60            # S = 100 + 60 = 160: the key-blocked backward
+# the extraction phase: 8 synthetic 480 x 640 images through the C4 detector
+# at full width (R101, pad 800 x 1344, bf16), then UC2 eval over the store
+N_EXTRACT, EXTRACT_HW, EXTRACT_QA = 8, (480, 640), 64
+C4_SHAPE, C4_ROIS = (50, 84, 1024), 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -194,7 +215,7 @@ def phase_build() -> None:
     built = _build.build(["flat_attention", "flat_attention_train",
                           "rows_gather", "smajor_attention_train",
                           "block_attention_train", "blocked_attention",
-                          "blocked_attention_train"])
+                          "blocked_attention_train", "roi_pool"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -976,6 +997,96 @@ def phase_blocked_kernel(gen) -> dict:
     return out
 
 
+def phase_long_s(gen) -> dict:
+    """The key-blocked variant, where one head's K, V (and the backward's
+    [S, S] tile) do not fit a block's shared memory: B1 at S 159 (its
+    backward key-blocked) and 612 (both) against its plain version, fp32 and
+    bf16, rates 0 and 0.1, under M3P's -inf keys; B5, B3 (both entries)
+    equal to B1 bit for bit there; B4 against its plain version at S 159 and
+    612; K1 and B2 at S 418 and 612 against the plain version; the keep mask
+    at 612. Times (median of 25 CUDA events, bf16, rate 0.1): B1's bare
+    launches at [128, 159, 768] and [32, 612, 768] beside their bounds and
+    the plain version."""
+    H, hd = 12, 64
+    for S in (159, 612):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = neg_inf_inputs(8, S, H, hd, dtype, gen)
+            do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+            for rate in (0.0, RATE):
+                kw = dict(dropout_rate=rate, seed=13)
+                b1 = value_and_grads(fused_attention_train_flat, q, k, v, bias,
+                                     do, H, **kw)
+                e = grad_errors(b1, value_and_grads(
+                    fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
+                    dtype, f"key-blocked B1 S={S} {dtype} rate {rate}")
+                for name, fn in (("B5", fused_attention_train_smajor),
+                                 ("B3", fused_attention_train), ("B3 hm", train_hm)):
+                    check(all(torch.equal(a, b) for a, b in zip(value_and_grads(
+                        fn, q, k, v, bias, do, H, **kw), b1)),
+                        f"key-blocked {name} S={S} {dtype} rate {rate} is not "
+                        f"B1's bit for bit")
+                print(f"key-blocked B1 S={S} {dtype} rate {rate} (-inf bias): max "
+                      f"abs err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+                      + "; B5 and B3 (both entries) equal to it bit for bit")
+            args = block_args(2, S, dtype, gen)
+            dy = torch.randn(args[0].shape, device="cuda", generator=gen).to(dtype)
+            kw = dict(dropout_rate=RATE, seed=14)
+            e = block_errors(block_grads(fused_attention_block, args, dy, **kw),
+                             block_grads(fused_attention_block_plain, args, dy, **kw),
+                             dtype, f"key-blocked S={S} {dtype}")
+            print(f"key-blocked B4 S={S} {dtype} rate {RATE}: max abs err y "
+                  f"{e['y']:.3g}, dx {e['x']:.3g}")
+    for S in (418, 612):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = neg_inf_inputs(8, S, H, hd, dtype, gen)
+            with torch.no_grad():
+                ref = fused_attention_flat_plain(q, k, v, bias, H).float()
+                tol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())
+                for name, fn in (("K1", fused_attention_flat), ("B2", fused_attention)):
+                    err = (fn(q, k, v, bias, H).float() - ref).abs().max().item()
+                    check(err <= tol, f"key-blocked {name} S={S} {dtype}: {err} > {tol}")
+                    print(f"key-blocked {name} S={S} {dtype} (-inf bias): max abs "
+                          f"err {err:.3g} (tol {tol:.3g})")
+    t = keep_threshold(RATE)
+    check(torch.equal(realized_keep_mask(15, 4, H, 612, hd, RATE, "cuda"),
+                      dropout_keep_mask(15, 4, H, 612, t, "cuda")),
+          "key-blocked keep mask at S=612 differs from the plain mask")
+    print("key-blocked keep mask [4, 12, 612, 612] = dropout_keep_mask")
+
+    out = {}
+    for B, S in ((MBS, 159), (32, 612)):
+        q, k, v, bias = neg_inf_inputs(B, S, H, hd, torch.bfloat16, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        kw = dict(dropout_rate=RATE, seed=16)
+        fwd_ms, bwd_ms = bare_train_ms("flat_attention_train", q, k, v, bias, do,
+                                       B, S, H, **kw)
+        qr, kr, vr, br = (x.detach().requires_grad_() for x in (q, k, v, bias))
+        o_p = fused_attention_train_flat_plain(qr, kr, vr, br, H, **kw)
+        with torch.no_grad():
+            fwd_plain = time_ms(lambda: fused_attention_train_flat_plain(
+                q, k, v, bias, H, **kw), n=5)
+        bwd_plain = time_ms(lambda: torch.autograd.grad(
+            o_p, (qr, kr, vr, br), do, retain_graph=True), n=5)
+        del o_p
+        e = q.element_size()
+        for name, ms, plain, nbytes, ops in (
+                ("fwd", fwd_ms, fwd_plain, 4 * B * S * H * hd * e + B * S * 4,
+                 4 * B * H * S * S * hd),
+                ("bwd", bwd_ms, bwd_plain, 7 * B * S * H * hd * e + 2 * B * S * 4,
+                 10 * B * H * S * S * hd)):
+            bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
+            variant = "key-blocked" if name == "bwd" or S > 417 else "all-keys"
+            print(f"B1 {name} [{B}, {S}, {H * hd}] bf16 rate {RATE} ({variant}): "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 "
+                  f"CUDA cores {fp32_bms:.4f} ms")
+            out[f"S{S}_{name}"] = dict(shape=[B, S, H * hd], variant=variant, ms=ms,
+                                       plain_ms=plain, bound_ms=bms, bound_by=by)
+        torch.cuda.empty_cache()
+    return out
+
+
 COUNTERS = {
     "flat_attention": (fused_attention_flat, "launches"),
     "rows_gather": (rows_gather, "launches"),
@@ -990,6 +1101,7 @@ COUNTERS = {
     "blocked_attention": (fused_attention, "launches"),
     "blocked_attention_train_fwd": (fused_attention_train, "launches"),
     "blocked_attention_train_bwd": (fused_attention_train, "backward_launches"),
+    "roi_pool": (roi_pool_nhwc, "launches"),
 }
 
 
@@ -1121,16 +1233,18 @@ def phase_parity(cfg: UC2Config, model: UC2, ds, bank) -> None:
 
 
 TRAIN_KERNELS = {"flat": "flat_attention_train", "proj": "block_attention_train",
-                 True: "blocked_attention_train"}
+                 True: "blocked_attention_train", "auto": "flat_attention_train"}
 
 
-def phase_train(cfg, model, world, smi: str, fused="flat") -> dict:
+def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dict:
     """The GQA fine-tune step of UC2 or M3P at full width (bench.py:54-92's
-    envelope), fed by TrainPipeline over the eval world's store and device
-    bank, with the training attention of ``fused``: "flat" (B1), "proj"
-    (B4, the whole block) or True (B3 on split heads). Returns the timed
-    steps' launch counts."""
-    ds = train_dataset(world, (WARMUP_STEPS + TIMED_STEPS) * ACC * MBS)
+    envelope, ``seq`` text tokens), fed by TrainPipeline over the eval
+    world's store and device bank, with the training attention of ``fused``:
+    "flat" (B1), "proj" (B4, the whole block), True (B3 on split heads) or
+    "auto" (B1 in bf16 on the card). Returns the timed steps' launch
+    counts."""
+    ds = train_dataset(world, (WARMUP_STEPS + TIMED_STEPS) * ACC * MBS,
+                       max_seq_length=seq)
     pipe = TrainPipeline(ds, micro_batch_size=MBS, grad_acc_steps=ACC,
                          seed=0, device="cuda", with_features=False)
     D = torch.from_numpy(np.random.RandomState(0).rand(
@@ -1160,7 +1274,7 @@ def phase_train(cfg, model, world, smi: str, fused="flat") -> dict:
     n_blocks = cfg.num_layers * ACC
     kern = TRAIN_KERNELS[fused]
     print(f"train {type(model).__name__} ({fused}): {TIMED_STEPS} steps of "
-          f"{ACC} x {MBS} (S = {world.regions + 40}) in "
+          f"{ACC} x {MBS} (S = {world.regions + seq}) in "
           f"{dt:.3f} s -> {dt / TIMED_STEPS * 1e3:.2f} ms/step, "
           f"{TIMED_STEPS * ACC * MBS / dt:.1f} QA/s (bf16, fp32 master "
           f"weights, dropout {RATE}, lambda {LAMBDA}, fused_attn={fused!r}, "
@@ -1680,11 +1794,152 @@ def phase_m3p(smi: str) -> dict:
                             (True, "m3p_train_blocked")):
             trains[name] = phase_train(cfg, model, w, smi, fused)
             by_path[name] = trains[name]["launches"]
+        # a task length of 60 tokens: S = 160, past the all-keys backward's
+        # limit (159), so B1's key-blocked backward runs on the auto route
+        trains["m3p_train_s160"] = phase_train(cfg, model, w, smi, "auto",
+                                               seq=M3P_LONG_SEQ)
+        by_path["m3p_train_s160"] = trains["m3p_train_s160"]["launches"]
         by_path["m3p_cli"] = phase_m3p_cli(tmp, w, smi)
     del model
     torch.cuda.empty_cache()
     phase_m3p_parity()
     return {"launches": by_path, "eval": ev, "train": trains}
+
+
+def phase_roi_pool(gen) -> dict:
+    """B6 at the C4 extractor's shape: features [50, 84, 1024] bf16 (pad
+    800 x 1344 at stride 16) and 300 rois (random ones over the padded
+    image plus rois past its edges, degenerate ones and one far larger than
+    max_bin bins) -> [300, 14, 14, 1024]; bit-exact against the plain
+    version, the same bits twice; median of 25 CUDA-event timings beside the
+    byte bound and the plain version (no library RoIPool: torchvision is
+    absent)."""
+    H, W, C = C4_SHAPE
+    feat = torch.randn(H, W, C, device="cuda", generator=gen).bfloat16()
+    x1 = torch.rand(C4_ROIS - 4, device="cuda", generator=gen) * 1300
+    y1 = torch.rand(C4_ROIS - 4, device="cuda", generator=gen) * 790
+    wh = torch.rand(C4_ROIS - 4, 2, device="cuda", generator=gen) * torch.tensor(
+        [600.0, 450.0], device="cuda")
+    rois = torch.cat([torch.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1),
+                      torch.tensor([[-80.0, -80.0, 1500.0, 900.0],
+                                    [200.0, 100.0, 200.0, 100.0],
+                                    [400.0, 300.0, 360.0, 250.0],
+                                    [1330.0, 790.0, 1800.0, 1200.0]], device="cuda")])
+    kw = dict(output_size=(14, 14), spatial_scale=1 / 16, max_bin=8)
+    with torch.no_grad():
+        got = roi_pool_nhwc(feat, rois, **kw)
+        again = roi_pool_nhwc(feat, rois, **kw)
+        ref = roi_pool_nhwc_plain(feat, rois, **kw)
+        torch.cuda.synchronize()
+        check(got.shape == (C4_ROIS, 14, 14, C) and got.dtype == torch.bfloat16,
+              f"B6 output {tuple(got.shape)} {got.dtype}")
+        check(torch.equal(got, ref), "B6 is not bit-exact against its plain version")
+        check(torch.equal(got, again), "B6: two runs differ")
+        ms = time_ms(lambda: roi_pool_nhwc(feat, rois, **kw))
+        plain = time_ms(lambda: roi_pool_nhwc_plain(feat, rois, **kw), n=5)
+    nbytes = feat.numel() * 2 + rois.numel() * 4 + got.numel() * 2
+    bms, by = bound_ms(nbytes, 0, torch.bfloat16)
+    print(f"B6 roi_pool [{H}, {W}, {C}] bf16 x {C4_ROIS} rois -> [{C4_ROIS}, 14, 14, "
+          f"{C}]: bit-exact, deterministic; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB); no library RoIPool "
+          f"(torchvision absent)")
+    return {"roi_pool": dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                             bound_ms=bms, bound_by=by)}
+
+
+def phase_extract(tmp: str, smi: str) -> dict:
+    """``python -m clg_vqa_tpu_torch.cli extract --detector c4`` in this
+    process at full width and depth (R101-C4, pad 800 x 1344, bf16, random
+    weights from seed 0) over N_EXTRACT synthetic 480 x 640 uint8 .npy
+    images and one file that does not decode: one B6 launch per image;
+    the store read back (36 regions x 2048 finite features, boxes inside the
+    image). Then the same extractor timed over the images after a warm-up
+    (images/s), and a full-width UC2 run_eval over EXTRACT_QA questions on
+    the store (K1, K2). Returns the launch counts of both paths."""
+    images = os.path.join(tmp, "images")
+    os.makedirs(images)
+    r = np.random.RandomState(0)
+    h, w = EXTRACT_HW
+    raws = [(r.rand(h, w, 3) * 255).astype(np.uint8) for _ in range(N_EXTRACT)]
+    for i, img in enumerate(raws):
+        np.save(os.path.join(images, f"im{i}.npy"), img)
+    with open(os.path.join(images, "readme.txt"), "w") as f:
+        f.write("not an image")
+    store = os.path.join(tmp, "extracted.cfs")
+    argv = ["extract", "--images", images, "--out", store, "--detector", "c4"]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"cli extract --detector c4: {N_EXTRACT} images of {h} x {w} at full width "
+          f"(R101-C4, pad 800 x 1344, bf16) in {dt:.2f} s with the weights' "
+          f"init and first-call set-up on {smi}; launches {counts}")
+    check(counts == only(roi_pool=N_EXTRACT),
+          f"extract launches {counts}, expected {N_EXTRACT} roi_pool and nothing else")
+    reader = CfsReader(store)
+    ids = sorted(reader.keys())
+    check(ids == sorted(f"im{i}" for i in range(N_EXTRACT)),
+          f"extracted store holds {ids}")
+    for key in ids:
+        rec = reader.get(key)
+        check(rec.features.shape == (36, 2048) and bool(np.isfinite(rec.features).all()),
+              f"record {key}: features {rec.features.shape}")
+        check(rec.boxes.shape == (36, 4) and (rec.img_w, rec.img_h) == (w, h)
+              and bool((rec.boxes >= 0).all()) and bool((rec.boxes[:, 0::2] <= w).all())
+              and bool((rec.boxes[:, 1::2] <= h).all()), f"record {key}: boxes")
+    print(f"store: {len(ids)} records of [36, 2048] finite features and 36 boxes "
+          f"inside their {w} x {h} image")
+
+    ex = Extractor36(init_extractor_params(torch.Generator().manual_seed(0)),
+                     ExtractorConfig(), device="cuda")
+    items = [(img, f"im{i}") for i, img in enumerate(raws)]
+    list(ex.extract_many(items[:2]))                                    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = list(ex.extract_many(items))
+    dt = time.perf_counter() - t0
+    first = reader.get("im0")
+    check(np.array_equal(recs[0].obj_id, first.obj_id)
+          and np.allclose(recs[0].features, first.features, rtol=1e-3,
+                          atol=1e-3 * np.abs(first.features).max()),
+          "the timed extractor gives other records than the CLI")
+    print(f"extract_many, device_batch 1: {N_EXTRACT} images in {dt:.3f} s -> "
+          f"{N_EXTRACT / dt:.2f} images/s (warm) on {smi}")
+    del ex
+    torch.cuda.empty_cache()
+
+    cfg = UC2Config()
+    model = UC2(cfg, device="cuda", seed=0)
+    words = [f"word{i}" for i in range(3000)]
+    entries = [Entry(question_id=i, image_id=f"im{i % N_EXTRACT}",
+                     question=" ".join(r.choice(words, r.randint(4, 12))),
+                     labels=[int(r.randint(cfg.num_labels))], scores=[1.0])
+               for i in range(EXTRACT_QA)]
+    ds = GQADataset(entries, reader, HashTokenizer(cfg.vocab_size), max_seq_length=40,
+                    max_region_num=36, num_locs=cfg.num_locs, num_labels=cfg.num_labels)
+    bank = DeviceFeatureBank(reader, max_regions=36, num_locs=cfg.num_locs,
+                             device="cuda")
+    label2ans = [f"a{i}" for i in range(cfg.num_labels)]
+    kw = dict(batch_size=EXTRACT_QA, device_bank=bank, fused_attn="flat")
+    run_eval(model, ds, label2ans, **kw)                                # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    res = run_eval(model, ds, label2ans, out_path=os.path.join(tmp, "ext_result.json"),
+                   **kw)
+    eval_counts = read_counts()
+    check(res["n"] == EXTRACT_QA and eval_counts == only(
+        flat_attention=cfg.num_layers, rows_gather=1),
+        f"eval over the extracted store: {res['n']} QA, launches {eval_counts}")
+    print(f"run_eval UC2 full width over the extracted store: {res['n']} questions, "
+          f"bf16, K1; launches {eval_counts}")
+    del model
+    torch.cuda.empty_cache()
+    return {"extract_c4": counts, "extract_eval": eval_counts,
+            "images_per_s": N_EXTRACT / dt}
 
 
 def uc2_distance_matrix(cfg: UC2Config, seed: int = 0) -> np.ndarray:
@@ -1862,6 +2117,14 @@ def main() -> int:
     kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
     kern.update(phase_block_kernel(torch.Generator("cuda").manual_seed(3)))
     kern.update(phase_blocked_kernel(torch.Generator("cuda").manual_seed(4)))
+    t_phase = time.perf_counter()
+    long_s = phase_long_s(torch.Generator("cuda").manual_seed(5))
+    print(f"key-blocked phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    kern.update(phase_roi_pool(torch.Generator("cuda").manual_seed(6)))
+    with tempfile.TemporaryDirectory() as tmp:
+        extract = phase_extract(tmp, smi)
+    print(f"detector phase {time.perf_counter() - t_phase:.1f} s")
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
@@ -1884,12 +2147,17 @@ def main() -> int:
     # `launches`: the count of the kernel's own slice's main path (run_eval
     # for the eval kernels, the train step for B1, the fine-tune recipe for
     # B5, the proj train step for B4, M3P's run_eval with fused_attn=True
-    # for B2 and its train step with fused_attn=True for B3);
+    # for B2 and its train step with fused_attn=True for B3, cli extract for
+    # B6);
     # `launches_by_path` gives each path's own count
     by_path = dict(main_path["launches"], train=train["launches"],
                    train_proj=train_proj["launches"],
                    finetune=recipe["launches"], cli_proj=cli,
-                   **m3p["launches"])
+                   **m3p["launches"], extract_c4=extract["extract_c4"],
+                   extract_eval=extract["extract_eval"])
+    for name in ("fwd", "bwd"):
+        kern[f"flat_attention_train_{name}/{torch.bfloat16}"]["key_blocked"] = {
+            k: v for k, v in long_s.items() if k.endswith(name)}
     bf16 = torch.bfloat16
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1937,7 +2205,10 @@ def main() -> int:
             ("blocked_attention_train_bwd", "m3p_train_blocked",
              "blocked_attention_train_bwd",
              "clg_vqa_tpu_torch/csrc/blocked_attention_train.cu",
-             "clg_vqa_tpu/ops/attention.py:223"))
+             "clg_vqa_tpu/ops/attention.py:223"),
+            ("roi_pool", "extract_c4", "roi_pool",
+             "clg_vqa_tpu_torch/csrc/roi_pool.cu",
+             "clg_vqa_tpu/ops/roi_pallas.py:30"))
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
-"""CLI: python -m clg_vqa_tpu_torch.cli {train,eval,score,convert} ...
+"""CLI: python -m clg_vqa_tpu_torch.cli {train,eval,score,convert,extract} ...
 
-The port of clg_vqa_tpu/cli/__main__.py:23-146 with its flags and printed
+The port of clg_vqa_tpu/cli/__main__.py:23-262 with its flags and printed
 lines, plus ``--device`` (default ``cuda``; ``cpu`` for the tests). It
 mirrors the reference entry points train_task.py, eval_task.py,
-scripts/GQA_score.py and conversions/. The prune, sft, extract and
-convert-store commands are not ported yet (ROADMAP.md §A slices 5, 10 and
-11).
+scripts/GQA_score.py, conversions/ and features_extraction/ (``extract``,
+the R101-C4 36-box detector; ``--detector x101`` is ROADMAP.md §A slice
+10b). The prune, sft and convert-store commands are not ported yet (slices
+5 and 11b).
 """
 from __future__ import annotations
 
@@ -115,6 +116,85 @@ def cmd_convert(args):
     print(f"saved {args.output_dir}/{args.name}")
 
 
+def _load_detector_weights(path: str) -> dict:
+    """The R101-C4 extractor's parameters from a params directory of this
+    package (a detectron2-named state dict saved by
+    ``train/checkpoints.save_params``), a caffe ``.pkl`` (the VG release) or a
+    torch ``.pth``/``.bin`` state dict; returned as the port's tree."""
+    from ..train import checkpoints as ckpt
+    from ..utils.convert_detector import detectron2_c4_to_pytree, load_c4_params
+    if os.path.isdir(path):
+        sd = ckpt.load_params(os.path.dirname(path) or ".", os.path.basename(path))
+    elif path.endswith(".pkl"):
+        import pickle
+        with open(path, "rb") as f:
+            raw = pickle.load(f, encoding="latin1")
+        sd = raw.get("model", raw) if isinstance(raw, dict) else raw
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = raw.get("model", raw) if isinstance(raw, dict) else raw
+    sd = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in sd.items()}
+    return load_c4_params(detectron2_c4_to_pytree(sd))
+
+
+def cmd_extract(args):
+    """Offline region-feature extraction (the features_extraction/ stage):
+    a directory of images -> a CFS store, through the R101-C4 36-box
+    pipeline."""
+    import glob as _glob
+
+    from ..data.cfs import CfsWriter
+    from ..models.detector.extractor import (Extractor36, ExtractorConfig,
+                                             init_extractor_params)
+
+    if args.detector == "x101":
+        raise NotImplementedError(
+            "--detector x101 (the X101-FPN extractor) is not ported yet: "
+            "ROADMAP.md §A, slice 10b")
+    kw = {f: getattr(args, f) for f in ("short", "max_size", "pad_h", "pad_w",
+                                        "num_boxes", "pre_nms_topk",
+                                        "post_nms_topk") if getattr(args, f)}
+    params = (_load_detector_weights(args.weights) if args.weights
+              else init_extractor_params(torch.Generator().manual_seed(0)))
+    ex = Extractor36(params, ExtractorConfig(**kw) if kw else None,
+                     device=args.device)
+    paths = sorted(_glob.glob(os.path.join(args.images, "*")))
+
+    def gen():
+        # lazy loaders: the decode runs in extract_many's prefetch workers
+        for p in paths:
+            yield ((lambda p=p: _load_image_bgr(p)),
+                   os.path.splitext(os.path.basename(p))[0])
+
+    n = 0
+    with CfsWriter(args.out) as w:
+        # --limit counts extracted records: undecodable files are skipped
+        # and take no slot
+        for rec in ex.extract_many(gen(), device_batch=max(args.device_batch, 1)):
+            w.add(rec)
+            n += 1
+            if args.limit and n >= args.limit:
+                break
+    print(f"extracted {n} images -> {args.out}")
+
+
+def _load_image_bgr(path):
+    """BGR uint8 image, or None for anything that does not decode (as
+    cv2.imread): ``.npy`` loads directly, other files through PIL when it is
+    installed (RGB, flipped to BGR)."""
+    import numpy as np
+    if path.endswith(".npy"):
+        try:
+            return np.load(path)
+        except Exception:
+            return None
+    try:
+        from PIL import Image
+        return np.asarray(Image.open(path).convert("RGB"))[:, :, ::-1]
+    except Exception:             # PIL absent, or not an image
+        return None
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="clg_vqa_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -139,6 +219,28 @@ def main(argv=None):
     C.add_common_args(sp)
     sp.add_argument("--name", default="params_pretrained")
     sp.set_defaults(fn=cmd_convert)
+
+    sp = sub.add_parser("extract")
+    sp.add_argument("--images", required=True, help="directory of images")
+    sp.add_argument("--out", required=True, help="output .cfs store")
+    sp.add_argument("--detector", choices=("c4", "x101"), default="c4")
+    sp.add_argument("--weights", default="",
+                    help="params dir, caffe .pkl or torch .pth/.bin")
+    sp.add_argument("--limit", type=int, default=0)
+    sp.add_argument("--device_batch", type=int, default=1,
+                    help="images per device batch (batched convs)")
+    for f, hint in (("short", "resize short side (MIN_SIZE_TEST)"),
+                    ("max_size", "long-side cap (MAX_SIZE_TEST)"),
+                    ("pad_h", "padded device height"),
+                    ("pad_w", "padded device width"),
+                    ("num_boxes", "regions per image"),
+                    ("pre_nms_topk", "RPN pre-NMS top-k"),
+                    ("post_nms_topk", "RPN post-NMS top-k")):
+        sp.add_argument(f"--{f}", type=int, default=0,
+                        help=f"{hint}; 0 = detector default")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_extract)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -465,7 +465,8 @@ attn_train::Layout flat(int S, int H, int hd) {
 template <typename T>
 int block_fwd(int dtype, const void* x, const void* const* w, const float* const* b,
               const void* bias, void* q, void* k, void* v, void* ctx, void* y, int B, int S,
-              int H, int hd, int keep_t, float rscale, unsigned long long seed, void* stream) {
+              int H, int hd, int keep_t, float rscale, unsigned long long seed, void* stream,
+              int blocked) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = B * S, HD = H * hd;
   Dims d{N, HD, HD, HD, HD, HD, 3, 1};
@@ -473,7 +474,7 @@ int block_fwd(int dtype, const void* x, const void* const* w, const float* const
   cudaError_t e = linear<T, true, true, EPI_BIAS>(qkv, d, st);
   if (e != cudaSuccess) return (int)e;
   const int ec = attn_train::forward(dtype, q, k, v, bias, ctx, B, S, H, hd, flat(S, H, hd),
-                                     keep_t, rscale, seed, stream);
+                                     keep_t, rscale, seed, stream, blocked);
   if (ec != 0) return ec;
   d.njobs = 1;
   Jobs out{{ctx}, {w[3]}, {b[3]}, {y}, {}};
@@ -485,7 +486,7 @@ int block_bwd(int dtype, const void* x, const void* q, const void* k, const void
               const void* ctx, const void* bias, const void* g, const void* const* w,
               float* dctx, void* dq, void* dk, void* dv, float* dbh, float* dbias, void* dx,
               void* const* dw, float* const* db, float* wpart, int B, int S, int H, int hd,
-              int keep_t, float rscale, unsigned long long seed, void* stream) {
+              int keep_t, float rscale, unsigned long long seed, void* stream, void* dq32) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = B * S, HD = H * hd;
   // dctx = g Wo, fp32: the core's do
@@ -494,7 +495,7 @@ int block_bwd(int dtype, const void* x, const void* q, const void* k, const void
   cudaError_t e = linear<T, true, false, EPI_F32>(dc, d, st);
   if (e != cudaSuccess) return (int)e;
   const int ec = attn_train::backward(dtype, q, k, v, bias, dctx, dq, dk, dv, dbh, B, S, H, hd,
-                                      flat(S, H, hd), keep_t, rscale, seed, stream, 1);
+                                      flat(S, H, hd), keep_t, rscale, seed, stream, 1, dq32);
   if (ec != 0) return ec;
   b4_head_sum_kernel<<<(N + 255) / 256, 256, 0, st>>>(dbh, dbias, B, H, S);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -525,10 +526,11 @@ int block_bwd(int dtype, const void* x, const void* q, const void* k, const void
 extern "C" {
 
 // Shared memory (bytes) one block of the core's forward (backward = 0) or
-// backward (backward = 1) needs at this S and head dim; the products use a
-// fixed 18 KB (float32) or 108 KB (bf16).
-long long block_attention_train_smem_bytes(int S, int hd, int backward) {
-  return attn_train::smem_bytes(S, hd, backward);
+// backward (backward = 1) needs at this S and head dim, all-keys (blocked =
+// 0) or key-blocked (blocked = 1); the products use a fixed 18 KB (float32)
+// or 108 KB (bf16).
+long long block_attention_train_smem_bytes(int S, int hd, int backward, int blocked) {
+  return attn_train::smem_bytes(S, hd, backward, blocked);
 }
 
 // Floats of the backward's weight-gradient scratch at H*hd = HD: the K-range
@@ -541,23 +543,24 @@ long long block_attention_train_scratch_floats(int HD) {
 // x, q, k, v, ctx, y: [B, S, H*hd] contiguous; wq, wk, wv, wo: [H*hd, H*hd]
 // ([out, in]); bq, bk, bv, bo: [H*hd] float32; bias: [B, S] float32
 // (additive, key side). keep_t: u8 keep threshold (256 = no dropout), rscale
-// = 256/keep_t. Writes q, k, v and ctx (kept for the backward) and y.
-// Returns the first CUDA error of its launches, 0 on success.
+// = 256/keep_t. blocked = 1: the core's key-blocked forward. Writes q, k, v
+// and ctx (kept for the backward) and y. Returns the first CUDA error of its
+// launches, 0 on success.
 int block_attention_train_fwd(int dtype, const void* x, const void* wq, const void* wk,
                               const void* wv, const void* wo, const void* bq, const void* bk,
                               const void* bv, const void* bo, const void* bias, void* q,
                               void* k, void* v, void* ctx, void* y, int B, int S, int H,
                               int hd, int keep_t, float rscale, unsigned long long seed,
-                              void* stream) {
+                              void* stream, int blocked) {
   const void* w[4] = {wq, wk, wv, wo};
   const float* b[4] = {static_cast<const float*>(bq), static_cast<const float*>(bk),
                        static_cast<const float*>(bv), static_cast<const float*>(bo)};
   if (dtype == 0)
     return block_fwd<float>(dtype, x, w, b, bias, q, k, v, ctx, y, B, S, H, hd, keep_t,
-                            rscale, seed, stream);
+                            rscale, seed, stream, blocked);
   if (dtype == 1)
     return block_fwd<bf16>(dtype, x, w, b, bias, q, k, v, ctx, y, B, S, H, hd, keep_t,
-                           rscale, seed, stream);
+                           rscale, seed, stream, blocked);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -566,7 +569,8 @@ int block_attention_train_fwd(int dtype, const void* x, const void* wq, const vo
 // in x's dtype (also outputs), dbias_heads [B, H, S] float32, wgrad_scratch
 // of block_attention_train_scratch_floats(H*hd) floats. Writes dbias [B, S]
 // float32, dx [B, S, H*hd], dwq..dwo [H*hd, H*hd] in x's dtype and dbq..dbo
-// [H*hd] float32.
+// [H*hd] float32. dq32: null, or a float32 [B, H, S, hd] buffer for the
+// core's key-blocked backward.
 int block_attention_train_bwd(int dtype, const void* x, const void* q, const void* k,
                               const void* v, const void* ctx, const void* bias, const void* g,
                               const void* wq, const void* wk, const void* wv, const void* wo,
@@ -574,7 +578,8 @@ int block_attention_train_bwd(int dtype, const void* x, const void* q, const voi
                               void* dbias, void* dx, void* dwq, void* dwk, void* dwv,
                               void* dwo, void* dbq, void* dbk, void* dbv, void* dbo,
                               void* wgrad_scratch, int B, int S, int H, int hd, int keep_t,
-                              float rscale, unsigned long long seed, void* stream) {
+                              float rscale, unsigned long long seed, void* stream,
+                              void* dq32) {
   const void* w[4] = {wq, wk, wv, wo};
   void* dw[4] = {dwq, dwk, dwv, dwo};
   float* db[4] = {static_cast<float*>(dbq), static_cast<float*>(dbk),
@@ -585,10 +590,10 @@ int block_attention_train_bwd(int dtype, const void* x, const void* q, const voi
   float* wp = static_cast<float*>(wgrad_scratch);
   if (dtype == 0)
     return block_bwd<float>(dtype, x, q, k, v, ctx, bias, g, w, dc, dq, dk, dv, dbh, dbs, dx,
-                            dw, db, wp, B, S, H, hd, keep_t, rscale, seed, stream);
+                            dw, db, wp, B, S, H, hd, keep_t, rscale, seed, stream, dq32);
   if (dtype == 1)
     return block_bwd<bf16>(dtype, x, q, k, v, ctx, bias, g, w, dc, dq, dk, dv, dbh, dbs, dx,
-                           dw, db, wp, B, S, H, hd, keep_t, rscale, seed, stream);
+                           dw, db, wp, B, S, H, hd, keep_t, rscale, seed, stream, dq32);
   return (int)cudaErrorInvalidValue;
 }
 

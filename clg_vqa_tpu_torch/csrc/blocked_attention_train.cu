@@ -41,32 +41,34 @@ attn_train::Layout head_major(int S, int H, int hd) {
 extern "C" {
 
 // Shared memory (bytes) one block of the forward (backward = 0) or the
-// backward (backward = 1) needs at this S and head dim.
-long long blocked_attention_train_smem_bytes(int S, int hd, int backward) {
-  return attn_train::smem_bytes(S, hd, backward);
+// backward (backward = 1) needs at this S and head dim, all-keys (blocked =
+// 0) or key-blocked (blocked = 1).
+long long blocked_attention_train_smem_bytes(int S, int hd, int backward, int blocked) {
+  return attn_train::smem_bytes(S, hd, backward, blocked);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [B, H, S, hd] contiguous,
 // bias: [B, S] float32 (additive, key side). keep_t: u8 keep threshold
-// (256 = no dropout), rscale = 256/keep_t as float. Returns
-// cudaGetLastError().
+// (256 = no dropout), rscale = 256/keep_t as float. blocked = 1: the
+// key-blocked forward. Returns cudaGetLastError().
 int blocked_attention_train_fwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* bias, void* out, int B, int S, int H, int hd,
                                 int keep_t, float rscale, unsigned long long seed,
-                                void* stream) {
+                                void* stream, int blocked) {
   return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, head_major(S, H, hd),
-                             keep_t, rscale, seed, stream);
+                             keep_t, rscale, seed, stream, blocked);
 }
 
 // The same operands plus dout [B, H, S, hd]; writes dq, dk, dv [B, H, S, hd]
 // (operand dtype) and the per-head bias gradient dbias_heads [B, H, S].
+// dq32: null, or a float32 [B, H, S, hd] buffer for the key-blocked backward.
 int blocked_attention_train_bwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* bias, const void* dout, void* dq, void* dk,
                                 void* dv, void* dbias_heads, int B, int S, int H, int hd,
                                 int keep_t, float rscale, unsigned long long seed,
-                                void* stream) {
+                                void* stream, void* dq32) {
   return attn_train::backward(dtype, q, k, v, bias, dout, dq, dk, dv, dbias_heads, B, S, H,
-                              hd, head_major(S, H, hd), keep_t, rscale, seed, stream);
+                              hd, head_major(S, H, hd), keep_t, rscale, seed, stream, 0, dq32);
 }
 
 }  // extern "C"

@@ -21,6 +21,13 @@
 // held in registers), reduce max and sum with shuffles, and own output
 // columns d = lane, lane+32, ... for P.V. S is a runtime value bounded by
 // loop limits, not padding; hd is a template constant.
+//
+// Where K and V of one head do not fit one block's shared memory (S > 417 at
+// hd 64) the entry takes the key-blocked forward of attention_train.cuh at
+// keep_t = 256 on the same flat layout, as B2 does; below that this file's
+// kernel runs unchanged.
+#include "attention_train.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,16 +163,25 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const float
 
 extern "C" {
 
-// Shared memory (bytes) one block needs at this S and head dim.
-long long flat_attention_smem_bytes(int S, int hd) {
+// Shared memory (bytes) one block needs at this S and head dim: this file's
+// kernel (blocked = 0) or the key-blocked forward (blocked = 1).
+long long flat_attention_smem_bytes(int S, int hd, int blocked) {
+  if (blocked) return attn_train::smem_bytes(S, hd, 0, 1);
   return smem_floats(S, hd) * (long long)sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [B, S, H*hd] contiguous,
-// bias: [B, S] float32 (additive, key side). Returns cudaGetLastError().
+// bias: [B, S] float32 (additive, key side). blocked = 1: the key-blocked
+// forward. Returns cudaGetLastError().
 int flat_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                        const void* bias, void* out, int B, int S, int H, int hd,
-                       void* stream) {
+                       void* stream, int blocked) {
+  if (blocked) {
+    const long long HD = (long long)H * hd;
+    const attn_train::Layout flat{HD, (long long)S * HD, hd};
+    return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, flat, 256, 1.0f, 0ULL,
+                               stream, 1);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   cudaError_t e;

@@ -101,21 +101,23 @@ def m3p_world(directory: str, n_qa: int, *, min_regions: int | None = None,
                       min_regions=min_regions, **kw)
 
 
-def train_dataset(world: EvalWorld, n_qa: int, *, seed: int = 1) -> GQADataset:
+def train_dataset(world: EvalWorld, n_qa: int, *, seed: int = 1,
+                  max_seq_length: int = MAX_SEQ) -> GQADataset:
     """``n_qa`` training questions over ``world``'s store in bench.py:80-92's
-    envelope: every question fills all 40 token slots (38 random words
-    between bos and eos, so the text mask is all ones), every image brings
-    the regions the store holds for it (all of them in the bench recipe),
-    and labels are uniform over the answer space."""
+    envelope: every question fills all ``max_seq_length`` token slots (40 in
+    the bench; random words between bos and eos, so the text mask is all
+    ones), every image brings the regions the store holds for it (all of
+    them in the bench recipe), and labels are uniform over the answer
+    space."""
     r = np.random.RandomState(seed)
     n_images = world.reader.n_records
     num_labels = len(world.label2ans)
     entries = [Entry(question_id=i, image_id=str(r.randint(n_images)),
                      question=" ".join(f"w{j}" for j in
-                                       r.randint(100000, size=MAX_SEQ - 2)),
+                                       r.randint(100000, size=max_seq_length - 2)),
                      labels=[int(r.randint(num_labels))], scores=[1.0])
                for i in range(n_qa)]
     return GQADataset(entries, world.reader, world.tokenizer,
-                      max_seq_length=MAX_SEQ, max_region_num=world.regions,
+                      max_seq_length=max_seq_length, max_region_num=world.regions,
                       num_locs=world.num_locs, num_labels=num_labels,
                       norm_embeddings=world.norm_embeddings)

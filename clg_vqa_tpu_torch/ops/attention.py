@@ -14,6 +14,12 @@ plain PyTorch versions.
   (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
   ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device code
   (``csrc/attention_train.cuh``) on [S, B, H*hd] operands.
+- Key-blocked variant: where one head's K, V (and, in the backward, the
+  [S, S] tile) do not fit one block's shared memory, every wrapper here
+  launches the key-blocked twin of its kernel in ``csrc/attention_train.cuh``
+  (K and V staged 64 keys at a time; the backward's dq summed in a float32
+  buffer allocated here). Below that limit the all-keys kernels run, bit for
+  bit as before. So no S that the JAX kernels take is refused.
 - Head-blocked eval (B2): ``csrc/blocked_attention.cu``, port of
   ``fused_attention`` (:135-175, body ``_attn_kernel`` :117-132), and
   head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
@@ -62,12 +68,27 @@ def _eval_kernel(name: str):
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_fwd")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     smem = getattr(lib, f"{name}_smem_bytes")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return fn, smem
+
+
+def _key_blocked(smem_bytes, S: int, hd: int, *which: int) -> bool:
+    """Whether a launch at (S, hd) takes the key-blocked variant: the
+    all-keys kernel's shared memory (``smem_bytes(S, hd, *which, blocked)``)
+    does not fit one block. Raises when the key-blocked one does not fit
+    either."""
+    if smem_bytes(S, hd, *which, 0) <= _MAX_SMEM:
+        return False
+    need = smem_bytes(S, hd, *which, 1)
+    if need > _MAX_SMEM:
+        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared memory "
+                         f"per block even key-blocked, over the {_MAX_SMEM} "
+                         f"limit")
+    return True
 
 
 def _check_qkv(q, k, v, num_heads: int) -> tuple[int, int, int]:
@@ -131,16 +152,14 @@ def _launch_eval(name: str, q, k, v, bias, B: int, S: int, num_heads: int,
         raise ValueError(f"the CUDA kernel takes fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
     fn, smem_bytes = _eval_kernel(name)
-    if smem_bytes(S, hd) > _MAX_SMEM:
-        raise ValueError(f"S={S} needs {smem_bytes(S, hd)} bytes of shared "
-                         f"memory per block, over the {_MAX_SMEM} limit")
+    blocked = _key_blocked(smem_bytes, S, hd)
     b2 = _bias2(bias.to(q.device), B, S)
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
     err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              b2.data_ptr(), out.data_ptr(), B, S, num_heads, hd,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream, int(blocked))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
@@ -277,14 +296,16 @@ def _train_kernels(name: str = "flat_attention_train"):
     lib = _build.load(name)
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p,
+                       ctypes.c_int])
     fwd.restype = ctypes.c_int
     bwd = getattr(lib, f"{name}_bwd")
     bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p,
+                       ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     smem = getattr(lib, f"{name}_smem_bytes")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
     return fwd, bwd, smem
 
@@ -306,19 +327,18 @@ def _check_train_cuda(q: torch.Tensor, S: int, hd: int, name: str) -> None:
         raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
     _, _, smem_bytes = _train_kernels(name)
-    need = max(smem_bytes(S, hd, 0), smem_bytes(S, hd, 1))
-    if need > _MAX_SMEM:
-        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
-                         f"memory per block, over the {_MAX_SMEM} limit")
+    for backward in (0, 1):
+        _key_blocked(smem_bytes, S, hd, backward)
 
 
 def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
                       num_heads: int, keep_t: int, seed: int) -> None:
-    fwd, _, _ = _train_kernels(name)
+    fwd, _, smem_bytes = _train_kernels(name)
+    hd = q.numel() // (B * S * num_heads)
     err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              b2.data_ptr(), out.data_ptr(), B, S, num_heads,
-              q.numel() // (B * S * num_heads), keep_t, 256.0 / keep_t, seed,
-              torch.cuda.current_stream(q.device).cuda_stream)
+              b2.data_ptr(), out.data_ptr(), B, S, num_heads, hd, keep_t,
+              256.0 / keep_t, seed, torch.cuda.current_stream(q.device).cuda_stream,
+              int(_key_blocked(smem_bytes, S, hd, 0)))
     if err != 0:
         raise RuntimeError(f"{name} forward launch failed: CUDA error {err}")
 
@@ -326,17 +346,21 @@ def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
 def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
                       num_heads: int, keep_t: int, seed: int):
     """dq, dk, dv in q's layout and the bias gradient [B, S], summed over
-    heads here in a fixed order, so the bits do not vary between runs."""
-    _, bwd, _ = _train_kernels(name)
+    heads here in a fixed order, so the bits do not vary between runs. The
+    key-blocked backward also takes a float32 [B, H, S, hd] dq buffer."""
+    _, bwd, smem_bytes = _train_kernels(name)
+    hd = q.numel() // (B * S * num_heads)
     dout = dout.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    db_heads = torch.empty(B, num_heads, S, dtype=torch.float32,
-                           device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    db_heads = torch.empty(B, num_heads, S, **f32)
+    dq32 = (torch.empty(B, num_heads, S, hd, **f32)
+            if _key_blocked(smem_bytes, S, hd, 1) else None)
     err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
               b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-              dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads,
-              q.numel() // (B * S * num_heads), keep_t, 256.0 / keep_t, seed,
-              torch.cuda.current_stream(q.device).cuda_stream)
+              dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads, hd, keep_t,
+              256.0 / keep_t, seed, torch.cuda.current_stream(q.device).cuda_stream,
+              None if dq32 is None else dq32.data_ptr())
     if err != 0:
         raise RuntimeError(f"{name} backward launch failed: CUDA error {err}")
     return dq, dk, dv, db_heads.sum(1)

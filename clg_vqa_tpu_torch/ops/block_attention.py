@@ -29,7 +29,7 @@ import functools
 import torch
 
 from . import _build
-from .attention import (_DTYPES, _MAX_SMEM, _bias2, _train_seed, apply_keep,
+from .attention import (_DTYPES, _bias2, _key_blocked, _train_seed, apply_keep,
                         merge_heads, plain_probs, split_heads)
 
 _NAME = "block_attention_train"
@@ -152,14 +152,16 @@ def _kernels():
     lib = _build.load(_NAME)
     fwd = lib.block_attention_train_fwd
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p,
+                       ctypes.c_int])
     fwd.restype = ctypes.c_int
     bwd = lib.block_attention_train_bwd
     bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p,
+                       ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     smem = lib.block_attention_train_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
     scratch = lib.block_attention_train_scratch_floats
     scratch.argtypes = [ctypes.c_int]
@@ -174,11 +176,8 @@ def _check_cuda(x: torch.Tensor, S: int, hd: int) -> None:
     if x.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
                          f"(32, 64, 128); got {x.dtype}, hd={hd}")
-    smem_bytes = _kernels()[2]
-    need = max(smem_bytes(S, hd, 0), smem_bytes(S, hd, 1))
-    if need > _MAX_SMEM:
-        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
-                         f"memory per block, over the {_MAX_SMEM} limit")
+    for backward in (0, 1):
+        _key_blocked(_kernels()[2], S, hd, backward)
 
 
 def _ptrs(*ts: torch.Tensor) -> list[int]:
@@ -200,11 +199,13 @@ class _BlockTrainFn(torch.autograd.Function):
                 seed):
         B, S, HD = x.shape
         q, k, v, c, y = (torch.empty_like(x) for _ in range(5))
-        fwd = _kernels()[0]
+        fwd, _, smem_bytes, _ = _kernels()
+        hd = HD // num_heads
         err = fwd(_DTYPES[x.dtype], *_ptrs(x, wq, wk, wv, wo, bq, bk, bv, bo,
                                            b2, q, k, v, c, y),
-                  B, S, num_heads, HD // num_heads, keep_t, 256.0 / keep_t,
-                  seed, torch.cuda.current_stream(x.device).cuda_stream)
+                  B, S, num_heads, hd, keep_t, 256.0 / keep_t, seed,
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  int(_key_blocked(smem_bytes, S, hd, 0)))
         if err != 0:
             raise RuntimeError(f"{_NAME} forward launch failed: CUDA error {err}")
         fused_attention_block.launches += 1
@@ -225,13 +226,17 @@ class _BlockTrainFn(torch.autograd.Function):
         dbias = torch.empty(B, S, **f32)
         dw = [torch.empty_like(wq) for _ in range(4)]
         db = [torch.empty(HD, **f32) for _ in range(4)]
-        _, bwd, _, scratch_floats = _kernels()
+        _, bwd, smem_bytes, scratch_floats = _kernels()
+        hd = HD // num_heads
         scratch = torch.empty(scratch_floats(HD), **f32)
+        dq32 = (torch.empty(B, num_heads, S, hd, **f32)
+                if _key_blocked(smem_bytes, S, hd, 1) else None)
         err = bwd(_DTYPES[x.dtype], *_ptrs(x, q, k, v, c, b2, g, wq, wk, wv, wo,
                                            dctx, dq, dk, dv, dbh, dbias, dx,
                                            *dw, *db, scratch),
-                  B, S, num_heads, HD // num_heads, keep_t, 256.0 / keep_t,
-                  seed, torch.cuda.current_stream(x.device).cuda_stream)
+                  B, S, num_heads, hd, keep_t, 256.0 / keep_t, seed,
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  None if dq32 is None else dq32.data_ptr())
         if err != 0:
             raise RuntimeError(f"{_NAME} backward launch failed: CUDA error {err}")
         fused_attention_block.backward_launches += 1

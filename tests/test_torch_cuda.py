@@ -638,3 +638,250 @@ def test_blocked_on_chip_properties(cuda, prop):
     inner = (dv.double() * v.double()).sum().item()
     signal = abs(lv - loss_and_dv(8)[0])
     assert abs(inner - lv) < signal / 100, (inner, lv, signal)
+
+
+# ---------------------------------------------------------------------------
+# The key-blocked variant: S past the all-keys kernels' shared memory
+# (training kernels from S = 159 at hd 64, K1 from 418, B2 from 412)
+# ---------------------------------------------------------------------------
+
+LONG_S = [159, 200, 256, 612]
+
+
+def _assert_train_close(got, want, dtype):
+    """B1's tolerances (test_flat_train_kernels_match_plain)."""
+    for i in range(4):
+        scale = want[i].float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5 if i == 0 else 2e-4 * scale
+        else:
+            tol = _bf16_ulp(scale) * (1 if i == 0 else 2)
+        err = (got[i].float() - want[i].float()).abs().max().item()
+        assert err <= tol, (i, err, tol)
+    assert (got[4] - want[4]).abs().max().item() <= 1e-4 * want[4].abs().max().item()
+    assert all(torch.isfinite(t).all() for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", LONG_S)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
+    """B1 past its all-keys limit against autograd of the plain version with
+    B1's tolerances; B5 and B3 (both entries) equal to it bit for bit; one
+    launch of each kernel per call."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    kw = dict(dropout_rate=rate, seed=2468)
+    f0, b0 = TA.fused_attention_train_flat.launches, TA.fused_attention_train_flat.backward_launches
+    flat = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, **kw)
+    torch.cuda.synchronize()
+    assert TA.fused_attention_train_flat.launches == f0 + 1
+    assert TA.fused_attention_train_flat.backward_launches == b0 + 1
+    _assert_train_close(flat, _train_grads(TA.fused_attention_train_flat_plain, q, k,
+                                           v, bias, w, **kw), dtype)
+    for fn in (TA.fused_attention_train_smajor, TA.fused_attention_train, _hm_train):
+        got = _train_grads(fn, q, k, v, bias, w, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, flat)), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", LONG_S)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_blocked_block_kernels_match_plain(cuda, S, dtype):
+    """B4's core past its all-keys limit: y and every gradient against the
+    plain version (test_block_kernels_match_plain's tolerances), rate 0.1."""
+    args, w = _block_inputs(cuda, 2, S, 12, 64, dtype, seed=S)
+    kw = dict(dropout_rate=0.1, seed=97)
+    got = _block_grads(TB.fused_attention_block, args, w, 12, **kw)
+    _assert_block_close(got, _block_grads(TB.fused_attention_block_plain, args, w,
+                                          12, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128])
+def test_key_blocked_train_kernels_take_every_head_dim(cuda, hd):
+    q, k, v, bias = _neg_inf_inputs(cuda, 2, 612, 4, hd, torch.float32)
+    w = torch.randn(q.shape, device=cuda)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        out = fn(*ins, 4, dropout_rate=0.1, seed=3)
+        (out * w).sum().backward()
+        return [out.detach()] + [t.grad for t in ins]
+
+    _assert_train_close(grads(TA.fused_attention_train_flat),
+                        grads(TA.fused_attention_train_flat_plain), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [159, 418, 612])
+def test_key_blocked_keep_masks_are_the_plain_mask(cuda, S):
+    """The key-blocked forward's keep bits equal dropout_keep_mask (B1 at
+    S 418 and 612 runs it; at 159 the all-keys forward), and B4's equal
+    B1's; the backward replays them (test_..._match_plain's gradients)."""
+    t = TA.keep_threshold(0.1)
+    got = TA.realized_keep_mask(31, 2, 12, S, 64, 0.1, cuda)
+    assert torch.equal(got, TA.dropout_keep_mask(31, 2, 12, S, t, cuda))
+    assert torch.equal(TB.realized_block_keep_mask(31, 2, 12, S, 64, 0.1, cuda), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [418, 612])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_blocked_eval_kernels_match_plain(cuda, S, dtype):
+    """K1 and B2 past their all-keys limits, under the -inf key bias: fp32
+    atol 1e-5, bf16 one bf16 ulp of the largest output; one launch each."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 4, S, 12, 64, dtype)
+    want = TA.fused_attention_flat_plain(q, k, v, bias, 12)
+    scale = want.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(scale)
+    for fn in (TA.fused_attention_flat, TA.fused_attention):
+        before = fn.launches
+        with torch.no_grad():
+            got = fn(q, k, v, bias, 12)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_key_blocked_kernels_are_deterministic(cuda):
+    q, k, v, bias = _neg_inf_inputs(cuda, 8, 612, 12, 64, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda)
+    a = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, dropout_rate=0.1, seed=5)
+    b = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, dropout_rate=0.1, seed=5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
+    """Every wrapper finds a kernel whose shared memory fits one block, for
+    every S the configs allow (text up to 512 tokens plus 100 regions)."""
+    for name in ("flat_attention_train", "smajor_attention_train",
+                 "blocked_attention_train"):
+        smem = TA._train_kernels(name)[2]
+        for hd in (32, 64, 128):
+            for S in (158, 159, 417, 418, 612):
+                for backward in (0, 1):
+                    TA._key_blocked(smem, S, hd, backward)
+    for name in ("flat_attention", "blocked_attention"):
+        smem = TA._eval_kernel(name)[1]
+        for hd in (32, 64, 128):
+            for S in (417, 418, 612):
+                TA._key_blocked(smem, S, hd)
+    assert TA._key_blocked(TA._train_kernels()[2], 159, 64, 1)
+    assert not TA._key_blocked(TA._train_kernels()[2], 158, 64, 1)
+
+
+@pytest.mark.cuda
+def test_m3p_train_step_at_s160_on_auto(cuda):
+    """An M3P task with 60 text tokens gives S = 100 + 60 = 160: the auto
+    route (B1 in bf16 on the card) trains, through the key-blocked backward."""
+    from clg_vqa_tpu_torch.config import M3PConfig
+    from clg_vqa_tpu_torch.models.m3p import M3P
+    from clg_vqa_tpu_torch.train.loop import TrainState, make_train_step
+    from clg_vqa_tpu_torch.train.optim import make_optimizer, warmup_constant_schedule
+    cfg = M3PConfig(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                    intermediate_size=256, v_feature_size=64, pooler_size=128,
+                    clf_hidden_size=64, num_labels=40)
+    model = M3P(cfg, device=cuda, seed=0)
+    r = np.random.RandomState(0)
+    T, R = 60, 100
+    ids = r.randint(3, 300, (2, 4, T)).astype(np.int32)
+    n = r.randint(10, R + 1, (2, 4))
+    batch = {"input_ids": ids, "input_mask": np.ones_like(ids),
+             "features": r.randn(2, 4, R, 64).astype(np.float32),
+             "locs": r.rand(2, 4, R, 5).astype(np.float32),
+             "image_mask": (np.arange(R) < n[..., None]).astype(np.int32),
+             "labels": r.randint(0, 40, (2, 4)).astype(np.int32)}
+    params = dict(model.named_parameters())
+    opt = make_optimizer(list(params), warmup_constant_schedule(1e-5, 0))
+    state = TrainState(model, opt.init(params), 0)
+    step = make_train_step(opt, torch.rand(40, 40, device=cuda), semantic_lambda=1.0,
+                           compute_dtype=torch.bfloat16, fused_attn="auto")
+    f0, b0 = TA.fused_attention_train_flat.launches, TA.fused_attention_train_flat.backward_launches
+    state, m = step(state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()},
+                    seed=1)
+    assert np.isfinite(m["loss"].item()) and np.isfinite(m["grad_norm"].item())
+    assert TA.fused_attention_train_flat.launches - f0 == 2 * cfg.num_layers
+    assert TA.fused_attention_train_flat.backward_launches - b0 == 2 * cfg.num_layers
+    assert TA._key_blocked(TA._train_kernels()[2], T + R, 64, 1)
+
+
+# ---------------------------------------------------------------------------
+# B6: RoIPool
+# ---------------------------------------------------------------------------
+
+def _rois(dev, n, H, W, stride, seed=0):
+    """n random rois over the map's image extent plus the edge cases: past
+    every edge, a point, x2 < x1, half-pixel corners, one far beyond
+    max_bin bins."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x1 = torch.rand(n, device=dev, generator=g) * (W - 1) * stride
+    y1 = torch.rand(n, device=dev, generator=g) * (H - 1) * stride
+    wh = torch.rand(n, 2, device=dev, generator=g) * torch.tensor(
+        [W * stride / 2, H * stride / 2], device=dev)
+    special = torch.tensor([
+        [-5 * stride, -5 * stride, (W + 5) * stride, (H + 5) * stride],
+        [3 * stride, 2 * stride, 3 * stride, 2 * stride],
+        [6 * stride, 6 * stride, 2 * stride, 1 * stride],
+        [2.5 * stride, 1.5 * stride, 7.5 * stride, 4.5 * stride],
+        [(W - 1) * stride, (H - 1) * stride, (W + 30) * stride, (H + 30) * stride],
+        [0, 0, 40 * W * stride, 40 * H * stride]], device=dev)
+    return torch.cat([torch.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1), special])
+
+
+@pytest.mark.cuda
+def test_roi_pool_kernel_bit_exact_at_the_c4_shape(cuda):
+    """The C4 extractor's call: features [50, 84, 1024] bf16 (pad 800 x 1344,
+    stride 16), 300 rois -> [300, 14, 14, 1024]: equal to the plain version,
+    the same bits twice, one launch per call."""
+    from clg_vqa_tpu_torch.ops import roi_pool as RP
+    g = torch.Generator(cuda).manual_seed(0)
+    feat = torch.randn(50, 84, 1024, device=cuda, generator=g).bfloat16()
+    rois = _rois(cuda, 294, 50, 84, 16)
+    kw = dict(output_size=(14, 14), spatial_scale=1 / 16, max_bin=8)
+    before = RP.roi_pool_nhwc.launches
+    with torch.no_grad():
+        a = RP.roi_pool_nhwc(feat, rois, **kw)
+        b = RP.roi_pool_nhwc(feat, rois, **kw)
+    torch.cuda.synchronize()
+    assert RP.roi_pool_nhwc.launches == before + 2
+    assert a.shape == (300, 14, 14, 1024) and a.dtype == torch.bfloat16
+    assert torch.equal(a, b)
+    assert torch.equal(a, RP.roi_pool_nhwc_plain(feat, rois, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out,stride,max_bin", [
+    ((18, 22, 8), (7, 7), 8, 8), ((12, 20, 128), (7, 7), 8, 8),
+    ((3, 5, 16), (14, 14), 16, 8), ((12, 20, 32), (3, 5), 4, 2)])
+def test_roi_pool_kernel_edge_cases(cuda, dtype, shape, out, stride, max_bin):
+    """The CPU tests' cases on the card, including maps smaller than the TPU
+    kernel's window (3 x 5) and bins longer than max_bin: bit-exact."""
+    from clg_vqa_tpu_torch.ops import roi_pool as RP
+    H, W, C = shape
+    feat = torch.randn(H, W, C, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    rois = _rois(cuda, 20, H, W, stride, seed=2)
+    kw = dict(output_size=out, spatial_scale=1 / stride, max_bin=max_bin)
+    with torch.no_grad():
+        got = RP.roi_pool_nhwc(feat, rois, **kw)
+    assert torch.equal(got, RP.roi_pool_nhwc_plain(feat, rois, **kw))
+    assert torch.equal(got.cpu(), RP.roi_pool_nhwc_plain(feat.cpu(), rois.cpu(), **kw))
+
+
+@pytest.mark.cuda
+def test_roi_pool_kernel_refuses_what_it_does_not_take(cuda):
+    from clg_vqa_tpu_torch.ops import roi_pool as RP
+    rois = torch.tensor([[0.0, 0.0, 40.0, 40.0]], device=cuda)
+    kw = dict(output_size=(2, 2), spatial_scale=0.25)
+    with pytest.raises(RuntimeError, match="no backward"):
+        RP.roi_pool_nhwc(torch.zeros(10, 12, 8, device=cuda, requires_grad=True), rois, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        RP.roi_pool_nhwc(torch.zeros(10, 12, 3, device=cuda), rois, **kw)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        RP.roi_pool_nhwc(torch.zeros(10, 12, 8, device=cuda, dtype=torch.float64), rois, **kw)
