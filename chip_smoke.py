@@ -10,7 +10,9 @@ final line:
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
-    version and one library call used only as a yardstick here. The
+    version and one library call used only as a yardstick here. K1 and B2
+    in bf16 run one tensor-core kernel (csrc/attention_eval.cuh) at every
+    S; two launches of each on the same inputs are bit-equal. The
     training attention (B1) is also held to its dropout semantics: the
     kernels' keep mask is the plain version's, runs are bit-deterministic,
     the keep fraction is t/256, and <dv, v> equals the loss. The S-major
@@ -238,7 +240,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     out = {}
 
-    # K1 at odd shapes first: S=13 (tiny), S=140 (shared memory above 48 KB)
+    # K1 at odd shapes first: S=13 (tiny), S=140 (two passes of the bf16
+    # kernel; the fp32 kernel's shared memory above 48 KB)
     for S in (13, 140):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, bias = attention_inputs(64, S, 12, 64, dtype, gen)
@@ -261,6 +264,8 @@ def phase_kernels() -> dict:
         print(f"K1 B={B} S={S} {dtype}: max abs err {err:.3g} "
               f"(tol {tol:.3g}: {'atol' if dtype == torch.float32 else '1 bf16 ulp of max |out| ' + f'{scale:.3g}'})")
         check(err <= tol, f"flat attention {dtype} disagrees: {err} > {tol}")
+        check(torch.equal(got, fused_attention_flat(q, k, v, bias, H)),
+              f"K1 {dtype}: two launches on the same inputs differ")
         ms = time_ms(lambda: fused_attention_flat(q, k, v, bias, H))
         plain = time_ms(lambda: fused_attention_flat_plain(q, k, v, bias, H))
         qh, kh, vh = (t.view(B, S, H, hd).transpose(1, 2) for t in (q, k, v))
@@ -270,13 +275,10 @@ def phase_kernels() -> dict:
         nbytes = 4 * B * S * H * hd * q.element_size() + B * S * 4
         ops = 4 * B * H * S * S * hd
         bms, by = bound_ms(nbytes, ops, dtype)
-        # the kernel does its products on the fp32 CUDA cores whatever the
-        # input type: this design's own bound
-        fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-        print(f"K1 {dtype}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 CUDA "
-              f"cores {fp32_bms:.4f} ms")
+        print(f"K1 {dtype}: kernel {ms:.4f} ms ({bms / ms:.1%} of its bound), "
+              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); two "
+              f"launches bit-equal")
         out[f"flat_attention/{dtype}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=bms, bound_by=by)
@@ -882,8 +884,15 @@ def phase_blocked_kernel(gen) -> dict:
               f"(tol {tol:.3g})")
         check(bool(torch.isfinite(got).all()) and err <= tol,
               f"B2 {dtype} disagrees: {err} > {tol}")
+        with torch.no_grad():
+            check(torch.equal(got, fused_attention(q, k, v, bias, H)),
+                  f"B2 {dtype}: two launches on the same inputs differ")
         if dtype == torch.float32:
             continue
+        # one device code in two layouts: the same bits as K1
+        with torch.no_grad():
+            check(torch.equal(got, fused_attention_flat(q, k, v, bias, H)),
+                  "B2 and K1 bf16 differ")
         qh, kh, vh = (hm(x, H) for x in (q, k, v))
         mask = bias.to(dtype)
         with torch.no_grad():
@@ -896,12 +905,11 @@ def phase_blocked_kernel(gen) -> dict:
         nbytes = 4 * B * S * H * hd * q.element_size() + B * S * 4
         ops = 4 * B * H * S * S * hd
         bms, by = bound_ms(nbytes, ops, dtype)
-        fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-        print(f"B2 {dtype}: kernel {ms:.4f} ms ([B, H, S, hd] operands; the "
-              f"entry with its head split and merge {split:.4f} ms), plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 CUDA "
-              f"cores {fp32_bms:.4f} ms")
+        print(f"B2 {dtype}: kernel {ms:.4f} ms ({bms / ms:.1%} of its bound; "
+              f"[B, H, S, hd] operands; the entry with its head split and "
+              f"merge {split:.4f} ms), plain {plain:.4f} ms, sdpa {lib:.4f} "
+              f"ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP); two launches bit-equal, and equal to K1's")
         out["blocked_attention"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=bms, bound_by=by, entry_ms=split)
@@ -1003,7 +1011,8 @@ def phase_long_s(gen) -> dict:
     backward key-blocked) and 612 (both) against its plain version, fp32 and
     bf16, rates 0 and 0.1, under M3P's -inf keys; B5, B3 (both entries)
     equal to B1 bit for bit there; B4 against its plain version at S 159 and
-    612; K1 and B2 at S 418 and 612 against the plain version; the keep mask
+    612; K1 and B2 at S 418 and 612 against the plain version (fp32
+    key-blocked, bf16 the tensor-core kernel); the keep mask
     at 612. Times (median of 25 CUDA events, bf16, rate 0.1): B1's bare
     launches at [128, 159, 768] and [32, 612, 768] beside their bounds and
     the plain version."""
@@ -1042,10 +1051,12 @@ def phase_long_s(gen) -> dict:
             with torch.no_grad():
                 ref = fused_attention_flat_plain(q, k, v, bias, H).float()
                 tol = 1e-5 if dtype == torch.float32 else bf16_ulp(ref.abs().max().item())
+                # fp32 past its all-keys kernel; bf16 takes every S
+                variant = "key-blocked" if dtype == torch.float32 else "tensor-core"
                 for name, fn in (("K1", fused_attention_flat), ("B2", fused_attention)):
                     err = (fn(q, k, v, bias, H).float() - ref).abs().max().item()
-                    check(err <= tol, f"key-blocked {name} S={S} {dtype}: {err} > {tol}")
-                    print(f"key-blocked {name} S={S} {dtype} (-inf bias): max abs "
+                    check(err <= tol, f"{variant} {name} S={S} {dtype}: {err} > {tol}")
+                    print(f"{variant} {name} S={S} {dtype} (-inf bias): max abs "
                           f"err {err:.3g} (tol {tol:.3g})")
     t = keep_threshold(RATE)
     check(torch.equal(realized_keep_mask(15, 4, H, 612, hd, RATE, "cuda"),

@@ -2,8 +2,8 @@
 // shared by the flat kernels (flat_attention_train.cu, B1), the S-major
 // kernels (smajor_attention_train.cu, B5), the head-major kernels
 // (blocked_attention_train.cu, B3, and its eval twin blocked_attention.cu,
-// B2) and the core of the whole-block kernels (block_attention_train.cu,
-// B4), whose backward reads an fp32 do.
+// B2, in fp32) and the core of the whole-block kernels
+// (block_attention_train.cu, B4), whose backward reads an fp32 do.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
 // gradients sits at b * sample + s * row + h * head + d:

@@ -1,4 +1,4 @@
-// Flat-boundary eval attention for Hopper (sm_90a).
+// Flat-boundary eval attention for Hopper (sm_90a), K1.
 //
 // Replaces the TPU kernel clg_vqa_tpu/ops/attention.py:_flat_fwd_kernel as
 // launched by fused_attention_flat (keep_t=256, no dropout): q, k, v and the
@@ -8,24 +8,27 @@
 // max-subtracted fp32 softmax, then P.V with an fp32 accumulator, cast to
 // q's dtype (fp32 or bf16).
 //
-// What bounds it on the H100: at UC2 eval (B=1024, S=76, H*hd=768, bf16)
-// the call moves ~478 MB (0.14 ms at 3.35 TB/s) and does ~18.2 GFLOP. This
-// first kernel runs the products on the fp32 CUDA cores (67 TFLOP/s peak),
-// so it is bound by operations, not bytes; tensor cores (mma/wgmma) would
-// make it memory-bound and are left for a later change.
+// bf16, the eval path's type, takes the tensor-core kernel of
+// attention_eval.cuh on the flat layout at every S: at UC2 eval (B=1024,
+// S=76, H*hd=768) the call moves ~478 MB (0.143 ms at 3.35 TB/s) against
+// ~18.2 GFLOP, so with its products on bf16 mma.sync its bound is those
+// bytes. Its design (one block per (head, sample), 16 query rows a warp,
+// K and V in a cp.async ring of 32-key tiles, a running softmax, P split
+// into two bf16 terms for P.V) and what holds it above that bound (its
+// instruction stream) are described there.
 //
-// Design: one block per (head, batch). The block stages its head's K and V
-// slices (S x hd) in shared memory as fp32, K rows padded to hd+1 floats so
-// that lane j reading K[j][d] hits a distinct bank. Each warp then walks
-// query rows: lanes own keys j = lane, lane+32, ... for the scores (q row
-// held in registers), reduce max and sum with shuffles, and own output
-// columns d = lane, lane+32, ... for P.V. S is a runtime value bounded by
-// loop limits, not padding; hd is a template constant.
-//
-// Where K and V of one head do not fit one block's shared memory (S > 417 at
-// hd 64) the entry takes the key-blocked forward of attention_train.cuh at
-// keep_t = 256 on the same flat layout, as B2 does; below that this file's
-// kernel runs unchanged.
+// fp32, the exact mode of the full-width logit gates, keeps this file's
+// CUDA-core kernel, bound by its shared-memory loads: one block per (head,
+// batch) stages its head's K and V slices (S x hd) in shared memory as fp32,
+// K rows padded to hd+1 floats so that lane j reading K[j][d] hits a
+// distinct bank. Each warp then walks query rows: lanes own keys j = lane,
+// lane+32, ... for the scores (q row held in registers), reduce max and sum
+// with shuffles, and own output columns d = lane, lane+32, ... for P.V. S is
+// a runtime value bounded by loop limits, not padding; hd is a template
+// constant. Where K and V of one head do not fit one block's shared memory
+// (S > 417 at hd 64) the entry takes the key-blocked forward of
+// attention_train.cuh at keep_t = 256 on the same flat layout, as B2 does.
+#include "attention_eval.cuh"
 #include "attention_train.cuh"
 
 #include <cuda_bf16.h>
@@ -36,11 +39,6 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -61,11 +59,11 @@ __host__ __device__ constexpr long long smem_floats(int S, int hdim) {
          (long long)kWarps * hdim + (long long)kWarps * S;
 }
 
-template <typename T, int HDIM>
+template <int HDIM>
 __global__ void __launch_bounds__(kThreads)
-flat_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ bias,
-                      T* __restrict__ out, int S, int HD, float scale) {
+flat_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      float* __restrict__ out, int S, int HD, float scale) {
   extern __shared__ float smem[];
   constexpr int KS = HDIM + 1;
   float* Ks = smem;
@@ -81,8 +79,8 @@ flat_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < S * HDIM; i += kThreads) {
     const int s = i / HDIM, d = i % HDIM;
     const long long g = base + (long long)s * HD + d;
-    Ks[s * KS + d] = to_f32(k[g]);
-    Vs[s * HDIM + d] = to_f32(v[g]);
+    Ks[s * KS + d] = k[g];
+    Vs[s * HDIM + d] = v[g];
   }
   for (int j = threadIdx.x; j < S; j += kThreads) bs[j] = bias[(long long)b * S + j];
   __syncthreads();
@@ -93,7 +91,7 @@ flat_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pw = ps + warp * S;
   for (int i = warp; i < S; i += kWarps) {
     const long long row = base + (long long)i * HD;
-    for (int d = lane; d < HDIM; d += 32) qw[d] = to_f32(q[row + d]);
+    for (int d = lane; d < HDIM; d += 32) qw[d] = q[row + d];
     __syncwarp();
     float qr[HDIM];
 #pragma unroll
@@ -125,17 +123,17 @@ flat_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = d0 + lane;
       float acc = 0.f;
       for (int j = 0; j < S; ++j) acc = fmaf(pw[j], Vs[j * HDIM + d], acc);
-      store(out + row + d, acc);
+      out[row + d] = acc;
     }
     __syncwarp();
   }
 }
 
-template <typename T, int HDIM>
+template <int HDIM>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
                    void* out, int B, int S, int H, cudaStream_t stream) {
   const size_t smem = smem_floats(S, HDIM) * sizeof(float);
-  auto kern = flat_attention_kernel<T, HDIM>;
+  auto kern = flat_attention_kernel<HDIM>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -143,18 +141,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   }
   const dim3 grid(H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, static_cast<T*>(out), S, H * HDIM, (float)(1.0 / sqrt((double)HDIM)));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(out), S, H * HDIM,
+      (float)(1.0 / sqrt((double)HDIM)));
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const float* bias,
                         void* out, int B, int S, int H, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, bias, out, B, S, H, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, B, S, H, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, out, B, S, H, stream);
+    case 32: return launch<32>(q, k, v, bias, out, B, S, H, stream);
+    case 64: return launch<64>(q, k, v, bias, out, B, S, H, stream);
+    case 128: return launch<128>(q, k, v, bias, out, B, S, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -163,32 +161,33 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const float
 
 extern "C" {
 
-// Shared memory (bytes) one block needs at this S and head dim: this file's
-// kernel (blocked = 0) or the key-blocked forward (blocked = 1).
+// Shared memory (bytes) one block of the fp32 kernels needs at this S and
+// head dim: this file's kernel (blocked = 0) or the key-blocked forward
+// (blocked = 1).
 long long flat_attention_smem_bytes(int S, int hd, int blocked) {
   if (blocked) return attn_train::smem_bytes(S, hd, 0, 1);
   return smem_floats(S, hd) * (long long)sizeof(float);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [B, S, H*hd] contiguous,
-// bias: [B, S] float32 (additive, key side). blocked = 1: the key-blocked
-// forward. Returns cudaGetLastError().
+// bias: [B, S] float32 (additive, key side); B, S >= 1. bf16 takes the
+// tensor-core kernel at every S (blocked must be 0); fp32 takes this file's
+// kernel, or with blocked = 1 the key-blocked forward. Returns
+// cudaGetLastError().
 int flat_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                        const void* bias, void* out, int B, int S, int H, int hd,
                        void* stream, int blocked) {
-  if (blocked) {
-    const long long HD = (long long)H * hd;
-    const attn_train::Layout flat{HD, (long long)S * HD, hd};
+  const long long HD = (long long)H * hd;
+  const attn_train::Layout flat{HD, (long long)S * HD, hd};
+  if (dtype == 1)
+    return blocked ? (int)cudaErrorInvalidValue
+                   : attn_eval::forward(q, k, v, bias, out, B, S, H, hd, flat, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (blocked)
     return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, flat, 256, 1.0f, 0ULL,
                                stream, 1);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  cudaError_t e;
-  if (dtype == 0) e = dispatch_hd<float>(q, k, v, bf, out, B, S, H, hd, st);
-  else if (dtype == 1) e = dispatch_hd<__nv_bfloat16>(q, k, v, bf, out, B, S, H, hd, st);
-  else e = cudaErrorInvalidValue;
-  return (int)e;
+  return (int)dispatch_hd(q, k, v, static_cast<const float*>(bias), out, B, S, H, hd,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

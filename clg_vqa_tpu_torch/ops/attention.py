@@ -14,12 +14,17 @@ plain PyTorch versions.
   (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
   ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device code
   (``csrc/attention_train.cuh``) on [S, B, H*hd] operands.
+- bf16 eval (K1 and B2): one tensor-core kernel, ``csrc/attention_eval.cuh``
+  (bf16 ``mma.sync`` products, K and V streamed in 32-key tiles, a running
+  softmax), takes every S in both layouts. fp32 eval keeps the CUDA-core
+  kernels below.
 - Key-blocked variant: where one head's K, V (and, in the backward, the
-  [S, S] tile) do not fit one block's shared memory, every wrapper here
-  launches the key-blocked twin of its kernel in ``csrc/attention_train.cuh``
-  (K and V staged 64 keys at a time; the backward's dq summed in a float32
-  buffer allocated here). Below that limit the all-keys kernels run, bit for
-  bit as before. So no S that the JAX kernels take is refused.
+  [S, S] tile) do not fit one block's shared memory, every fp32 eval and
+  every training wrapper here launches the key-blocked twin of its kernel
+  in ``csrc/attention_train.cuh`` (K and V staged 64 keys at a time; the
+  backward's dq summed in a float32 buffer allocated here). Below that
+  limit the all-keys kernels run, bit for bit as before. So no S that the
+  JAX kernels take is refused.
 - Head-blocked eval (B2): ``csrc/blocked_attention.cu``, port of
   ``fused_attention`` (:135-175, body ``_attn_kernel`` :117-132), and
   head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
@@ -64,7 +69,8 @@ _MAX_SMEM = 232448          # bytes of shared memory one H100 block may use
 def _eval_kernel(name: str):
     """(forward, smem_bytes) of the eval kernel ``csrc/<name>.cu``: K1's
     ``flat_attention`` or B2's ``blocked_attention``, which share one C
-    interface."""
+    interface. ``smem_bytes(S, hd, blocked)`` is the fp32 kernels'; the
+    bf16 kernel's does not grow with S."""
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_fwd")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -145,14 +151,19 @@ def _launch_eval(name: str, q, k, v, bias, B: int, S: int, num_heads: int,
                  hd: int) -> torch.Tensor:
     """Run the eval kernel ``csrc/<name>.cu`` on contiguous operands of
     its layout (K1 [B, S, H*hd], B2 [B, H, S, hd]) into a new tensor, or
-    raise on what it does not take."""
+    raise on what it does not take. bf16 takes the tensor-core kernel at
+    every S; fp32 the CUDA-core kernel, or past its shared memory the
+    key-blocked one."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernel takes fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 kernel copies 16-byte rows: q/k/v must "
+                         "start on 16-byte boundaries")
     fn, smem_bytes = _eval_kernel(name)
-    blocked = _key_blocked(smem_bytes, S, hd)
+    blocked = q.dtype == torch.float32 and _key_blocked(smem_bytes, S, hd)
     b2 = _bias2(bias.to(q.device), B, S)
     out = torch.empty_like(q)
     if B == 0 or S == 0:

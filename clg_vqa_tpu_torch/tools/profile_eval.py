@@ -10,7 +10,9 @@ batches of 1024 once untraced (QA/s) and once under torch.profiler, and
 prints device time by kernel group (GEMM, attention, bank gather, the
 rest), the device's busy share of the traced window and the top kernels.
 The attention is the flat eval kernel (K1) by default, the head-blocked one
-(B2, fused_attn=True) with --blocked, the plain path with --no-fused.
+(B2, fused_attn=True) with --blocked, the plain path with --no-fused; in
+bf16 both kernels are one device code (csrc/attention_eval.cuh), so the
+two routes differ by B2's head split and merge copies.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -31,8 +33,9 @@ from ..models.uc2 import UC2
 
 BATCHES, BS = 4, 1024
 
-GROUPS = (("flat_attention", ("flat_attention_kernel",)),
-          ("blocked attention (B2)", ("fwd_kernel<",)),
+GROUPS = (("eval attention, bf16 (K1/B2)", ("attn_eval",)),
+          ("flat_attention, fp32 (K1)", ("flat_attention_kernel",)),
+          ("blocked attention, fp32 (B2)", ("fwd_kernel<",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
           ("softmax", ("softmax",)),

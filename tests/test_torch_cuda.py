@@ -469,7 +469,8 @@ def _neg_inf_inputs(dev, B, S, H, hd, dtype, seed=0):
     sample 1's keys, 0 elsewhere."""
     q, k, v, _ = _attention_inputs(dev, B, S, H, hd, dtype)
     valid = torch.ones(B, S, dtype=torch.bool, device=dev)
-    valid[1, -(S // 3):] = False
+    if S // 3:
+        valid[1, -(S // 3):] = False
     bias = torch.zeros(B, 1, 1, S, device=dev).masked_fill(
         ~valid[:, None, None, :], float("-inf"))
     return q, k, v, bias
@@ -513,6 +514,81 @@ def test_blocked_eval_kernel_refuses_grad_mode_and_bad_head_dim(cuda):
         TA.fused_attention(q, k, v, bias, 4)
     with pytest.raises(ValueError, match="hd"):
         TA.fused_attention_train(q, k, v, bias, 4)
+
+
+EVAL_S = [1, 13, 76, 140, 159, 418, 612]
+
+
+def _leading_neg_inf(bias, S):
+    """The bias with sample 2's first 64 + S // 8 keys -inf as well (its
+    rows' first 64-key tile wholly masked, later keys valid), or None where
+    S leaves no later key."""
+    lead = 64 + S // 8
+    if lead >= S:
+        return None
+    out = bias.clone()
+    out[2, ..., :lead] = float("-inf")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", EVAL_S)
+def test_bf16_eval_kernels_match_plain(cuda, S, hd):
+    """K1 and B2 in bf16 (one tensor-core kernel at every S) against the
+    plain version under M3P's -inf key bias, and with a sample whose
+    leading 64 + S // 8 keys are -inf too: one bf16 ulp of the largest
+    output; finite; one launch per call; a second launch gives the same
+    bits."""
+    H = 384 // hd
+    q, k, v, bias = _neg_inf_inputs(cuda, 4, S, H, hd, torch.bfloat16)
+    biases = [bias, _leading_neg_inf(bias, S)]
+    for bias in (b for b in biases if b is not None):
+        want = TA.fused_attention_flat_plain(q, k, v, bias, H).float()
+        tol = _bf16_ulp(want.abs().max().item())
+        for fn in (TA.fused_attention_flat, TA.fused_attention):
+            before = fn.launches
+            with torch.no_grad():
+                got = fn(q, k, v, bias, H)
+                again = fn(q, k, v, bias, H)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 2
+            assert got.dtype == torch.bfloat16 and got.shape == q.shape
+            assert torch.isfinite(got).all()
+            assert (got.float() - want).abs().max().item() <= tol
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_bf16_eval_kernel_refuses_unaligned_operands(cuda):
+    """The bf16 kernel copies 16-byte rows: a K1 operand that starts off a
+    16-byte boundary raises rather than faults (B2's entry copies its
+    operands into fresh head-major tensors)."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 2, 9, 4, 64, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        with torch.no_grad():
+            TA.fused_attention_flat(shifted, k, v, bias, 4)
+
+
+@pytest.mark.cuda
+def test_bf16_eval_kernels_at_full_width_are_deterministic(cuda):
+    """The main paths' shapes: K1 at [1024, 76, 768], B2 at [1024, 140,
+    768], bf16, -inf keys: one bf16 ulp of the largest output, two
+    launches bit-equal, and K1 and B2 (one device code in two layouts)
+    bit-equal to each other."""
+    for fn, other, S in ((TA.fused_attention_flat, TA.fused_attention, 76),
+                         (TA.fused_attention, TA.fused_attention_flat, 140)):
+        q, k, v, bias = _neg_inf_inputs(cuda, 1024, S, 12, 64, torch.bfloat16)
+        with torch.no_grad():
+            got = fn(q, k, v, bias, 12)
+            again = fn(q, k, v, bias, 12)
+            assert torch.equal(got, other(q, k, v, bias, 12))
+        want = TA.fused_attention_flat_plain(q, k, v, bias, 12).float()
+        assert (got.float() - want).abs().max().item() <= _bf16_ulp(
+            want.abs().max().item())
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -730,8 +806,10 @@ def test_key_blocked_keep_masks_are_the_plain_mask(cuda, S):
 @pytest.mark.parametrize("S", [418, 612])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_key_blocked_eval_kernels_match_plain(cuda, S, dtype):
-    """K1 and B2 past their all-keys limits, under the -inf key bias: fp32
-    atol 1e-5, bf16 one bf16 ulp of the largest output; one launch each."""
+    """K1 and B2 past the fp32 all-keys limit (fp32: the key-blocked
+    kernel; bf16: the tensor-core kernel, which takes every S), under the
+    -inf key bias: fp32 atol 1e-5, bf16 one bf16 ulp of the largest output;
+    one launch each."""
     q, k, v, bias = _neg_inf_inputs(cuda, 4, S, 12, 64, dtype)
     want = TA.fused_attention_flat_plain(q, k, v, bias, 12)
     scale = want.float().abs().max().item()
@@ -758,7 +836,10 @@ def test_key_blocked_kernels_are_deterministic(cuda):
 @pytest.mark.cuda
 def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
     """Every wrapper finds a kernel whose shared memory fits one block, for
-    every S the configs allow (text up to 512 tokens plus 100 regions)."""
+    every S the configs allow (text up to 512 tokens plus 100 regions).
+    The eval kernels consult the all-keys limit in fp32 only: in bf16 one
+    tensor-core kernel takes every S, its shared memory bounded whatever S
+    is."""
     for name in ("flat_attention_train", "smajor_attention_train",
                  "blocked_attention_train"):
         smem = TA._train_kernels(name)[2]
@@ -773,6 +854,13 @@ def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
                 TA._key_blocked(smem, S, hd)
     assert TA._key_blocked(TA._train_kernels()[2], 159, 64, 1)
     assert not TA._key_blocked(TA._train_kernels()[2], 158, 64, 1)
+    # bf16 eval at hd 128 (its largest shared memory), past S = 612
+    q, k, v, bias = _neg_inf_inputs(cuda, 3, 2048, 2, 128, torch.bfloat16)
+    want = TA.fused_attention_flat_plain(q, k, v, bias, 2).float()
+    for fn in (TA.fused_attention_flat, TA.fused_attention):
+        with torch.no_grad():
+            got = fn(q, k, v, bias, 2).float()
+        assert (got - want).abs().max().item() <= _bf16_ulp(want.abs().max().item())
 
 
 @pytest.mark.cuda
