@@ -55,7 +55,8 @@ final line:
     with the auto rule (K1) and with fused_attn=True (B2), Predictor
     requests, fp32 logits of K1 and B2 against the plain route; the train
     step with fused_attn "flat" (B1) and True (B3; "hm" is the same route
-    in the port); `cli train --is_m3p` in process with a .bin export that
+    in the port) from the same weights, their step-1 losses within 1%;
+    `cli train --is_m3p` in process with a .bin export that
     reloads to equal logits; then a tiny M3P on the card against the CPU
     (eval, and 3 train steps through "hm") and full-width fp32 gradients of
     True against the plain route.
@@ -70,12 +71,14 @@ final line:
     run_eval over 64 questions on the extracted store (K1, K2).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
-entries) against their plain versions, B3 equal to B1 bit for bit, its keep
-mask B1's whatever the batch size; and the key-blocked variant that every
-shared attention wrapper takes past its all-keys kernel's shared memory: B1
-at S 159 and 612 (values, gradients, keep mask) against its plain version,
-B5 and B3 equal to it, B4 at S 159 and 612, K1 and B2 at S 418 and 612, and
-B1's key-blocked times.
+entries) against their plain versions, fp32 B3 equal to B1 bit for bit,
+bf16 B3 (the tensor-core kernels of csrc/attention_train_mma.cuh) with B1's
+keep mask whatever the batch size, two runs bit-equal; and the key-blocked
+variant that every shared attention wrapper takes past its all-keys
+kernel's shared memory: B1 at S 159 and 612 (values, gradients, keep mask)
+against its plain version, B5 (and fp32 B3) equal to it, bf16 B3 against
+the plain version there, B4 at S 159 and 612, K1 and B2 at S 418 and 612,
+and B1's key-blocked times.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -118,7 +121,8 @@ from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
 from clg_vqa_tpu_torch.ops.attention import (
-    _bias2, _launch_eval, _launch_train_bwd, _launch_train_fwd,
+    _b3_bf16_buffers, _b3_bf16_bwd, _b3_bf16_fwd, _bias2, _launch_eval,
+    _launch_train_bwd, _launch_train_fwd,
     dropout_keep_mask, fused_attention, fused_attention_flat,
     fused_attention_flat_plain, fused_attention_smajor,
     fused_attention_smajor_plain, fused_attention_train,
@@ -480,6 +484,20 @@ def bare_train_ms(name, q, k, v, bias, do, B, S, H, *, dropout_rate, seed):
                                               t, seed)))
 
 
+def bare_b3_bf16_ms(qh, kh, vh, bias, dh, *, dropout_rate, seed):
+    """bare_train_ms for B3's bf16 tensor-core kernels on head-major
+    operands: the forward into preallocated outputs (with the row statistics
+    and keep bits it writes for its backward), the backward with its
+    gradients' allocation and the head sum of the bias gradient."""
+    t = keep_threshold(dropout_rate)
+    B, H, S, _ = qh.shape
+    b2 = _bias2(bias, B, S)
+    qh, kh, vh, dh = (x.detach().contiguous() for x in (qh, kh, vh, dh))
+    bufs = _b3_bf16_buffers(qh, t)
+    fwd = time_ms(lambda: _b3_bf16_fwd(qh, kh, vh, b2, *bufs, t, seed))
+    return fwd, time_ms(lambda: _b3_bf16_bwd(qh, kh, vh, b2, dh, *bufs[1:], t))
+
+
 def phase_smajor_kernel(gen) -> dict:
     """B5 at the recipe's shapes (q/k/v [128, 76, 768], bf16 and fp32, rate
     0.1): against its plain version with B1's tolerances, and equal to B1
@@ -807,15 +825,37 @@ def grad_errors(got, want, dtype, what: str) -> dict:
     return errs
 
 
+def b3_bf16(q, k, v, bias, H, **kw):
+    """B3's split entry on bf16 operands: the tensor-core kernels."""
+    return fused_attention_train(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 bias, H, **kw)
+
+
+def check_b3_keep_mask(seed, B, H, S, hd) -> torch.Tensor:
+    """B3's realized keep mask at RATE, read through its bf16 (tensor-core)
+    and fp32 forwards, against B1's and dropout_keep_mask; returns it."""
+    got = realized_keep_mask(seed, B, H, S, hd, RATE, "cuda", train=b3_bf16)
+    check(torch.equal(got, dropout_keep_mask(seed, B, H, S, keep_threshold(RATE),
+                                             "cuda")),
+          f"B3 keep mask S={S} differs from the plain mask")
+    check(torch.equal(got, realized_keep_mask(seed, B, H, S, hd, RATE, "cuda")),
+          f"B3 keep mask S={S} differs from B1's")
+    check(torch.equal(got, realized_keep_mask(seed, B, H, S, hd, RATE, "cuda",
+                                              train=fused_attention_train)),
+          f"B3 keep mask S={S}: bf16 and fp32 kernels differ")
+    return got
+
+
 def phase_blocked_kernel(gen) -> dict:
     """The M3P path's attention kernels under M3P's -inf key bias with
     trailing keys invalid: K1 and B1 against their plain versions at S 140;
     B2 (head-blocked eval) against its plain version at S 13 and 140 and at
     M3P eval's [1024, 140, 768], fp32 and bf16; B3 (head-blocked training,
-    both entries) against its plain version and equal to B1 bit for bit
-    (output and every gradient), S 13 and 140 and M3P training's
-    [128, 140, 768], fp32 and bf16, rates 0 and 0.1; B3's keep mask, its
-    bit-determinism and keep fraction. Times (median of 25 CUDA events):
+    both entries) against its plain version (output and every gradient), in
+    fp32 equal to B1 bit for bit, in bf16 (the tensor-core kernels) with
+    B1's keep mask, S 13 and 140 and M3P training's [128, 140, 768], rates
+    0 and 0.1; B3's keep mask, its bit-determinism and keep fraction.
+    Times (median of 25 CUDA events):
     B2 at [1024, 140, 768] bf16, B3 forward and backward at
     [128, 140, 768] bf16 rate 0.1 on head-major operands, each beside its
     bound, its plain version and SDPA (B3 at rate 0)."""
@@ -857,13 +897,18 @@ def phase_blocked_kernel(gen) -> dict:
                     grad_errors(b3, value_and_grads(
                         fused_attention_train_flat_plain, q, k, v, bias, do, H,
                         **kw), dtype, f"B3 {name} S={S} {dtype} rate {rate}")
-                    check(all(torch.equal(a, b) for a, b in zip(b3, flat)),
+                    # fp32: B1's device code; bf16: the tensor-core kernels
+                    check(dtype == torch.bfloat16
+                          or all(torch.equal(a, b) for a, b in zip(b3, flat)),
                           f"B3 {name} S={S} {dtype} rate {rate} is not B1's "
                           f"bit for bit")
+            if dtype == torch.bfloat16:
+                check_b3_keep_mask(9, 4, H, S, hd)
             print(f"B2 S={S} {dtype}: max abs err {err:.3g} (tol {tol:.3g}); "
                   f"B3 (split and head-major entries) S={S} {dtype} rates 0 "
-                  f"and {RATE}: within tolerance of its plain version, equal "
-                  f"to B1 bit for bit")
+                  f"and {RATE}: within tolerance of its plain version, "
+                  + ("equal to B1 bit for bit" if dtype == torch.float32
+                     else "B1's keep mask"))
     try:
         fused_attention(q.detach().requires_grad_(), k, v, bias, H)
         check(False, "B2 accepted grad mode")
@@ -926,13 +971,15 @@ def phase_blocked_kernel(gen) -> dict:
             e = grad_errors(b3, value_and_grads(
                 fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
                 dtype, f"B3 B={B} S={S} {dtype} rate {rate}")
-            check(all(torch.equal(a, b) for a, b in zip(b3, value_and_grads(
-                fused_attention_train_flat, q, k, v, bias, do, H, **kw))),
+            check(dtype == torch.bfloat16 or all(
+                torch.equal(a, b) for a, b in zip(b3, value_and_grads(
+                    fused_attention_train_flat, q, k, v, bias, do, H, **kw))),
                 f"B3 B={B} {dtype} rate {rate} is not B1's bit for bit")
             err = {n: max(err.get(n, 0.0), x) for n, x in e.items()}
             print(f"B3 B={B} S={S} {dtype} rate {rate} (-inf bias): max abs "
                   f"err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
-                  + "; equal to B1 bit for bit")
+                  + ("; equal to B1 bit for bit" if dtype == torch.float32
+                     else " (tensor-core kernels)"))
         kw = dict(dropout_rate=RATE, seed=21)
         a = value_and_grads(train_hm, q, k, v, bias, do, H, **kw)
         check(all(torch.equal(x, y) for x, y in zip(a, value_and_grads(
@@ -950,8 +997,7 @@ def phase_blocked_kernel(gen) -> dict:
         o_p = fused_attention_train_hm_plain(qh, kh, vh, br, **kw)
         o_s = torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=bias.to(dtype))
-        fwd_ms, bwd_ms = bare_train_ms("blocked_attention_train", qh, kh, vh,
-                                       bias, dh, B, S, H, **kw)
+        fwd_ms, bwd_ms = bare_b3_bf16_ms(qh, kh, vh, bias, dh, **kw)
         with torch.no_grad():
             fwd = [fwd_ms,
                    time_ms(lambda: fused_attention_train_hm(qh, kh, vh, bias, **kw)),
@@ -973,34 +1019,27 @@ def phase_blocked_kernel(gen) -> dict:
                 ("bwd", bwd, 7 * B * S * H * hd * e + 2 * B * S * 4,
                  10 * B * H * S * S * hd)):
             bms, by = bound_ms(nbytes, ops, dtype)
-            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            print(f"B3 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms (bare "
-                  f"launch on [B, H, S, hd] operands; through the entry and "
-                  f"autograd {entry:.4f} ms), plain {plain:.4f} ms, sdpa "
-                  f"(rate 0) {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
-                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 "
-                  f"CUDA cores {fp32_bms:.4f} ms")
+            print(f"B3 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms ({bms / ms:.1%} "
+                  f"of its bound; bare launch on [B, H, S, hd] operands; "
+                  f"through the entry and autograd {entry:.4f} ms), plain "
+                  f"{plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound {bms:.4f} "
+                  f"ms ({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
             out[f"blocked_attention_train_{name}"] = dict(
                 max_abs_err=(err["out"] if name == "fwd" else max(
                     err["dq"], err["dk"], err["dv"], err["dbias"])),
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                 bound_by=by, entry_ms=entry)
 
-    got = realized_keep_mask(21, B, H, S, hd, RATE, "cuda",
-                             train=fused_attention_train)
-    check(torch.equal(got, dropout_keep_mask(21, B, H, S, t, "cuda")),
-          "B3 keep mask differs from the plain mask")
-    check(torch.equal(got, realized_keep_mask(21, B, H, S, hd, RATE, "cuda")),
-          "B3 keep mask differs from B1's")
-    # the mask of a sample is its own: the first 3 samples of a batch of 5
+    got = check_b3_keep_mask(21, B, H, S, hd)
+    # the mask of a sample is its own: the first 5 samples of a batch of 5
     # see the mask they see in the batch of 128
     check(torch.equal(got[:5], realized_keep_mask(
-        21, 5, H, S, hd, RATE, "cuda", train=fused_attention_train)),
+        21, 5, H, S, hd, RATE, "cuda", train=b3_bf16)),
         "B3 keep mask depends on the batch size")
     frac = got.float().mean().item()
-    print(f"B3 keep mask [{B},{H},{S},{S}] = B1's = dropout_keep_mask, the "
-          f"same in a batch of 5; keep fraction {frac:.5f} (t/256 = "
-          f"{t / 256:.5f})")
+    print(f"B3 keep mask [{B},{H},{S},{S}] (bf16 and fp32 kernels) = B1's = "
+          f"dropout_keep_mask, the same in a batch of 5; keep fraction "
+          f"{frac:.5f} (t/256 = {t / 256:.5f})")
     check(abs(frac - t / 256) <= 0.005, f"B3 keep fraction {frac}")
     return out
 
@@ -1009,8 +1048,10 @@ def phase_long_s(gen) -> dict:
     """The key-blocked variant, where one head's K, V (and the backward's
     [S, S] tile) do not fit a block's shared memory: B1 at S 159 (its
     backward key-blocked) and 612 (both) against its plain version, fp32 and
-    bf16, rates 0 and 0.1, under M3P's -inf keys; B5, B3 (both entries)
-    equal to B1 bit for bit there; B4 against its plain version at S 159 and
+    bf16, rates 0 and 0.1, under M3P's -inf keys; B5 equal to B1 bit for
+    bit there, and B3 (both entries) too in fp32; bf16 B3 (the tensor-core
+    kernels) against the plain version with B1's keep mask; B4 against its
+    plain version at S 159 and
     612; K1 and B2 at S 418 and 612 against the plain version (fp32
     key-blocked, bf16 the tensor-core kernel); the keep mask
     at 612. Times (median of 25 CUDA events, bf16, rate 0.1): B1's bare
@@ -1025,18 +1066,27 @@ def phase_long_s(gen) -> dict:
                 kw = dict(dropout_rate=rate, seed=13)
                 b1 = value_and_grads(fused_attention_train_flat, q, k, v, bias,
                                      do, H, **kw)
-                e = grad_errors(b1, value_and_grads(
-                    fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
-                    dtype, f"key-blocked B1 S={S} {dtype} rate {rate}")
+                want = value_and_grads(fused_attention_train_flat_plain, q, k, v,
+                                       bias, do, H, **kw)
+                e = grad_errors(b1, want, dtype,
+                                f"key-blocked B1 S={S} {dtype} rate {rate}")
                 for name, fn in (("B5", fused_attention_train_smajor),
                                  ("B3", fused_attention_train), ("B3 hm", train_hm)):
-                    check(all(torch.equal(a, b) for a, b in zip(value_and_grads(
-                        fn, q, k, v, bias, do, H, **kw), b1)),
-                        f"key-blocked {name} S={S} {dtype} rate {rate} is not "
-                        f"B1's bit for bit")
+                    got = value_and_grads(fn, q, k, v, bias, do, H, **kw)
+                    if name == "B5" or dtype == torch.float32:
+                        check(all(torch.equal(a, b) for a, b in zip(got, b1)),
+                              f"key-blocked {name} S={S} {dtype} rate {rate} is "
+                              f"not B1's bit for bit")
+                    else:   # bf16 B3: the tensor-core kernels, at every S
+                        grad_errors(got, want, dtype, f"{name} S={S} {dtype} rate {rate}")
                 print(f"key-blocked B1 S={S} {dtype} rate {rate} (-inf bias): max "
                       f"abs err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
-                      + "; B5 and B3 (both entries) equal to it bit for bit")
+                      + ("; B5 and B3 (both entries) equal to it bit for bit"
+                         if dtype == torch.float32 else "; B5 equal to it bit for "
+                         "bit, B3 (both entries, tensor-core kernels) within "
+                         "tolerance of the plain version"))
+            if dtype == torch.bfloat16:
+                check_b3_keep_mask(13, 2, H, S, hd)
             args = block_args(2, S, dtype, gen)
             dy = torch.randn(args[0].shape, device="cuda", generator=gen).to(dtype)
             kw = dict(dropout_rate=RATE, seed=14)
@@ -1308,7 +1358,7 @@ def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dic
     check(moved > 0, "the parameters did not move")
     check(state.step == WARMUP_STEPS + TIMED_STEPS, "step count")
     return {"launches": counts, "ms_per_step": dt / TIMED_STEPS * 1e3,
-            "qa_per_s": TIMED_STEPS * ACC * MBS / dt}
+            "qa_per_s": TIMED_STEPS * ACC * MBS / dt, "loss0": losses[0].item()}
 
 
 def phase_train_ab(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
@@ -1801,10 +1851,25 @@ def phase_m3p(smi: str) -> dict:
         by_path = {k: ev[k] for k in ("m3p_eval", "m3p_eval_blocked",
                                       "m3p_predictor")}
         trains = {}
+        # both routes start from the same weights, so their first steps
+        # (one seed, one batch, one keep mask) give the same loss up to bf16
+        # rounding: True's bf16 B3 (the tensor-core kernels) against B1
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
         for fused, name in (("flat", "m3p_train_flat"),
                             (True, "m3p_train_blocked")):
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(start[k])
             trains[name] = phase_train(cfg, model, w, smi, fused)
             by_path[name] = trains[name]["launches"]
+        del start
+        l_flat, l_true = (trains[n]["loss0"] for n in ("m3p_train_flat",
+                                                      "m3p_train_blocked"))
+        print(f"M3P step-1 loss from one set of weights: True (B3) {l_true:.6f}, "
+              f"flat (B1) {l_flat:.6f}, rel diff {abs(l_true - l_flat) / abs(l_flat):.3g} "
+              f"(tol 1%)")
+        check(abs(l_true - l_flat) <= 0.01 * abs(l_flat),
+              "M3P step-1 loss of the True route is not within 1% of flat's")
         # a task length of 60 tokens: S = 160, past the all-keys backward's
         # limit (159), so B1's key-blocked backward runs on the auto route
         trains["m3p_train_s160"] = phase_train(cfg, model, w, smi, "auto",

@@ -30,8 +30,12 @@ plain PyTorch versions.
   head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
   ``fused_attention_train`` (:976-1002) and ``fused_attention_train_hm``
   (:344-372; ``_train_fwd_kernel`` / ``_train_bwd_kernel`` :209-263 via
-  ``_attn_train_fwd/_bwd`` :289-322): B1's device code on head-major
-  [B, H, S, hd] operands.
+  ``_attn_train_fwd/_bwd`` :289-322): in fp32 B1's device code on
+  head-major [B, H, S, hd] operands; in bf16 the tensor-core kernels of
+  ``csrc/attention_train_mma.cuh`` (bf16 ``mma.sync`` products; the
+  forward saves each row's max and sum and the keep bits, the backward runs
+  a pass for D = sum_j dp p and a key-major pass) at every S, with B1's
+  keep mask.
 
 q/k/v keep the projections' [B, S, H*hd] layout (B5: swapped to
 [S, B, H*hd]; B2 and B3: split into [B, H, S, hd]) and the kernels loop
@@ -303,7 +307,8 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
 def _train_kernels(name: str = "flat_attention_train"):
     """(forward, backward, smem_bytes) of ``csrc/<name>.cu``: B1's
     ``flat_attention_train``, B5's ``smajor_attention_train`` or B3's
-    ``blocked_attention_train``, which share one C interface."""
+    ``blocked_attention_train`` (whose entries here take fp32 only), which
+    share one C interface."""
     lib = _build.load(name)
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -706,30 +711,128 @@ def fused_attention_train_hm_plain(qh, kh, vh, bias, *,
     return split_heads(out, H, out.dtype)
 
 
+@functools.cache
+def _b3_mma_kernels():
+    """(forward, backward, smem_bytes, needs_dq32) of B3's bf16 tensor-core
+    kernels in ``csrc/blocked_attention_train.cu``."""
+    lib = _build.load(_HM)
+    fwd = lib.blocked_attention_train_mma_fwd
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    bwd = lib.blocked_attention_train_mma_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    smem = lib.blocked_attention_train_mma_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    needs = lib.blocked_attention_train_mma_needs_dq32
+    needs.argtypes = [ctypes.c_int] * 2
+    needs.restype = ctypes.c_int
+    return fwd, bwd, smem, needs
+
+
+def _check_b3_bf16(S: int, hd: int, *tensors) -> None:
+    """Raise unless B3's bf16 kernels take these head-major operands: hd
+    in (32, 64, 128), 16-byte aligned starts (the kernels copy 16-byte
+    rows), shared memory within one block's."""
+    if hd not in (32, 64, 128):
+        raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
+                         f"(32, 64, 128); got {tensors[0].dtype}, hd={hd}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 kernels copy 16-byte rows: q/k/v must "
+                         "start on 16-byte boundaries")
+    smem = _b3_mma_kernels()[2]
+    for backward in (0, 1):
+        need = smem(S, hd, backward)
+        if need > _MAX_SMEM:
+            raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
+                             f"memory per block, over the {_MAX_SMEM} limit")
+
+
+def _b3_bf16_buffers(qh, keep_t: int):
+    """The bf16 forward's outputs: out [B, H, S, hd] and what the backward
+    reads, each row's softmax statistics (float32 [B, H, S, 2]) and, with
+    dropout, the keep bits of each Philox call (int16 [B, H, S, ceil(S/16)];
+    else None)."""
+    B, H, S, _ = qh.shape
+    stats = torch.empty(B, H, S, 2, dtype=torch.float32, device=qh.device)
+    words = (torch.empty(B, H, S, -(-S // 16), dtype=torch.int16, device=qh.device)
+             if keep_t < 256 else None)
+    return torch.empty_like(qh), stats, words
+
+
+def _b3_bf16_fwd(qh, kh, vh, b2, out, stats, words, keep_t: int, seed: int) -> None:
+    """Launch the bf16 forward into :func:`_b3_bf16_buffers`' tensors."""
+    B, H, S, hd = qh.shape
+    err = _b3_mma_kernels()[0](
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), stats.data_ptr(), None if words is None else words.data_ptr(),
+        B, S, H, hd, keep_t, 256.0 / keep_t, seed,
+        torch.cuda.current_stream(qh.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_HM} bf16 forward launch failed: CUDA error {err}")
+
+
+def _b3_bf16_bwd(qh, kh, vh, b2, dout, stats, words, keep_t: int):
+    """dq, dk, dv [B, H, S, hd] and the bias gradient [B, S], summed over
+    heads here in a fixed order, from the forward's stats and keep bits;
+    past one key chunk the kernel also takes a float32 dq buffer."""
+    B, H, S, hd = qh.shape
+    _, bwd, _, needs_dq32 = _b3_mma_kernels()
+    dout = dout.to(qh.dtype).contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    dq, dk, dv = (torch.empty_like(qh) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=qh.device)
+    db_heads = torch.empty(B, H, S, **f32)
+    dq32 = torch.empty(B, H, S, hd, **f32) if needs_dq32(S, hd) else None
+    err = bwd(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), b2.data_ptr(),
+              dout.data_ptr(), stats.data_ptr(),
+              None if words is None else words.data_ptr(), dq.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), db_heads.data_ptr(), B, S, H, hd,
+              keep_t, 256.0 / keep_t,
+              torch.cuda.current_stream(qh.device).cuda_stream,
+              None if dq32 is None else dq32.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"{_HM} bf16 backward launch failed: CUDA error {err}")
+    return dq, dk, dv, db_heads.sum(1)
+
+
 class _BlockedTrainFn(torch.autograd.Function):
     """B3 on the card, on contiguous head-major operands: the forward
     kernel, and the backward kernel that recomputes the probabilities and
     replays the keep mask (clg_vqa_tpu/ops/attention.py:_attn_train_core,
-    :283-327). The TPU kernel sums the bias gradient over heads in its head
-    grid loop (:259-263); here it comes out as [B, H, S] and is summed over
-    heads 0..H-1 in a fixed order, as B1's is. Both train entries count
-    their launches in ``fused_attention_train``."""
+    :283-327); bf16 takes the tensor-core kernels, fp32 B1's device code.
+    The TPU kernel sums the bias gradient over heads in its head grid loop
+    (:259-263); here it comes out as [B, H, S] and is summed over heads
+    0..H-1 in a fixed order, as B1's is. Both train entries count their
+    launches in ``fused_attention_train``."""
 
     @staticmethod
     def forward(ctx, qh, kh, vh, b2, keep_t, seed):
         B, H, S, _ = qh.shape
-        out = torch.empty_like(qh)
-        _launch_train_fwd(_HM, qh, kh, vh, b2, out, B, S, H, keep_t, seed)
+        if qh.dtype == torch.bfloat16:
+            out, stats, words = _b3_bf16_buffers(qh, keep_t)
+            _b3_bf16_fwd(qh, kh, vh, b2, out, stats, words, keep_t, seed)
+            ctx.save_for_backward(qh, kh, vh, b2, stats, words)
+        else:
+            out = torch.empty_like(qh)
+            _launch_train_fwd(_HM, qh, kh, vh, b2, out, B, S, H, keep_t, seed)
+            ctx.save_for_backward(qh, kh, vh, b2)
         fused_attention_train.launches += 1
-        ctx.save_for_backward(qh, kh, vh, b2)
         ctx.meta = (H, keep_t, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qh, kh, vh, b2 = ctx.saved_tensors
+        qh, kh, vh, b2, *saved = ctx.saved_tensors
         B, _, S, _ = qh.shape
-        grads = _launch_train_bwd(_HM, qh, kh, vh, b2, dout, B, S, *ctx.meta)
+        if qh.dtype == torch.bfloat16:
+            grads = _b3_bf16_bwd(qh, kh, vh, b2, dout, *saved, ctx.meta[1])
+        else:
+            grads = _launch_train_bwd(_HM, qh, kh, vh, b2, dout, B, S, *ctx.meta)
         fused_attention_train.backward_launches += 1
         return (*grads, None, None)
 
@@ -750,19 +853,23 @@ def fused_attention_train_hm(qh: torch.Tensor, kh: torch.Tensor,
     tile). seed: a host integer, required when ``dropout_rate > 0``. S is
     not padded (see :func:`fused_attention`). CPU tensors take the plain
     version; CUDA tensors launch ``csrc/blocked_attention_train.cu`` (fp32
-    or bf16, hd in {32, 64, 128}) or raise."""
+    or bf16, hd in {32, 64, 128}; bf16 operands on 16-byte boundaries) or
+    raise."""
     B, H, S, hd = _check_hm(qh, kh, vh)
     t, seed = _train_seed(dropout_rate, seed)
     if qh.device.type == "cpu":
         return fused_attention_train_hm_plain(qh, kh, vh, bias,
                                               dropout_rate=dropout_rate,
                                               seed=seed)
-    _check_train_cuda(qh, S, hd, _HM)
+    qh, kh, vh = (x.contiguous() for x in (qh, kh, vh))
+    if qh.dtype == torch.bfloat16 and qh.device.type == "cuda":
+        _check_b3_bf16(S, hd, qh, kh, vh)
+    else:
+        _check_train_cuda(qh, S, hd, _HM)
     b2 = _bias2(bias.to(qh.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(qh)
-    return _BlockedTrainFn.apply(qh.contiguous(), kh.contiguous(),
-                                 vh.contiguous(), b2, t, seed)
+    return _BlockedTrainFn.apply(qh, kh, vh, b2, t, seed)
 
 
 def fused_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

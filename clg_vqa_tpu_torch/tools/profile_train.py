@@ -39,8 +39,11 @@ from .profile_eval import model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<",)),
-          ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<",)),
+# The attention core: attn_train::fwd_kernel / bwd_kernel (B1, B5, B4's
+# core, fp32 B3) and attn_train_mma::fwd_kernel / bwd_kernel (bf16 B3, the
+# tensor-core kernels); the key-blocked twins match the same keys.
+GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
+          ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<", "bwd_blocked_kernel<")),
           ("B4 products and sums", ("b4_",)),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),

@@ -82,9 +82,9 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-def _train_grads(fn, q, k, v, bias, w, **kw):
+def _train_grads(fn, q, k, v, bias, w, H=12, **kw):
     q, k, v, bias = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
-    out = fn(q, k, v, bias, 12, **kw)
+    out = fn(q, k, v, bias, H, **kw)
     (out.float() * w).sum().backward()
     return out.detach(), q.grad, k.grad, v.grad, bias.grad
 
@@ -591,6 +591,21 @@ def test_bf16_eval_kernels_at_full_width_are_deterministic(cuda):
         assert torch.equal(got, again)
 
 
+def _assert_b3_mask_is_b1s(dev, S, rate, B=4, H=12, hd=64):
+    """B3's realized keep mask (through its forward, in the operands' dtype
+    realized_keep_mask uses) equals B1's and dropout_keep_mask; with bf16
+    operands B3 takes the tensor-core kernel, whose mask this reads."""
+    t = TA.keep_threshold(rate)
+
+    def b3_bf16(q, k, v, bias, H, **kw):
+        return TA.fused_attention_train(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                        bias, H, **kw)
+
+    got = TA.realized_keep_mask(4321, B, H, S, hd, rate, dev, train=b3_bf16)
+    assert torch.equal(got, TA.realized_keep_mask(4321, B, H, S, hd, rate, dev))
+    assert torch.equal(got, TA.dropout_keep_mask(4321, B, H, S, t, dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("S", [13, 76, 140])
@@ -598,14 +613,17 @@ def test_bf16_eval_kernels_at_full_width_are_deterministic(cuda):
 def test_blocked_train_kernels_match_plain_and_b1(cuda, S, dtype, rate):
     """B3 through both entries, forward and backward, under the -inf key
     bias: against autograd of its plain version with B1's tolerances
-    (test_flat_train_kernels_match_plain), and equal to B1's kernels bit for
-    bit (one device code, one keep mask); one launch of each kernel per
-    entry call."""
+    (test_flat_train_kernels_match_plain); in fp32 equal to B1's kernels bit
+    for bit (one device code, one keep mask), in bf16 (the tensor-core
+    kernels) with B1's keep mask; one launch of each kernel per entry
+    call."""
     q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=4321)
     flat = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, **kw)
     want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w, **kw)
+    if dtype == torch.bfloat16 and rate:
+        _assert_b3_mask_is_b1s(cuda, S, rate)
     for fn in (TA.fused_attention_train, _hm_train):
         f0 = TA.fused_attention_train.launches
         b0 = TA.fused_attention_train.backward_launches
@@ -613,7 +631,8 @@ def test_blocked_train_kernels_match_plain_and_b1(cuda, S, dtype, rate):
         torch.cuda.synchronize()
         assert TA.fused_attention_train.launches == f0 + 1
         assert TA.fused_attention_train.backward_launches == b0 + 1
-        assert all(torch.equal(a, b) for a, b in zip(got, flat))
+        if dtype == torch.float32:
+            assert all(torch.equal(a, b) for a, b in zip(got, flat))
         assert all(torch.isfinite(t).all() for t in got)
         for i in range(4):
             scale = want[i].float().abs().max().item()
@@ -716,6 +735,54 @@ def test_blocked_on_chip_properties(cuda, prop):
     assert abs(inner - lv) < signal / 100, (inner, lv, signal)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", EVAL_S)
+def test_bf16_blocked_train_kernels_match_plain(cuda, S, hd):
+    """B3 in bf16 (the tensor-core kernels of csrc/attention_train_mma.cuh,
+    one each for every S) through the head-major entry, rates 0 and 0.1,
+    under M3P's -inf key bias and with a sample whose leading 64 + S // 8
+    keys are -inf too: against autograd of the plain version with B1's bf16
+    tolerances (output one bf16 ulp of its largest value, dq/dk/dv two,
+    dbias 1e-4 of its largest); finite; one launch of each kernel per call;
+    a second run gives the same bits. Shared memory fits one block."""
+    H = 384 // hd
+    for backward in (0, 1):
+        assert TA._b3_mma_kernels()[2](S, hd, backward) <= TA._MAX_SMEM
+    q, k, v, bias = _neg_inf_inputs(cuda, 4, S, H, hd, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    for bias in (b for b in (bias, _leading_neg_inf(bias, S)) if b is not None):
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=1357)
+            f0 = TA.fused_attention_train.launches
+            b0 = TA.fused_attention_train.backward_launches
+            got = _train_grads(_hm_train, q, k, v, bias, w, H=H, **kw)
+            torch.cuda.synchronize()
+            assert TA.fused_attention_train.launches == f0 + 1
+            assert TA.fused_attention_train.backward_launches == b0 + 1
+            assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
+            _assert_train_close(got, _train_grads(TA.fused_attention_train_flat_plain,
+                                                  q, k, v, bias, w, H=H, **kw),
+                                torch.bfloat16)
+            again = _train_grads(_hm_train, q, k, v, bias, w, H=H, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_blocked_train_kernel_refuses_unaligned_operands(cuda):
+    """B3's bf16 kernels copy 16-byte rows: a head-major operand that starts
+    off a 16-byte boundary raises rather than faults; fp32 takes it."""
+    q, k, v, bias = _neg_inf_inputs(cuda, 2, 9, 4, 64, torch.bfloat16)
+    qh, kh, vh = (t.view(2, 9, 4, 64).transpose(1, 2).contiguous() for t in (q, k, v))
+    buf = torch.empty(qh.numel() + 1, dtype=qh.dtype, device=cuda)
+    shifted = buf[1:].view(qh.shape).copy_(qh)
+    with pytest.raises(ValueError, match="16-byte"):
+        TA.fused_attention_train_hm(shifted, kh, vh, bias, dropout_rate=0.1, seed=1)
+    buf = torch.empty(qh.numel() + 1, device=cuda)
+    shifted = buf[1:].view(qh.shape).copy_(qh.float())
+    TA.fused_attention_train_hm(shifted, kh.float(), vh.float(), bias)
+
+
 # ---------------------------------------------------------------------------
 # The key-blocked variant: S past the all-keys kernels' shared memory
 # (training kernels from S = 159 at hd 64, K1 from 418, B2 from 412)
@@ -744,7 +811,9 @@ def _assert_train_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
     """B1 past its all-keys limit against autograd of the plain version with
-    B1's tolerances; B5 and B3 (both entries) equal to it bit for bit; one
+    B1's tolerances; B5 equal to it bit for bit, and B3 (both entries) too
+    in fp32; in bf16 B3 (the tensor-core kernels, which take every S) within
+    the same tolerances of the plain version, with B1's keep mask; one
     launch of each kernel per call."""
     q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
@@ -754,11 +823,16 @@ def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
     torch.cuda.synchronize()
     assert TA.fused_attention_train_flat.launches == f0 + 1
     assert TA.fused_attention_train_flat.backward_launches == b0 + 1
-    _assert_train_close(flat, _train_grads(TA.fused_attention_train_flat_plain, q, k,
-                                           v, bias, w, **kw), dtype)
+    want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w, **kw)
+    _assert_train_close(flat, want, dtype)
     for fn in (TA.fused_attention_train_smajor, TA.fused_attention_train, _hm_train):
         got = _train_grads(fn, q, k, v, bias, w, **kw)
-        assert all(torch.equal(a, b) for a, b in zip(got, flat)), fn
+        if fn is TA.fused_attention_train_smajor or dtype == torch.float32:
+            assert all(torch.equal(a, b) for a, b in zip(got, flat)), fn
+        else:
+            _assert_train_close(got, want, dtype)
+    if dtype == torch.bfloat16 and rate:
+        _assert_b3_mask_is_b1s(cuda, S, rate, B=2)
 
 
 @pytest.mark.cuda
