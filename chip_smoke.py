@@ -15,7 +15,9 @@ final line:
     S; two launches of each on the same inputs are bit-equal. The
     training attention (B1) is also held to its dropout semantics: the
     kernels' keep mask is the plain version's, runs are bit-deterministic,
-    the keep fraction is t/256, and <dv, v> equals the loss. The S-major
+    the keep fraction is t/256, and <dv, v> equals the loss (in bf16 on the
+    mixed pair: the tensor-core forward of csrc/attention_train_mma.cuh and
+    the fp32 CUDA-core backward of csrc/attention_train.cuh). The S-major
     training attention (B5) is held to its plain version and to B1, bit
     for bit, and its entry's layout copies are timed. The whole-block
     training attention (B4: projections, core, output projection) is held
@@ -73,12 +75,17 @@ Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions, fp32 B3 equal to B1 bit for bit,
 bf16 B3 (the tensor-core kernels of csrc/attention_train_mma.cuh) with B1's
-keep mask whatever the batch size, two runs bit-equal; and the key-blocked
-variant that every shared attention wrapper takes past its all-keys
-kernel's shared memory: B1 at S 159 and 612 (values, gradients, keep mask)
-against its plain version, B5 (and fp32 B3) equal to it, bf16 B3 against
-the plain version there, B4 at S 159 and 612, K1 and B2 at S 418 and 612,
-and B1's key-blocked times.
+keep mask whatever the batch size, two runs bit-equal; the bf16 forwards of
+B1 (flat), B5 (S-major) and B3 (head-major), one tensor-core device code at
+three strides, equal bit for bit at [128, 76, 768] and at M3P's S 140 and
+160, with B1's and B5's bf16 keep masks the plain mask, and the forward
+alone timed in the three layouts and B1's at S 140 and 160; and the
+key-blocked variant that every CUDA-core attention kernel takes past its
+all-keys kernel's shared memory: B1 at S 159 and 612 (values, gradients,
+keep mask; in bf16 its forward is the tensor-core one, its backward
+key-blocked) against its plain version, B5 (and fp32 B3) equal to it, bf16
+B3 against the plain version there with B1's forward bits, B4 at S 159 and
+612, K1 and B2 at S 418 and 612, and B1's times there.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -121,8 +128,8 @@ from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
 from clg_vqa_tpu_torch.ops.attention import (
-    _b3_bf16_buffers, _b3_bf16_bwd, _b3_bf16_fwd, _bias2, _launch_eval,
-    _launch_train_bwd, _launch_train_fwd,
+    _FLAT, _SM, _b3_bf16_buffers, _b3_bf16_bwd, _b3_bf16_fwd, _b3_mma_kernels,
+    _bias2, _launch_eval, _launch_train_bwd, _launch_train_fwd, _takes_mma_fwd,
     dropout_keep_mask, fused_attention, fused_attention_flat,
     fused_attention_flat_plain, fused_attention_smajor,
     fused_attention_smajor_plain, fused_attention_train,
@@ -202,6 +209,17 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
 def bf16_ulp(x: float) -> float:
     """One bf16 ulp (8 significant bits) at magnitude x."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def core_note(name: str, direction: str, q, nbytes: float, ops: float) -> str:
+    """Which device code the training kernel of ``csrc/<name>.cu`` runs in
+    this direction and dtype; for the fp32 CUDA-core code, its bound at the
+    CUDA cores' peak."""
+    if direction == "fwd" and _takes_mma_fwd(name, q):
+        return "tensor cores (csrc/attention_train_mma.cuh)"
+    fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
+    return (f"fp32 CUDA cores (csrc/attention_train.cuh), bound there "
+            f"{fp32_bms:.4f} ms")
 
 
 def phase_device() -> str:
@@ -392,7 +410,9 @@ def phase_train_kernel(gen) -> dict:
         total = terms.sum().item()
         tol = (1e-6 * terms.abs().sum().item() if dtype == torch.float32
                else 4 * 2.0 ** -8 * terms.square().sum().sqrt().item())
-        print(f"B1 {dtype} v-linearity: <dv, v> {inner:.6g}, loss "
+        pair = (" (the mixed pair: tensor-core forward, fp32 CUDA-core "
+                "backward)" if dtype == torch.bfloat16 else "")
+        print(f"B1 {dtype} v-linearity{pair}: <dv, v> {inner:.6g}, loss "
               f"{total:.6g} (tol {tol:.3g})")
         check(abs(inner - total) <= tol, f"B1 {dtype}: <dv, v> != loss")
 
@@ -432,12 +452,11 @@ def phase_train_kernel(gen) -> dict:
                 ("bwd", bwd_ms, bwd_entry, bwd_plain, bwd_lib, bwd_bytes,
                  bwd_ops)):
             bms, by = bound_ms(nbytes, ops, dtype)
-            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            print(f"B1 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms (bare "
-                  f"launch; through the entry and autograd {entry:.4f} ms), "
-                  f"plain {plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.2f} GFLOP); on fp32 CUDA cores {fp32_bms:.4f} ms")
+            print(f"B1 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms ({bms / ms:.1%} "
+                  f"of its bound; bare launch; through the entry and autograd "
+                  f"{entry:.4f} ms), plain {plain:.4f} ms, sdpa (rate 0) "
+                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP); {core_note(_FLAT, name, q, nbytes, ops)}")
             out[f"flat_attention_train_{name}/{dtype}"] = dict(
                 max_abs_err=(err["out"] if name == "fwd"
                              else max(err["dq"], err["dk"], err["dv"],
@@ -458,6 +477,15 @@ def phase_train_kernel(gen) -> dict:
     print(f"B1 keep mask [{B},{H},{S},{S}] = dropout_keep_mask on the card "
           f"and the CPU; keep fraction {frac:.5f} (t/256 = {t / 256:.5f})")
     check(abs(frac - t / 256) <= 0.005, f"B1 keep fraction {frac}")
+    # the bf16 forward (tensor cores) realizes the same bits, which the fp32
+    # CUDA-core backward replays; B5's entry on its strides too
+    for name, train in (("B1", fused_attention_train_flat),
+                        ("B5", fused_attention_train_smajor)):
+        check(torch.equal(realized_keep_mask(11, B, H, S, hd, RATE, "cuda",
+                                             train=train, dtype=torch.bfloat16),
+                          want), f"{name} bf16 forward's keep mask differs")
+    print(f"B1 and B5 bf16 forwards (tensor cores) realize the same keep mask "
+          f"[{B},{H},{S},{S}]")
     return out
 
 
@@ -502,8 +530,9 @@ def phase_smajor_kernel(gen) -> dict:
     """B5 at the recipe's shapes (q/k/v [128, 76, 768], bf16 and fp32, rate
     0.1): against its plain version with B1's tolerances, and equal to B1
     bit for bit, forward and backward, on the same inputs and seed. Times:
-    the S-major core (kernel) and its plain version on S-major operands,
-    SDPA as a yardstick, and the entry's layout copies."""
+    the S-major kernels' bare launches (as B1's: bare_train_ms) and the core
+    entry with autograd, its plain version on S-major operands, SDPA as a
+    yardstick, and the entry's layout copies."""
     B, S, H, hd = MBS, 76, 12, 64
     kw = dict(dropout_rate=RATE, seed=11)
     out = {}
@@ -565,9 +594,10 @@ def phase_smajor_kernel(gen) -> dict:
         o_s = torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=bias.to(dtype))
         do_s = do.view(B, S, H, hd).transpose(1, 2)
+        fwd_ms, bwd_ms = bare_train_ms(_SM, qs, ks, vs, bias, dos, B, S, H, **kw)
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: smajor_attention_core(qs, ks, vs, bias, H,
-                                                           **kw))
+            fwd_entry = time_ms(lambda: smajor_attention_core(qs, ks, vs, bias, H,
+                                                              **kw))
             fwd_plain = time_ms(lambda: smajor_attention_core_plain(
                 qs, ks, vs, bias, H, **kw))
             fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -577,7 +607,7 @@ def phase_smajor_kernel(gen) -> dict:
             # the backward -- four [B, S, H*hd] swaps each way
             fwd_copy = time_ms(lambda: [x.transpose(0, 1).contiguous()
                                         for x in (q, k, v, q)])
-        bwd_ms = time_ms(lambda: torch.autograd.grad(
+        bwd_entry = time_ms(lambda: torch.autograd.grad(
             o_k, (qs, ks, vs, br), dos, retain_graph=True))
         bwd_plain = time_ms(lambda: torch.autograd.grad(
             o_p, (qs, ks, vs, br), dos, retain_graph=True))
@@ -587,22 +617,23 @@ def phase_smajor_kernel(gen) -> dict:
         fwd_bytes = 4 * B * S * H * hd * e + B * S * 4
         bwd_bytes = 7 * B * S * H * hd * e + 2 * B * S * 4
         fwd_ops, bwd_ops = 4 * B * H * S * S * hd, 10 * B * H * S * S * hd
-        for name, ms, plain, lib, nbytes, ops in (
-                ("fwd", fwd_ms, fwd_plain, fwd_lib, fwd_bytes, fwd_ops),
-                ("bwd", bwd_ms, bwd_plain, bwd_lib, bwd_bytes, bwd_ops)):
+        for name, ms, entry, plain, lib, nbytes, ops in (
+                ("fwd", fwd_ms, fwd_entry, fwd_plain, fwd_lib, fwd_bytes, fwd_ops),
+                ("bwd", bwd_ms, bwd_entry, bwd_plain, bwd_lib, bwd_bytes, bwd_ops)):
             bms, by = bound_ms(nbytes, ops, dtype)
-            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            print(f"B5 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, sdpa (rate 0) {lib:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.2f} GFLOP); on fp32 CUDA cores "
-                  f"{fp32_bms:.4f} ms; entry layout copies {fwd_copy:.4f} ms")
+            print(f"B5 {name} {dtype} rate {RATE}: kernel {ms:.4f} ms ({bms / ms:.1%} "
+                  f"of its bound; bare launch on S-major operands; through the "
+                  f"core entry and autograd {entry:.4f} ms), plain {plain:.4f} ms, "
+                  f"sdpa (rate 0) {lib:.4f} "
+                  f"ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP); {core_note(_SM, name, qs, nbytes, ops)}; "
+                  f"entry layout copies {fwd_copy:.4f} ms")
             out[f"smajor_attention_train_{name}/{dtype}"] = dict(
                 max_abs_err=(errs["out"] if name == "fwd"
                              else max(errs["dq"], errs["dk"], errs["dv"],
                                       errs["dbias"])),
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, copy_ms=fwd_copy)
+                bound_by=by, entry_ms=entry, copy_ms=fwd_copy)
     return out
 
 
@@ -1044,14 +1075,100 @@ def phase_blocked_kernel(gen) -> dict:
     return out
 
 
+def bare_mma_fwd_ms(layout: str, q, k, v, bias, H, *, dropout_rate, seed):
+    """Median ms of the bf16 tensor-core forward alone on [B, S, H*hd]
+    values laid out flat (B1), S-major (B5) or head-major (B3), the copies
+    made before timing: one device code at three strides. B3 writes no row
+    statistics or keep bits here, as B1 and B5 do not."""
+    t = keep_threshold(dropout_rate)
+    B, S, D = q.shape
+    b2 = _bias2(bias, B, S)
+    if layout == "flat":
+        ops = [x.contiguous() for x in (q, k, v)]
+        return time_ms(lambda: _launch_train_fwd(_FLAT, *ops, b2, torch.empty_like(
+            ops[0]), B, S, H, t, seed))
+    if layout == "smajor":
+        ops = [x.transpose(0, 1).contiguous() for x in (q, k, v)]
+        return time_ms(lambda: _launch_train_fwd(_SM, *ops, b2, torch.empty_like(
+            ops[0]), B, S, H, t, seed))
+    ops = [hm(x, H) for x in (q, k, v)]
+    out = torch.empty_like(ops[0])
+    fwd = _b3_mma_kernels()[0]
+
+    def launch():
+        err = fwd(*(x.data_ptr() for x in ops), b2.data_ptr(), out.data_ptr(),
+                  None, None, B, S, H, D // H, t, 256.0 / t, seed,
+                  torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"B3 bf16 forward launch failed: {err}")
+    return time_ms(launch)
+
+
+def phase_mma_forwards(gen) -> dict:
+    """B1's and B5's bf16 forwards, which run B3's tensor-core forward
+    (csrc/attention_train_mma.cuh) on their strides: bf16 B1 (flat), B5
+    (S-major) and B3 (head-major, split outside) give the same bits on the
+    same values at UC2's [128, 76, 768] under its -10000 keys and at M3P's
+    [128, 140, 768] and [128, 160, 768] under -inf keys, rates 0 and 0.1.
+    Times (median of 25 CUDA events, rate 0.1): the forward alone in the
+    three layouts at S 76 and 140 (what the strides cost), and B1's forward
+    at S 140 and 160 beside its plain version, SDPA at rate 0 and its
+    bound."""
+    H, hd, B = 12, 64, MBS
+    out = {"strides": {}}
+    for S, inputs in ((76, attention_inputs), (140, neg_inf_inputs),
+                      (160, neg_inf_inputs)):
+        q, k, v, bias = inputs(B, S, H, hd, torch.bfloat16, gen)
+        for rate in (0.0, RATE):
+            kw = dict(dropout_rate=rate, seed=31)
+            with torch.no_grad():
+                flat = fused_attention_train_flat(q, k, v, bias, H, **kw)
+                sm = fused_attention_train_smajor(q, k, v, bias, H, **kw)
+                b3 = train_hm(q, k, v, bias, H, **kw)
+            check(bool(torch.isfinite(flat).all()), f"bf16 B1 S={S} not finite")
+            check(torch.equal(flat, sm) and torch.equal(flat, b3),
+                  f"bf16 forwards S={S} rate {rate}: B1, B5 and B3 differ")
+        print(f"bf16 forward [{B}, {S}, {H * hd}] rates 0 and {RATE}: B1 (flat), "
+              f"B5 (S-major) and B3 (head-major) equal bit for bit")
+        kw = dict(dropout_rate=RATE, seed=31)
+        if S in (76, 140):
+            t = {}     # in turns, the least of two timings per layout
+            for lay in ("flat", "smajor", "head_major", "head_major", "smajor", "flat"):
+                ms = bare_mma_fwd_ms(lay, q, k, v, bias, H, **kw)
+                t[lay] = min(t.get(lay, ms), ms)
+            out["strides"][f"S{S}"] = t
+            print(f"bf16 forward alone at S={S} rate {RATE} by layout: "
+                  + ", ".join(f"{lay} {ms:.4f} ms" for lay, ms in t.items())
+                  + " (rows of 128 bytes 1,536 / 196,608 / 128 bytes apart)")
+        if S == 76:
+            continue
+        ms = bare_mma_fwd_ms("flat", q, k, v, bias, H, **kw)
+        qh, kh, vh = (x.view(B, S, H, hd).transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            plain = time_ms(lambda: fused_attention_train_flat_plain(
+                q, k, v, bias, H, **kw))
+            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias.to(torch.bfloat16)))
+        nbytes = 4 * B * S * H * hd * q.element_size() + B * S * 4
+        ops = 4 * B * H * S * S * hd
+        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+        print(f"B1 fwd [{B}, {S}, {H * hd}] bf16 rate {RATE} (-inf keys): kernel "
+              f"{ms:.4f} ms ({bms / ms:.1%} of its bound), plain {plain:.4f} ms, "
+              f"sdpa (rate 0) {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); tensor cores")
+        out[f"S{S}"] = dict(shape=[B, S, H * hd], ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bms, bound_by=by)
+    return out
+
+
 def phase_long_s(gen) -> dict:
     """The key-blocked variant, where one head's K, V (and the backward's
     [S, S] tile) do not fit a block's shared memory: B1 at S 159 (its
-    backward key-blocked) and 612 (both) against its plain version, fp32 and
+    backward key-blocked) and 612 (both in fp32; in bf16 the forward is the
+    tensor-core one at every S) against its plain version, fp32 and
     bf16, rates 0 and 0.1, under M3P's -inf keys; B5 equal to B1 bit for
     bit there, and B3 (both entries) too in fp32; bf16 B3 (the tensor-core
-    kernels) against the plain version with B1's keep mask; B4 against its
-    plain version at S 159 and
+    kernels) against the plain version with B1's keep mask and B1's
+    forward bits; B4 against its plain version at S 159 and
     612; K1 and B2 at S 418 and 612 against the plain version (fp32
     key-blocked, bf16 the tensor-core kernel); the keep mask
     at 612. Times (median of 25 CUDA events, bf16, rate 0.1): B1's bare
@@ -1079,12 +1196,18 @@ def phase_long_s(gen) -> dict:
                               f"not B1's bit for bit")
                     else:   # bf16 B3: the tensor-core kernels, at every S
                         grad_errors(got, want, dtype, f"{name} S={S} {dtype} rate {rate}")
-                print(f"key-blocked B1 S={S} {dtype} rate {rate} (-inf bias): max "
-                      f"abs err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+                        check(torch.equal(got[0], b1[0]),
+                              f"{name} S={S} bf16 rate {rate}: forward is not B1's")
+                print(f"B1 S={S} {dtype} rate {rate} (-inf bias; "
+                      + ("forward key-blocked from S 418, backward key-blocked"
+                         if dtype == torch.float32 else "forward on the tensor "
+                         "cores, not key-blocked; backward key-blocked")
+                      + "): max abs err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
                       + ("; B5 and B3 (both entries) equal to it bit for bit"
                          if dtype == torch.float32 else "; B5 equal to it bit for "
                          "bit, B3 (both entries, tensor-core kernels) within "
-                         "tolerance of the plain version"))
+                         "tolerance of the plain version and its forward "
+                         "equal to B1's"))
             if dtype == torch.bfloat16:
                 check_b3_keep_mask(13, 2, H, S, hd)
             args = block_args(2, S, dtype, gen)
@@ -1137,11 +1260,12 @@ def phase_long_s(gen) -> dict:
                  10 * B * H * S * S * hd)):
             bms, by = bound_ms(nbytes, ops, torch.bfloat16)
             fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            variant = "key-blocked" if name == "bwd" or S > 417 else "all-keys"
+            # bf16: the forward is the tensor-core one at every S
+            variant = "key-blocked" if name == "bwd" else "tensor-core"
             print(f"B1 {name} [{B}, {S}, {H * hd}] bf16 rate {RATE} ({variant}): "
                   f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); on fp32 "
-                  f"CUDA cores {fp32_bms:.4f} ms")
+                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)"
+                  + (f"; on fp32 CUDA cores {fp32_bms:.4f} ms" if name == "bwd" else ""))
             out[f"S{S}_{name}"] = dict(shape=[B, S, H * hd], variant=variant, ms=ms,
                                        plain_ms=plain, bound_ms=bms, bound_by=by)
         torch.cuda.empty_cache()
@@ -2193,6 +2317,7 @@ def main() -> int:
     kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
     kern.update(phase_block_kernel(torch.Generator("cuda").manual_seed(3)))
     kern.update(phase_blocked_kernel(torch.Generator("cuda").manual_seed(4)))
+    mma_fwd = phase_mma_forwards(torch.Generator("cuda").manual_seed(7))
     t_phase = time.perf_counter()
     long_s = phase_long_s(torch.Generator("cuda").manual_seed(5))
     print(f"key-blocked phase {time.perf_counter() - t_phase:.1f} s")
@@ -2234,57 +2359,54 @@ def main() -> int:
     for name in ("fwd", "bwd"):
         kern[f"flat_attention_train_{name}/{torch.bfloat16}"]["key_blocked"] = {
             k: v for k, v in long_s.items() if k.endswith(name)}
+    kern[f"flat_attention_train_fwd/{torch.bfloat16}"].update(
+        m3p_shapes={k: v for k, v in mma_fwd.items() if k != "strides"},
+        strides_ms=mma_fwd["strides"])
     bf16 = torch.bfloat16
+    # `device_code`: the device code each kernel runs in bf16 on its main path
+    csrc = "clg_vqa_tpu_torch/csrc/"
+    core, mma, ev = (csrc + f for f in ("attention_train.cuh", "attention_train_mma.cuh",
+                                        "attention_eval.cuh"))
     kernels = [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": by_path[path][name],
+        {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+         "device_code": code, "launches": by_path[path][name],
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          **kern[key]}
-        for name, path, key, source, replaces in (
+        for name, path, key, source, code, replaces in (
             ("flat_attention", "run_eval", f"flat_attention/{bf16}",
-             "clg_vqa_tpu_torch/csrc/flat_attention.cu",
-             "clg_vqa_tpu/ops/attention.py:385"),
-            ("rows_gather", "run_eval", "rows_gather",
-             "clg_vqa_tpu_torch/csrc/rows_gather.cu",
-             "clg_vqa_tpu/ops/bank_gather.py:34"),
+             "flat_attention.cu", ev, "clg_vqa_tpu/ops/attention.py:385"),
+            ("rows_gather", "run_eval", "rows_gather", "rows_gather.cu",
+             csrc + "rows_gather.cu", "clg_vqa_tpu/ops/bank_gather.py:34"),
             ("flat_attention_train_fwd", "train",
-             f"flat_attention_train_fwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/flat_attention_train.cu",
+             f"flat_attention_train_fwd/{bf16}", "flat_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:385"),
             ("flat_attention_train_bwd", "train",
-             f"flat_attention_train_bwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/flat_attention_train.cu",
+             f"flat_attention_train_bwd/{bf16}", "flat_attention_train.cu", core,
              "clg_vqa_tpu/ops/attention.py:413"),
             ("smajor_attention_train_fwd", "finetune",
-             f"smajor_attention_train_fwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/smajor_attention_train.cu",
+             f"smajor_attention_train_fwd/{bf16}", "smajor_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:1082"),
             ("smajor_attention_train_bwd", "finetune",
-             f"smajor_attention_train_bwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/smajor_attention_train.cu",
+             f"smajor_attention_train_bwd/{bf16}", "smajor_attention_train.cu", core,
              "clg_vqa_tpu/ops/attention.py:1100"),
             ("block_attention_train_fwd", "train_proj",
-             f"block_attention_train_fwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/block_attention_train.cu",
+             f"block_attention_train_fwd/{bf16}", "block_attention_train.cu",
+             csrc + "block_attention_train.cu and " + core,
              "clg_vqa_tpu/ops/attention.py:678"),
             ("block_attention_train_bwd", "train_proj",
-             f"block_attention_train_bwd/{bf16}",
-             "clg_vqa_tpu_torch/csrc/block_attention_train.cu",
+             f"block_attention_train_bwd/{bf16}", "block_attention_train.cu",
+             csrc + "block_attention_train.cu and " + core,
              "clg_vqa_tpu/ops/attention.py:726"),
             ("blocked_attention", "m3p_eval_blocked", "blocked_attention",
-             "clg_vqa_tpu_torch/csrc/blocked_attention.cu",
-             "clg_vqa_tpu/ops/attention.py:117"),
+             "blocked_attention.cu", ev, "clg_vqa_tpu/ops/attention.py:117"),
             ("blocked_attention_train_fwd", "m3p_train_blocked",
-             "blocked_attention_train_fwd",
-             "clg_vqa_tpu_torch/csrc/blocked_attention_train.cu",
+             "blocked_attention_train_fwd", "blocked_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:209"),
             ("blocked_attention_train_bwd", "m3p_train_blocked",
-             "blocked_attention_train_bwd",
-             "clg_vqa_tpu_torch/csrc/blocked_attention_train.cu",
+             "blocked_attention_train_bwd", "blocked_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:223"),
-            ("roi_pool", "extract_c4", "roi_pool",
-             "clg_vqa_tpu_torch/csrc/roi_pool.cu",
-             "clg_vqa_tpu/ops/roi_pallas.py:30"))
+            ("roi_pool", "extract_c4", "roi_pool", "roi_pool.cu",
+             csrc + "roi_pool.cu", "clg_vqa_tpu/ops/roi_pallas.py:30"))
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

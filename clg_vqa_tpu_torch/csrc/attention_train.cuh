@@ -1,9 +1,11 @@
 // Training attention for Hopper (sm_90a): the per-(head, sample) device code
-// shared by the flat kernels (flat_attention_train.cu, B1), the S-major
-// kernels (smajor_attention_train.cu, B5), the head-major kernels
-// (blocked_attention_train.cu, B3, and its eval twin blocked_attention.cu,
-// B2, in fp32) and the core of the whole-block kernels
-// (block_attention_train.cu, B4), whose backward reads an fp32 do.
+// shared by the flat kernels (flat_attention_train.cu, B1) and the S-major
+// kernels (smajor_attention_train.cu, B5) in fp32 and in both dtypes'
+// backward, the head-major kernels (blocked_attention_train.cu, B3, and its
+// eval twin blocked_attention.cu, B2, in fp32) and the core of the
+// whole-block kernels (block_attention_train.cu, B4), whose backward reads
+// an fp32 do. The bf16 forwards of B1, B5 and B3 run the tensor-core code of
+// attention_train_mma.cuh instead.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
 // gradients sits at b * sample + s * row + h * head + d:

@@ -1,7 +1,11 @@
 // bf16 training attention for Hopper (sm_90a) on tensor cores: the forward
 // and backward device code of B3 (blocked_attention_train.cu, head-major
-// [B, H, S, hd]) in bf16, one kernel each for every S. The operand strides
-// are attention_train.cuh's Layout; fp32 keeps that header's kernels.
+// [B, H, S, hd]) in bf16, one kernel each for every S. The forward is also
+// the bf16 forward of B1 (flat_attention_train.cu, [B, S, H*hd]) and B5
+// (smajor_attention_train.cu, [S, B, H*hd]), which pass no stats or words:
+// their backward stays on attention_train.cuh. The operand strides are
+// attention_train.cuh's Layout, so on the same values the three layouts give
+// the same bits; fp32 keeps that header's kernels.
 //
 // Replaces, in bf16, the TPU kernels of clg_vqa_tpu/ops/attention.py:
 // _train_fwd_kernel (:209-220) and _train_bwd_kernel (:223-263), with

@@ -7,14 +7,18 @@
 // h start at (s*B + b)*H*hd + h*hd. The bias is float32 [B, S] and the
 // per-head bias gradient float32 [B, H, S], summed over heads by the caller.
 //
-// The math is B1's (flat_attention_train.cu): both files instantiate the
-// per-(head, sample) device code of attention_train.cuh, here with row
-// stride B*H*hd and sample stride H*hd. Dropout is keyed by (seed, absolute
+// The math is B1's (flat_attention_train.cu): both files instantiate B1's
+// two device codes, here with row stride B*H*hd (196,608 bytes apart at
+// B 128, 12 heads of 64, bf16) and sample stride H*hd: the bf16 forward on
+// the tensor cores (attention_train_mma.cuh, B3's forward), and the fp32
+// forward and both backwards on the fp32 CUDA cores (attention_train.cuh,
+// one block per (head, sample)). Dropout is keyed by (seed, absolute
 // sample, head, query row, key column // 16), not per grid cell as the TPU
 // kernel keys it (_sm_cell_seed), so on the same values and seed B5 and B1
-// give the same bits, forward and backward. Its bound and design are B1's:
-// the products run on the fp32 CUDA cores, one block per (head, sample).
+// give the same bits, forward and backward. Their bounds and designs are
+// B1's.
 #include "attention_train.cuh"
+#include "attention_train_mma.cuh"
 
 namespace {
 
@@ -34,7 +38,8 @@ long long smajor_attention_train_smem_bytes(int S, int hd, int backward, int blo
   return attn_train::smem_bytes(S, hd, backward, blocked);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v/out: [S, B, H*hd] contiguous,
+// dtype: 0 = float32 (bf16 takes smajor_attention_train_mma_fwd below; any other
+// dtype returns cudaErrorInvalidValue). q/k/v/out: [S, B, H*hd] contiguous,
 // bias: [B, S] float32 (additive, key side). keep_t: u8 keep threshold
 // (256 = no dropout), rscale = 256/keep_t as float. blocked = 1: the
 // key-blocked forward. Returns cudaGetLastError().
@@ -42,8 +47,10 @@ int smajor_attention_train_fwd(int dtype, const void* q, const void* k, const vo
                                const void* bias, void* out, int B, int S, int H, int hd,
                                int keep_t, float rscale, unsigned long long seed,
                                void* stream, int blocked) {
-  return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, smajor(B, H, hd),
-                             keep_t, rscale, seed, stream, blocked);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)attn_train::fwd_hd<float>(hd, q, k, v, static_cast<const float*>(bias), out, B,
+                                        S, H, smajor(B, H, hd), keep_t, rscale, seed,
+                                        static_cast<cudaStream_t>(stream), blocked);
 }
 
 // The same operands plus dout [S, B, H*hd]; writes dq, dk, dv [S, B, H*hd]
@@ -56,6 +63,18 @@ int smajor_attention_train_bwd(int dtype, const void* q, const void* k, const vo
                                void* stream, void* dq32) {
   return attn_train::backward(dtype, q, k, v, bias, dout, dq, dk, dv, dbias_heads, B, S, H,
                               hd, smajor(B, H, hd), keep_t, rscale, seed, stream, 0, dq32);
+}
+
+// bf16 q/k/v/out: [S, B, H*hd] contiguous, 16-byte aligned; bias, keep_t,
+// rscale and seed as smajor_attention_train_fwd. stats and keep_words as
+// blocked_attention_train_mma_fwd's, written where not null (B5's backward
+// reads neither). Returns cudaGetLastError().
+int smajor_attention_train_mma_fwd(const void* q, const void* k, const void* v,
+                                   const void* bias, void* out, void* stats, void* keep_words,
+                                   int B, int S, int H, int hd, int keep_t, float rscale,
+                                   unsigned long long seed, void* stream) {
+  return attn_train_mma::forward(q, k, v, bias, out, stats, keep_words, B, S, H, hd,
+                                 smajor(B, H, hd), keep_t, rscale, seed, stream);
 }
 
 }  // extern "C"

@@ -8,23 +8,27 @@ plain PyTorch versions.
   ``fused_attention_train_flat`` (:596-634; ``_flat_fwd_kernel`` /
   ``_flat_bwd_kernel`` :385-459 via ``_attn_train_flat_fwd/_bwd``
   :495-528), a forward and a backward kernel behind an
-  ``autograd.Function``.
+  ``autograd.Function``. The bf16 forward runs B3's tensor-core forward
+  (``csrc/attention_train_mma.cuh``) on B1's strides at every S; the fp32
+  forward and both backwards run ``csrc/attention_train.cuh`` (fp32 CUDA
+  cores), which recomputes p and replays the keep bits, so it needs
+  nothing saved by the forward.
 - S-major training (B5): ``csrc/smajor_attention_train.cu``, port of
   ``fused_attention_train_smajor`` / ``fused_attention_smajor``
   (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
-  ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device code
-  (``csrc/attention_train.cuh``) on [S, B, H*hd] operands.
+  ``_attn_train_sm_fwd/_bwd`` :1153-1188): B1's device codes on
+  [S, B, H*hd] operands, so B5 equals B1 bit for bit in both dtypes.
 - bf16 eval (K1 and B2): one tensor-core kernel, ``csrc/attention_eval.cuh``
   (bf16 ``mma.sync`` products, K and V streamed in 32-key tiles, a running
   softmax), takes every S in both layouts. fp32 eval keeps the CUDA-core
   kernels below.
 - Key-blocked variant: where one head's K, V (and, in the backward, the
   [S, S] tile) do not fit one block's shared memory, every fp32 eval and
-  every training wrapper here launches the key-blocked twin of its kernel
-  in ``csrc/attention_train.cuh`` (K and V staged 64 keys at a time; the
-  backward's dq summed in a float32 buffer allocated here). Below that
-  limit the all-keys kernels run, bit for bit as before. So no S that the
-  JAX kernels take is refused.
+  every CUDA-core training launch here takes the key-blocked twin of its
+  kernel in ``csrc/attention_train.cuh`` (K and V staged 64 keys at a
+  time; the backward's dq summed in a float32 buffer allocated here).
+  Below that limit the all-keys kernels run, bit for bit as before. So no
+  S that the JAX kernels take is refused.
 - Head-blocked eval (B2): ``csrc/blocked_attention.cu``, port of
   ``fused_attention`` (:135-175, body ``_attn_kernel`` :117-132), and
   head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
@@ -163,9 +167,8 @@ def _launch_eval(name: str, q, k, v, bias, B: int, S: int, num_heads: int,
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernel takes fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 kernel copies 16-byte rows: q/k/v must "
-                         "start on 16-byte boundaries")
+    if q.dtype == torch.bfloat16:
+        _check_aligned16(q, k, v)
     fn, smem_bytes = _eval_kernel(name)
     blocked = q.dtype == torch.float32 and _key_blocked(smem_bytes, S, hd)
     b2 = _bias2(bias.to(q.device), B, S)
@@ -307,8 +310,10 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
 def _train_kernels(name: str = "flat_attention_train"):
     """(forward, backward, smem_bytes) of ``csrc/<name>.cu``: B1's
     ``flat_attention_train``, B5's ``smajor_attention_train`` or B3's
-    ``blocked_attention_train`` (whose entries here take fp32 only), which
-    share one C interface."""
+    ``blocked_attention_train``, which share one C interface. B3's entries
+    take fp32 only, and so do B1's and B5's forwards (bf16 runs the
+    tensor-core forward, :func:`_train_mma_fwd`); B1's and B5's backwards
+    take both dtypes."""
     lib = _build.load(name)
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -334,27 +339,86 @@ def _train_seed(dropout_rate: float, seed: int | None) -> tuple[int, int]:
     return t, 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
 
 
+_FLAT = "flat_attention_train"
+_SM = "smajor_attention_train"
+
+
+@functools.cache
+def _train_mma_fwd(name: str):
+    """The bf16 tensor-core forward (``csrc/attention_train_mma.cuh``) that
+    B1's ``flat_attention_train`` and B5's ``smajor_attention_train``
+    instantiate on their strides; the C interface of B3's
+    ``blocked_attention_train_mma_fwd``, whose shared memory it shares."""
+    lib = _build.load(name)
+    fwd = getattr(lib, f"{name}_mma_fwd")
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    return fwd
+
+
+def _takes_mma_fwd(name: str, q: torch.Tensor) -> bool:
+    """Whether ``csrc/<name>.cu``'s forward on q runs the tensor-core
+    forward: B1 and B5 in bf16 (fp32 and B3's fp32 entries do not)."""
+    return q.dtype == torch.bfloat16 and name in (_FLAT, _SM)
+
+
+def _check_aligned16(*tensors) -> None:
+    """Raise unless every operand starts on a 16-byte boundary, as the bf16
+    tensor-core kernels (K1, B2, B3, B1's and B5's forwards) copy 16-byte
+    rows."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 kernels copy 16-byte rows: q/k/v must "
+                         "start on 16-byte boundaries")
+
+
+def _check_mma_smem(S: int, hd: int, backward: int) -> None:
+    """Raise unless one block of the bf16 tensor-core training forward
+    (backward = 0) or backward (1) fits its shared memory at (S, hd)."""
+    need = _b3_mma_kernels()[2](S, hd, backward)
+    if need > _MAX_SMEM:
+        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
+                         f"memory per block, over the {_MAX_SMEM} limit")
+
+
 def _check_train_cuda(q: torch.Tensor, S: int, hd: int, name: str) -> None:
     """Raise unless the CUDA training kernels of ``csrc/<name>.cu`` take
-    these operands."""
+    these operands: the forward's shared memory (the tensor-core forward's
+    in bf16 for B1 and B5, which takes every S; else the all-keys or
+    key-blocked kernel's) and the backward's (all-keys or key-blocked)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
     _, _, smem_bytes = _train_kernels(name)
-    for backward in (0, 1):
-        _key_blocked(smem_bytes, S, hd, backward)
+    if _takes_mma_fwd(name, q):
+        _check_mma_smem(S, hd, 0)
+    else:
+        _key_blocked(smem_bytes, S, hd, 0)
+    _key_blocked(smem_bytes, S, hd, 1)
 
 
 def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
                       num_heads: int, keep_t: int, seed: int) -> None:
-    fwd, _, smem_bytes = _train_kernels(name)
+    """The forward of ``csrc/<name>.cu`` into ``out``: in bf16, B1's and
+    B5's tensor-core forward (q/k/v on 16-byte boundaries, else it raises);
+    otherwise the fp32 ``attention_train.cuh`` kernel, key-blocked past its
+    shared memory (these entries refuse any other dtype)."""
     hd = q.numel() // (B * S * num_heads)
-    err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              b2.data_ptr(), out.data_ptr(), B, S, num_heads, hd, keep_t,
-              256.0 / keep_t, seed, torch.cuda.current_stream(q.device).cuda_stream,
-              int(_key_blocked(smem_bytes, S, hd, 0)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if _takes_mma_fwd(name, q):
+        _check_aligned16(q, k, v, out)
+        err = _train_mma_fwd(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), None, None, B, S, num_heads, hd, keep_t,
+            256.0 / keep_t, seed, stream)
+    else:
+        fwd, _, smem_bytes = _train_kernels(name)
+        err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  b2.data_ptr(), out.data_ptr(), B, S, num_heads, hd, keep_t,
+                  256.0 / keep_t, seed, stream,
+                  int(_key_blocked(smem_bytes, S, hd, 0)))
     if err != 0:
         raise RuntimeError(f"{name} forward launch failed: CUDA error {err}")
 
@@ -383,17 +447,17 @@ def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
 
 
 class _FlatTrainFn(torch.autograd.Function):
-    """B1 on the card: the forward kernel, and the backward kernel that
-    recomputes the probabilities and replays the keep mask. The bias
-    gradient comes out per (sample, head) as [B, H, S] and is summed over
-    heads in a fixed order."""
+    """B1 on the card: the forward kernel (bf16: the tensor-core forward),
+    and the backward kernel that recomputes the probabilities in fp32 and
+    replays the keep mask. The bias gradient comes out per (sample, head) as
+    [B, H, S] and is summed over heads in a fixed order."""
 
     @staticmethod
     def forward(ctx, q, k, v, b2, num_heads, keep_t, seed):
         B, S, _ = q.shape
         out = torch.empty_like(q)
-        _launch_train_fwd("flat_attention_train", q, k, v, b2, out, B, S,
-                          num_heads, keep_t, seed)
+        _launch_train_fwd(_FLAT, q, k, v, b2, out, B, S, num_heads, keep_t,
+                          seed)
         fused_attention_train_flat.launches += 1
         ctx.save_for_backward(q, k, v, b2)
         ctx.meta = (num_heads, keep_t, seed)
@@ -403,8 +467,7 @@ class _FlatTrainFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, b2 = ctx.saved_tensors
         B, S, _ = q.shape
-        grads = _launch_train_bwd("flat_attention_train", q, k, v, b2, dout,
-                                  B, S, *ctx.meta)
+        grads = _launch_train_bwd(_FLAT, q, k, v, b2, dout, B, S, *ctx.meta)
         fused_attention_train_flat.backward_launches += 1
         return (*grads, None, None, None)
 
@@ -420,13 +483,14 @@ def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
     64-bit key of the dropout stream (a host integer, so the launch needs
     no device synchronisation); required when ``dropout_rate > 0``. CPU
     tensors take the plain version; CUDA tensors launch the kernels (fp32
-    or bf16, hd in {32, 64, 128}) or raise."""
+    or bf16, hd in {32, 64, 128}; bf16 operands on 16-byte boundaries) or
+    raise."""
     B, S, hd = _check_qkv(q, k, v, num_heads)
     t, seed = _train_seed(dropout_rate, seed)
     if q.device.type == "cpu":
         return fused_attention_train_flat_plain(
             q, k, v, bias, num_heads, dropout_rate=dropout_rate, seed=seed)
-    _check_train_cuda(q, S, hd, "flat_attention_train")
+    _check_train_cuda(q, S, hd, _FLAT)
     b2 = _bias2(bias.to(q.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(q)
@@ -440,16 +504,18 @@ fused_attention_train_flat.backward_launches = 0
 
 @torch.no_grad()
 def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
-                       dropout_rate: float, device, train=None) -> torch.Tensor:
+                       dropout_rate: float, device, train=None,
+                       dtype=torch.float32) -> torch.Tensor:
     """Bool [B, H, S, S]: the keep mask that ``train`` (a training entry on
     [B, S, H*hd] operands, :func:`fused_attention_train_flat` by default)
-    realizes on ``device``, read back through its forward. With q = k = 0
+    realizes on ``device`` with operands of ``dtype`` (bf16 reads B1's and
+    B5's tensor-core forward), read back through its forward. With q = k = 0
     and no bias every probability is 1/S, and v one-hot on key column j
     copies p_d[..., j] into an output column, so the nonzero outputs are the
     kept entries; ceil(S/hd) calls cover every key column. On the card this
     shows the kernel's own bits, to compare with :func:`dropout_keep_mask`."""
     train = train or fused_attention_train_flat
-    z = torch.zeros(B, S, H * hd, device=device)
+    z = torch.zeros(B, S, H * hd, device=device, dtype=dtype)
     bias = torch.zeros(B, 1, 1, S, device=device)
     mask = torch.empty(B, H, S, S, dtype=torch.bool, device=device)
     for j0 in range(0, S, hd):
@@ -457,7 +523,7 @@ def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
         v = torch.zeros(B, S, H, hd, device=device)
         cols = torch.arange(n, device=device)
         v[:, j0 + cols, :, cols] = 1.0
-        o = train(z, z, v.reshape(B, S, H * hd), bias, H,
+        o = train(z, z, v.reshape(B, S, H * hd).to(dtype), bias, H,
                   dropout_rate=dropout_rate, seed=seed)
         mask[..., j0:j0 + n] = (o.view(B, S, H, hd)[..., :n] != 0).transpose(1, 2)
     return mask
@@ -466,9 +532,6 @@ def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
 # ---------------------------------------------------------------------------
 # B5: S-major training attention
 # ---------------------------------------------------------------------------
-
-_SM = "smajor_attention_train"
-
 
 def sm_dims(S: int, B: int, HD: int, num_heads: int) -> tuple[int, int, int]:
     """(batch tile, group width, heads per group) of the TPU's S-major grid,
@@ -542,9 +605,10 @@ class _SwapSB(torch.autograd.Function):
 
 
 class _SmTrainFn(torch.autograd.Function):
-    """B5 on the card, on S-major operands: the forward kernel, and the
-    backward kernel that recomputes the probabilities and replays the keep
-    mask (clg_vqa_tpu/ops/attention.py:_attn_train_core_sm, :1147-1194)."""
+    """B5 on the card, on S-major operands: the forward kernel (bf16: the
+    tensor-core forward), and the backward kernel that recomputes the
+    probabilities in fp32 and replays the keep mask
+    (clg_vqa_tpu/ops/attention.py:_attn_train_core_sm, :1147-1194)."""
 
     @staticmethod
     def forward(ctx, qs, ks, vs, b2, num_heads, keep_t, seed):
@@ -572,7 +636,9 @@ def smajor_attention_core(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                           seed: int | None = None) -> torch.Tensor:
     """B5's core on S-major operands [S, B, H*hd], differentiable in qs, ks,
     vs and bias (key-side, broadcastable to [B, 1, 1, S]): the kernels for
-    CUDA tensors, the plain version for CPU tensors. Returns [S, B, H*hd]."""
+    CUDA tensors (bf16 operands on 16-byte boundaries, as in
+    :func:`fused_attention_train_flat`), the plain version for CPU tensors.
+    Returns [S, B, H*hd]."""
     S, B, hd = _check_qkv(qs, ks, vs, num_heads)
     sm_dims(S, B, qs.shape[-1], num_heads)
     t, seed = _train_seed(dropout_rate, seed)
@@ -623,7 +689,8 @@ def fused_attention_smajor_plain(q, k, v, bias, num_heads: int) -> torch.Tensor:
 def fused_attention_smajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Forward-only S-major twin (eval; clg_vqa_tpu/ops/attention.py:1223-1238):
-    B5's forward kernel without dropout on [B, S, H*hd] operands swapped
+    B5's forward kernel (bf16: the tensor-core forward) without dropout on
+    [B, S, H*hd] operands swapped
     S-major and back. The model's deterministic "sm" route takes K1, as the
     JAX package's does, so only tests and chip_smoke.py call this. Like K1 it
     has no backward and raises in grad mode when an input requires grad."""
@@ -740,15 +807,9 @@ def _check_b3_bf16(S: int, hd: int, *tensors) -> None:
     if hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
                          f"(32, 64, 128); got {tensors[0].dtype}, hd={hd}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bf16 kernels copy 16-byte rows: q/k/v must "
-                         "start on 16-byte boundaries")
-    smem = _b3_mma_kernels()[2]
+    _check_aligned16(*tensors)
     for backward in (0, 1):
-        need = smem(S, hd, backward)
-        if need > _MAX_SMEM:
-            raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
-                             f"memory per block, over the {_MAX_SMEM} limit")
+        _check_mma_smem(S, hd, backward)
 
 
 def _b3_bf16_buffers(qh, keep_t: int):

@@ -5,8 +5,9 @@ in one CUDA forward and one CUDA backward, and their plain PyTorch version.
 Port of clg_vqa_tpu/ops/attention.py:fused_attention_block (:958-973) and
 its custom VJP ``_attn_block_core`` (:872-955): ``_proj_fwd_kernel`` (:678),
 ``_proj_bwda_kernel`` (:726) and ``_linear_bwd_kernel`` (:802), as
-``csrc/block_attention_train.cu``. The core is B1's device code
-(``csrc/attention_train.cuh``) and B1's dropout: the keep mask is keyed by
+``csrc/block_attention_train.cu``. The core is the fp32 CUDA-core device
+code of B1's backward (``csrc/attention_train.cuh``; B1's bf16 forward runs
+the tensor cores) and B1's dropout: the keep mask is keyed by
 (seed, absolute sample, head, query row, key column // 16), so with one seed
 "proj" drops the same attention probabilities as "flat". The TPU kernel's
 batch tilings and its per-grid-cell PRNG seeding exist for VMEM and the

@@ -10,7 +10,9 @@ chip_smoke.py's training envelope
 (bench.py:54-92: acc 2 x mbs 128, bf16 with fp32 master weights, dropout
 0.1, lambda 10, the device feature bank, TrainPipeline over
 data/synthetic.train_dataset), runs 2 warm-up steps, 5 untraced steps (ms per
-step, QA/s) and 3 steps under torch.profiler, and prints device time per
+step, QA/s, and the host's ms per step to issue them: the step has no host
+synchronisation, so a device that paces the step shows as the final wait)
+and 3 steps under torch.profiler, and prints device time per
 step by kernel group, the device's busy share of the traced window and the
 top kernels. The training attention is the flat kernels (B1) by default,
 the S-major ones (B5, with their entry's layout copies) with --sm, the
@@ -39,9 +41,11 @@ from .profile_eval import model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-# The attention core: attn_train::fwd_kernel / bwd_kernel (B1, B5, B4's
-# core, fp32 B3) and attn_train_mma::fwd_kernel / bwd_kernel (bf16 B3, the
-# tensor-core kernels); the key-blocked twins match the same keys.
+# The attention core: attn_train::fwd_kernel / bwd_kernel (B1's and B5's
+# backwards and fp32 forwards, B4's core, fp32 B3) and
+# attn_train_mma::fwd_kernel / bwd_kernel (the tensor-core kernels: bf16
+# B3, and the bf16 forwards of B1 and B5); the key-blocked twins match the
+# same keys.
 GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
           ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<", "bwd_blocked_kernel<")),
           ("B4 products and sums", ("b4_",)),
@@ -102,20 +106,26 @@ def main(argv=None) -> int:
         i = 0
 
         def run(n):
+            """Seconds the host took to issue n steps, before the final
+            synchronisation."""
             nonlocal state, i
+            t0 = time.perf_counter()
             for _ in range(n):
                 state, _ = step(state, next(batches), seed=i, bank=bank)
                 i += 1
+            issued = time.perf_counter() - t0
             torch.cuda.synchronize()
+            return issued
 
         run(WARMUP)
         t0 = time.perf_counter()
-        run(UNTRACED)
+        issued = run(UNTRACED) / UNTRACED
         dt = (time.perf_counter() - t0) / UNTRACED
         lines.append(f"untraced: {'M3P' if args.m3p else 'UC2'}, "
                      f"{dt * 1e3:.2f} ms/step, "
                      f"{ACC * MBS / dt:.1f} QA/s (acc {ACC} x mbs {MBS}, bf16, "
-                     f"fused_attn={fused}) on {torch.cuda.get_device_name(0)}")
+                     f"fused_attn={fused}) on {torch.cuda.get_device_name(0)}; "
+                     f"host issued a step in {issued * 1e3:.2f} ms")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:

@@ -97,8 +97,11 @@ def test_flat_train_kernels_match_plain(cuda, S, dtype, rate):
     """B1 forward and backward against autograd of the plain version, same
     seed. Forward: atol 1e-5 (fp32) or one bf16 ulp of the largest output;
     dq/dk/dv: 2e-4 * max|grad| (fp32) or two bf16 ulps of the largest grad;
-    dbias: 1e-4 * max|dbias|. Both sides compute in fp32 from the same
-    values and differ in summation order only."""
+    dbias: 1e-4 * max|dbias|. The fp32 forward and both backwards run
+    attention_train.cuh (fp32 CUDA cores), which differs from the plain
+    version in summation order only; the bf16 forward runs the tensor-core
+    forward of attention_train_mma.cuh (exact bf16 products summed in fp32,
+    p_d as hi + lo bf16 terms)."""
     q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=1234)
@@ -124,8 +127,9 @@ def test_flat_train_kernels_match_plain(cuda, S, dtype, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [13, 76, 140])
 def test_flat_train_kernel_mask_is_the_plain_mask(cuda, S):
-    """The kernel's realized keep bits equal dropout_keep_mask on the card
-    and on the CPU; another seed gives another mask."""
+    """The fp32 forward's realized keep bits equal dropout_keep_mask on the
+    card and on the CPU; another seed gives another mask (the bf16
+    forward's: test_bf16_flat_and_smajor_forward_masks_are_the_plain_mask)."""
     t = TA.keep_threshold(0.1)
     got = TA.realized_keep_mask(99, 4, 12, S, 64, 0.1, cuda)
     assert torch.equal(got, TA.dropout_keep_mask(99, 4, 12, S, t, cuda))
@@ -174,8 +178,9 @@ def test_bf16_linear_function_on_cuda_matches_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_smajor_train_kernels_match_plain(cuda, S, dtype, rate):
     """B5 forward and backward against autograd of its plain version, same
-    seed, with B1's tolerances (test_flat_train_kernels_match_plain); the
-    entry makes its eight layout copies."""
+    seed, with B1's tolerances (test_flat_train_kernels_match_plain; B1's
+    device codes, the bf16 forward on the tensor cores); the entry makes its
+    eight layout copies."""
     q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=1234)
@@ -205,8 +210,9 @@ def test_smajor_train_kernels_match_plain(cuda, S, dtype, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_smajor_kernels_equal_flat_kernels_bit_for_bit(cuda, dtype):
-    """B5 and B1 run one device code on two layouts and key dropout alike:
-    output and every gradient equal bit for bit."""
+    """B5 and B1 run the same device codes on two layouts (bf16 forward:
+    attention_train_mma.cuh; the rest: attention_train.cuh) and key dropout
+    alike: output and every gradient equal bit for bit."""
     q, k, v, bias = _attention_inputs(cuda, 16, 76, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda)
     kw = dict(dropout_rate=0.1, seed=77)
@@ -784,6 +790,79 @@ def test_bf16_blocked_train_kernel_refuses_unaligned_operands(cuda):
 
 
 # ---------------------------------------------------------------------------
+# bf16 B1 and B5 forwards: B3's tensor-core forward on their strides
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 140, 159, 612])
+def test_bf16_flat_and_smajor_forwards_equal_b3s_bit_for_bit(cuda, S):
+    """One device code (csrc/attention_train_mma.cuh's forward) at three
+    strides: bf16 B1 (flat), B5 (S-major) and B3 (head-major, split
+    outside) give the same output bits on the same values and seed, rates
+    0 and 0.1, under UC2's -10000 keys, M3P's -inf keys and a sample whose
+    leading 64 + S // 8 keys are -inf too; finite; one launch each. At S 159
+    and 612 the backward is key-blocked and the forward is not."""
+    H = 12
+    q, k, v, bias = _attention_inputs(cuda, 8, S, H, 64, torch.bfloat16)
+    _, _, _, neg_inf = _neg_inf_inputs(cuda, 8, S, H, 64, torch.bfloat16)
+    biases = [bias, neg_inf, _leading_neg_inf(neg_inf, S)]
+    for bias in (b for b in biases if b is not None):
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=2024)
+            f0 = TA.fused_attention_train_flat.launches
+            s0 = TA.fused_attention_train_smajor.launches
+            with torch.no_grad():
+                flat = TA.fused_attention_train_flat(q, k, v, bias, H, **kw)
+                sm = TA.fused_attention_train_smajor(q, k, v, bias, H, **kw)
+                b3 = _hm_train(q, k, v, bias, H, **kw)
+            torch.cuda.synchronize()
+            assert TA.fused_attention_train_flat.launches == f0 + 1
+            assert TA.fused_attention_train_smajor.launches == s0 + 1
+            assert torch.isfinite(flat).all()
+            assert torch.equal(flat, sm) and torch.equal(flat, b3), (S, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 140, 612])
+def test_bf16_flat_and_smajor_forward_masks_are_the_plain_mask(cuda, S):
+    """The tensor-core forward's realized keep bits, read through B1's and
+    B5's entries with bf16 operands, equal dropout_keep_mask, which their
+    fp32 CUDA-core backward replays."""
+    t = TA.keep_threshold(0.1)
+    want = TA.dropout_keep_mask(99, 8, 12, S, t, cuda)
+    for train in (TA.fused_attention_train_flat, TA.fused_attention_train_smajor):
+        got = TA.realized_keep_mask(99, 8, 12, S, 64, 0.1, cuda, train=train,
+                                    dtype=torch.bfloat16)
+        assert torch.equal(got, want), train
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x that starts off a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape).copy_(x)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.cuda
+def test_bf16_flat_and_smajor_forwards_refuse_unaligned_operands(cuda):
+    """The tensor-core forward copies 16-byte rows: a bf16 operand of B1's
+    entry or of B5's S-major core that starts off a 16-byte boundary raises
+    rather than faults, as B3's and K1's do; fp32 takes it, and so does
+    B5's [B, S, H*hd] entry, whose layout swap copies."""
+    q, k, v, bias = _attention_inputs(cuda, 8, 13, 4, 64, torch.bfloat16)
+    kw = dict(dropout_rate=0.1, seed=3)
+    with pytest.raises(ValueError, match="16-byte"):
+        TA.fused_attention_train_flat(_shifted(q), k, v, bias, 4, **kw)
+    qs, ks, vs = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    with pytest.raises(ValueError, match="16-byte"):
+        TA.smajor_attention_core(_shifted(qs), ks, vs, bias, 4, **kw)
+    TA.fused_attention_train_smajor(_shifted(q), k, v, bias, 4, **kw)
+    TA.fused_attention_train_flat(_shifted(q.float()), k.float(), v.float(),
+                                  bias, 4, **kw)
+
+
+# ---------------------------------------------------------------------------
 # The key-blocked variant: S past the all-keys kernels' shared memory
 # (training kernels from S = 159 at hd 64, K1 from 418, B2 from 412)
 # ---------------------------------------------------------------------------
@@ -811,10 +890,12 @@ def _assert_train_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
     """B1 past its all-keys limit against autograd of the plain version with
-    B1's tolerances; B5 equal to it bit for bit, and B3 (both entries) too
-    in fp32; in bf16 B3 (the tensor-core kernels, which take every S) within
-    the same tolerances of the plain version, with B1's keep mask; one
-    launch of each kernel per call."""
+    B1's tolerances: the key-blocked backward, and in fp32 the key-blocked
+    forward from S = 418 (the bf16 forward is the tensor-core one at every
+    S); B5 equal to it bit for bit, and B3 (both entries) too in fp32; in
+    bf16 B3 (the tensor-core kernels) within the same tolerances of the
+    plain version, with B1's keep mask; one launch of each kernel per
+    call."""
     q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     kw = dict(dropout_rate=rate, seed=2468)
@@ -867,8 +948,8 @@ def test_key_blocked_train_kernels_take_every_head_dim(cuda, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [159, 418, 612])
 def test_key_blocked_keep_masks_are_the_plain_mask(cuda, S):
-    """The key-blocked forward's keep bits equal dropout_keep_mask (B1 at
-    S 418 and 612 runs it; at 159 the all-keys forward), and B4's equal
+    """The key-blocked forward's keep bits equal dropout_keep_mask (fp32 B1
+    at S 418 and 612 runs it; at 159 the all-keys forward), and B4's equal
     B1's; the backward replays them (test_..._match_plain's gradients)."""
     t = TA.keep_threshold(0.1)
     got = TA.realized_keep_mask(31, 2, 12, S, 64, 0.1, cuda)
@@ -913,7 +994,7 @@ def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
     every S the configs allow (text up to 512 tokens plus 100 regions).
     The eval kernels consult the all-keys limit in fp32 only: in bf16 one
     tensor-core kernel takes every S, its shared memory bounded whatever S
-    is."""
+    is; so does B1's and B5's bf16 forward (B3's tensor-core forward)."""
     for name in ("flat_attention_train", "smajor_attention_train",
                  "blocked_attention_train"):
         smem = TA._train_kernels(name)[2]
@@ -926,6 +1007,8 @@ def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
         for hd in (32, 64, 128):
             for S in (417, 418, 612):
                 TA._key_blocked(smem, S, hd)
+    for hd in (32, 64, 128):
+        TA._check_mma_smem(2048, hd, 0)
     assert TA._key_blocked(TA._train_kernels()[2], 159, 64, 1)
     assert not TA._key_blocked(TA._train_kernels()[2], 158, 64, 1)
     # bf16 eval at hd 128 (its largest shared memory), past S = 612
