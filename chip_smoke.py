@@ -16,8 +16,8 @@ final line:
     training attention (B1) is also held to its dropout semantics: the
     kernels' keep mask is the plain version's, runs are bit-deterministic,
     the keep fraction is t/256, and <dv, v> equals the loss (in bf16 on the
-    mixed pair: the tensor-core forward of csrc/attention_train_mma.cuh and
-    the fp32 CUDA-core backward of csrc/attention_train.cuh). The S-major
+    tensor-core forward and backward of csrc/attention_train_mma.cuh, the
+    backward reading the keep bits the forward stored). The S-major
     training attention (B5) is held to its plain version and to B1, bit
     for bit, and its entry's layout copies are timed. The whole-block
     training attention (B4: projections, core, output projection) is held
@@ -63,7 +63,8 @@ final line:
     (eval, and 3 train steps through "hm") and full-width fp32 gradients of
     True against the plain route.
     Then the train step at a task length of 60 tokens (S = 160) on the
-    auto route, which runs B1's key-blocked backward.
+    auto route, which runs B1's tensor-core backward at its one-chunk limit
+    (10 warps at hd 64).
 11. the detector: RoIPool (B6) at the C4 extractor's shape ([50, 84, 1024]
     bf16, 300 rois) bit-exact against its plain version and timed; then
     `python -m clg_vqa_tpu_torch.cli extract --detector c4` in process at
@@ -73,19 +74,20 @@ final line:
     run_eval over 64 questions on the extracted store (K1, K2).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
-entries) against their plain versions, fp32 B3 equal to B1 bit for bit,
-bf16 B3 (the tensor-core kernels of csrc/attention_train_mma.cuh) with B1's
-keep mask whatever the batch size, two runs bit-equal; the bf16 forwards of
+entries) against their plain versions and equal to B1 bit for bit (bf16:
+the tensor-core kernels of csrc/attention_train_mma.cuh), B3's keep mask
+B1's whatever the batch size, two runs bit-equal; the bf16 kernels of
 B1 (flat), B5 (S-major) and B3 (head-major), one tensor-core device code at
-three strides, equal bit for bit at [128, 76, 768] and at M3P's S 140 and
-160, with B1's and B5's bf16 keep masks the plain mask, and the forward
-alone timed in the three layouts and B1's at S 140 and 160; and the
-key-blocked variant that every CUDA-core attention kernel takes past its
-all-keys kernel's shared memory: B1 at S 159 and 612 (values, gradients,
-keep mask; in bf16 its forward is the tensor-core one, its backward
-key-blocked) against its plain version, B5 (and fp32 B3) equal to it, bf16
-B3 against the plain version there with B1's forward bits, B4 at S 159 and
-612, K1 and B2 at S 418 and 612, and B1's times there.
+three strides, equal bit for bit (output and every gradient) at
+[128, 76, 768] under UC2's -10000 keys and at M3P's S 140 and 160 under
+-inf keys, within tolerance of the plain version, with B1's and B5's bf16
+keep masks the plain mask; the forward and the backward alone timed in the
+three layouts in turns at S 76 and 140, and B1's and B5's at S 140 and 160
+beside SDPA; and S past the CUDA-core kernels' shared memory, where fp32
+takes their key-blocked variant: B1 at S 159 and 612 (values, gradients,
+keep mask; in bf16 the tensor-core kernels) against its plain version, B5
+and B3 (both entries) equal to it bit for bit in both dtypes, B4 at S 159
+and 612, K1 and B2 at S 418 and 612, and B1's bf16 times there.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -128,8 +130,8 @@ from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
 from clg_vqa_tpu_torch.ops.attention import (
-    _FLAT, _SM, _b3_bf16_buffers, _b3_bf16_bwd, _b3_bf16_fwd, _b3_mma_kernels,
-    _bias2, _launch_eval, _launch_train_bwd, _launch_train_fwd, _takes_mma_fwd,
+    _FLAT, _HM, _SM, _bias2, _launch_eval, _launch_train_bwd,
+    _launch_train_fwd, _train_buffers,
     dropout_keep_mask, fused_attention, fused_attention_flat,
     fused_attention_flat_plain, fused_attention_smajor,
     fused_attention_smajor_plain, fused_attention_train,
@@ -171,7 +173,8 @@ AB_STEPS, AB_ORDER = 10, ("flat", "sm", "sm", "flat") * 5
 # M3P's world: images of 10..100 boxes, as a detector's confidence
 # threshold leaves them (X101 features, max_region_num 100)
 M3P_MIN_REGIONS = 10
-M3P_LONG_SEQ = 60            # S = 100 + 60 = 160: the key-blocked backward
+# S = 100 + 60 = 160: B1's bf16 backward at its one-chunk limit (10 warps)
+M3P_LONG_SEQ = 60
 # the extraction phase: 8 synthetic 480 x 640 images through the C4 detector
 # at full width (R101, pad 800 x 1344, bf16), then UC2 eval over the store
 N_EXTRACT, EXTRACT_HW, EXTRACT_QA = 8, (480, 640), 64
@@ -211,11 +214,10 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def core_note(name: str, direction: str, q, nbytes: float, ops: float) -> str:
-    """Which device code the training kernel of ``csrc/<name>.cu`` runs in
-    this direction and dtype; for the fp32 CUDA-core code, its bound at the
-    CUDA cores' peak."""
-    if direction == "fwd" and _takes_mma_fwd(name, q):
+def core_note(q, nbytes: float, ops: float) -> str:
+    """Which device code B1's, B5's and B3's training kernels run in q's
+    dtype; for the fp32 CUDA-core code, its bound at the CUDA cores' peak."""
+    if q.dtype == torch.bfloat16:
         return "tensor cores (csrc/attention_train_mma.cuh)"
     fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
     return (f"fp32 CUDA cores (csrc/attention_train.cuh), bound there "
@@ -410,8 +412,8 @@ def phase_train_kernel(gen) -> dict:
         total = terms.sum().item()
         tol = (1e-6 * terms.abs().sum().item() if dtype == torch.float32
                else 4 * 2.0 ** -8 * terms.square().sum().sqrt().item())
-        pair = (" (the mixed pair: tensor-core forward, fp32 CUDA-core "
-                "backward)" if dtype == torch.bfloat16 else "")
+        pair = (" (tensor-core forward and backward, one stored mask)"
+                if dtype == torch.bfloat16 else "")
         print(f"B1 {dtype} v-linearity{pair}: <dv, v> {inner:.6g}, loss "
               f"{total:.6g} (tol {tol:.3g})")
         check(abs(inner - total) <= tol, f"B1 {dtype}: <dv, v> != loss")
@@ -431,8 +433,7 @@ def phase_train_kernel(gen) -> dict:
             qh, kh, vh, attn_mask=bias.to(dtype))
         do_s = do.view(B, S, H, hd).transpose(1, 2)
         mask_s = bias.to(dtype)
-        fwd_ms, bwd_ms = bare_train_ms("flat_attention_train", q, k, v, bias,
-                                       do, B, S, H, **kw)
+        fwd_ms, bwd_ms = bare_train_ms(_FLAT, q, k, v, bias, do, B, S, H, **kw)
         with torch.no_grad():
             fwd_entry = time_ms(lambda: fused_attention_train_flat(
                 q, k, v, bias, H, **kw))
@@ -456,7 +457,7 @@ def phase_train_kernel(gen) -> dict:
                   f"of its bound; bare launch; through the entry and autograd "
                   f"{entry:.4f} ms), plain {plain:.4f} ms, sdpa (rate 0) "
                   f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.2f} GFLOP); {core_note(_FLAT, name, q, nbytes, ops)}")
+                  f"{ops / 1e9:.2f} GFLOP); {core_note(q, nbytes, ops)}")
             out[f"flat_attention_train_{name}/{dtype}"] = dict(
                 max_abs_err=(err["out"] if name == "fwd"
                              else max(err["dq"], err["dk"], err["dv"],
@@ -477,8 +478,8 @@ def phase_train_kernel(gen) -> dict:
     print(f"B1 keep mask [{B},{H},{S},{S}] = dropout_keep_mask on the card "
           f"and the CPU; keep fraction {frac:.5f} (t/256 = {t / 256:.5f})")
     check(abs(frac - t / 256) <= 0.005, f"B1 keep fraction {frac}")
-    # the bf16 forward (tensor cores) realizes the same bits, which the fp32
-    # CUDA-core backward replays; B5's entry on its strides too
+    # the bf16 forward (tensor cores) realizes the same bits, and stores them
+    # for the bf16 backward; B5's entry on its strides too
     for name, train in (("B1", fused_attention_train_flat),
                         ("B5", fused_attention_train_smajor)):
         check(torch.equal(realized_keep_mask(11, B, H, S, hd, RATE, "cuda",
@@ -499,31 +500,20 @@ def value_and_grads(fn, q, k, v, bias, do, H, **kw):
 def bare_train_ms(name, q, k, v, bias, do, B, S, H, *, dropout_rate, seed):
     """Median ms of the training kernels of ``csrc/<name>.cu`` on prepared
     contiguous operands of their layout, as B2 is timed: the forward launch
-    into a preallocated output, and the backward launch with its gradients'
-    allocation and the fixed-order head sum of the bias gradient. No
-    autograd and no operand copies are in the interval."""
+    into preallocated outputs (in bf16 with the row statistics and keep bits
+    it writes for its backward), and the backward launch, reading what the
+    forward's timed launches left, with its gradients' allocation and the
+    fixed-order head sum of the bias gradient. No autograd and no operand
+    copies are in the interval."""
     t = keep_threshold(dropout_rate)
     b2 = _bias2(bias, B, S)
     q, k, v, do = (x.detach().contiguous() for x in (q, k, v, do))
     o = torch.empty_like(q)
+    saved = _train_buffers(q, B, H, S, t)
     return (time_ms(lambda: _launch_train_fwd(name, q, k, v, b2, o, B, S, H,
-                                              t, seed)),
+                                              t, seed, *saved)),
             time_ms(lambda: _launch_train_bwd(name, q, k, v, b2, do, B, S, H,
-                                              t, seed)))
-
-
-def bare_b3_bf16_ms(qh, kh, vh, bias, dh, *, dropout_rate, seed):
-    """bare_train_ms for B3's bf16 tensor-core kernels on head-major
-    operands: the forward into preallocated outputs (with the row statistics
-    and keep bits it writes for its backward), the backward with its
-    gradients' allocation and the head sum of the bias gradient."""
-    t = keep_threshold(dropout_rate)
-    B, H, S, _ = qh.shape
-    b2 = _bias2(bias, B, S)
-    qh, kh, vh, dh = (x.detach().contiguous() for x in (qh, kh, vh, dh))
-    bufs = _b3_bf16_buffers(qh, t)
-    fwd = time_ms(lambda: _b3_bf16_fwd(qh, kh, vh, b2, *bufs, t, seed))
-    return fwd, time_ms(lambda: _b3_bf16_bwd(qh, kh, vh, b2, dh, *bufs[1:], t))
+                                              t, seed, *saved)))
 
 
 def phase_smajor_kernel(gen) -> dict:
@@ -626,7 +616,7 @@ def phase_smajor_kernel(gen) -> dict:
                   f"core entry and autograd {entry:.4f} ms), plain {plain:.4f} ms, "
                   f"sdpa (rate 0) {lib:.4f} "
                   f"ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-                  f"{ops / 1e9:.2f} GFLOP); {core_note(_SM, name, qs, nbytes, ops)}; "
+                  f"{ops / 1e9:.2f} GFLOP); {core_note(qs, nbytes, ops)}; "
                   f"entry layout copies {fwd_copy:.4f} ms")
             out[f"smajor_attention_train_{name}/{dtype}"] = dict(
                 max_abs_err=(errs["out"] if name == "fwd"
@@ -882,9 +872,9 @@ def phase_blocked_kernel(gen) -> dict:
     trailing keys invalid: K1 and B1 against their plain versions at S 140;
     B2 (head-blocked eval) against its plain version at S 13 and 140 and at
     M3P eval's [1024, 140, 768], fp32 and bf16; B3 (head-blocked training,
-    both entries) against its plain version (output and every gradient), in
-    fp32 equal to B1 bit for bit, in bf16 (the tensor-core kernels) with
-    B1's keep mask, S 13 and 140 and M3P training's [128, 140, 768], rates
+    both entries) against its plain version (output and every gradient) and
+    equal to B1 bit for bit (one device code a dtype: fp32 CUDA cores, bf16
+    tensor cores), S 13 and 140 and M3P training's [128, 140, 768], rates
     0 and 0.1; B3's keep mask, its bit-determinism and keep fraction.
     Times (median of 25 CUDA events):
     B2 at [1024, 140, 768] bf16, B3 forward and backward at
@@ -928,9 +918,8 @@ def phase_blocked_kernel(gen) -> dict:
                     grad_errors(b3, value_and_grads(
                         fused_attention_train_flat_plain, q, k, v, bias, do, H,
                         **kw), dtype, f"B3 {name} S={S} {dtype} rate {rate}")
-                    # fp32: B1's device code; bf16: the tensor-core kernels
-                    check(dtype == torch.bfloat16
-                          or all(torch.equal(a, b) for a, b in zip(b3, flat)),
+                    # B1's device codes (fp32: CUDA cores; bf16: tensor cores)
+                    check(all(torch.equal(a, b) for a, b in zip(b3, flat)),
                           f"B3 {name} S={S} {dtype} rate {rate} is not B1's "
                           f"bit for bit")
             if dtype == torch.bfloat16:
@@ -938,8 +927,7 @@ def phase_blocked_kernel(gen) -> dict:
             print(f"B2 S={S} {dtype}: max abs err {err:.3g} (tol {tol:.3g}); "
                   f"B3 (split and head-major entries) S={S} {dtype} rates 0 "
                   f"and {RATE}: within tolerance of its plain version, "
-                  + ("equal to B1 bit for bit" if dtype == torch.float32
-                     else "B1's keep mask"))
+                  "equal to B1 bit for bit")
     try:
         fused_attention(q.detach().requires_grad_(), k, v, bias, H)
         check(False, "B2 accepted grad mode")
@@ -1002,15 +990,13 @@ def phase_blocked_kernel(gen) -> dict:
             e = grad_errors(b3, value_and_grads(
                 fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
                 dtype, f"B3 B={B} S={S} {dtype} rate {rate}")
-            check(dtype == torch.bfloat16 or all(
-                torch.equal(a, b) for a, b in zip(b3, value_and_grads(
-                    fused_attention_train_flat, q, k, v, bias, do, H, **kw))),
+            check(all(torch.equal(a, b) for a, b in zip(b3, value_and_grads(
+                fused_attention_train_flat, q, k, v, bias, do, H, **kw))),
                 f"B3 B={B} {dtype} rate {rate} is not B1's bit for bit")
             err = {n: max(err.get(n, 0.0), x) for n, x in e.items()}
             print(f"B3 B={B} S={S} {dtype} rate {rate} (-inf bias): max abs "
                   f"err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
-                  + ("; equal to B1 bit for bit" if dtype == torch.float32
-                     else " (tensor-core kernels)"))
+                  + "; equal to B1 bit for bit")
         kw = dict(dropout_rate=RATE, seed=21)
         a = value_and_grads(train_hm, q, k, v, bias, do, H, **kw)
         check(all(torch.equal(x, y) for x, y in zip(a, value_and_grads(
@@ -1028,7 +1014,7 @@ def phase_blocked_kernel(gen) -> dict:
         o_p = fused_attention_train_hm_plain(qh, kh, vh, br, **kw)
         o_s = torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=bias.to(dtype))
-        fwd_ms, bwd_ms = bare_b3_bf16_ms(qh, kh, vh, bias, dh, **kw)
+        fwd_ms, bwd_ms = bare_train_ms(_HM, qh, kh, vh, bias, dh, B, S, H, **kw)
         with torch.no_grad():
             fwd = [fwd_ms,
                    time_ms(lambda: fused_attention_train_hm(qh, kh, vh, bias, **kw)),
@@ -1075,105 +1061,118 @@ def phase_blocked_kernel(gen) -> dict:
     return out
 
 
-def bare_mma_fwd_ms(layout: str, q, k, v, bias, H, *, dropout_rate, seed):
-    """Median ms of the bf16 tensor-core forward alone on [B, S, H*hd]
-    values laid out flat (B1), S-major (B5) or head-major (B3), the copies
-    made before timing: one device code at three strides. B3 writes no row
-    statistics or keep bits here, as B1 and B5 do not."""
-    t = keep_threshold(dropout_rate)
-    B, S, D = q.shape
-    b2 = _bias2(bias, B, S)
+def bare_layout_ms(layout: str, q, k, v, bias, do, H, *, dropout_rate, seed):
+    """bare_train_ms of the bf16 tensor-core kernels on [B, S, H*hd] values
+    laid out flat (B1), S-major (B5) or head-major (B3), the copies made
+    before timing: one device code at three strides."""
+    B, S, _ = q.shape
     if layout == "flat":
-        ops = [x.contiguous() for x in (q, k, v)]
-        return time_ms(lambda: _launch_train_fwd(_FLAT, *ops, b2, torch.empty_like(
-            ops[0]), B, S, H, t, seed))
-    if layout == "smajor":
-        ops = [x.transpose(0, 1).contiguous() for x in (q, k, v)]
-        return time_ms(lambda: _launch_train_fwd(_SM, *ops, b2, torch.empty_like(
-            ops[0]), B, S, H, t, seed))
-    ops = [hm(x, H) for x in (q, k, v)]
-    out = torch.empty_like(ops[0])
-    fwd = _b3_mma_kernels()[0]
-
-    def launch():
-        err = fwd(*(x.data_ptr() for x in ops), b2.data_ptr(), out.data_ptr(),
-                  None, None, B, S, H, D // H, t, 256.0 / t, seed,
-                  torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"B3 bf16 forward launch failed: {err}")
-    return time_ms(launch)
+        name, ops = _FLAT, (q, k, v, do)
+    elif layout == "smajor":
+        name, ops = _SM, [x.transpose(0, 1) for x in (q, k, v, do)]
+    else:
+        name, ops = _HM, [hm(x, H) for x in (q, k, v, do)]
+    return bare_train_ms(name, *ops[:3], bias, ops[3], B, S, H,
+                         dropout_rate=dropout_rate, seed=seed)
 
 
-def phase_mma_forwards(gen) -> dict:
-    """B1's and B5's bf16 forwards, which run B3's tensor-core forward
-    (csrc/attention_train_mma.cuh) on their strides: bf16 B1 (flat), B5
-    (S-major) and B3 (head-major, split outside) give the same bits on the
-    same values at UC2's [128, 76, 768] under its -10000 keys and at M3P's
-    [128, 140, 768] and [128, 160, 768] under -inf keys, rates 0 and 0.1.
-    Times (median of 25 CUDA events, rate 0.1): the forward alone in the
-    three layouts at S 76 and 140 (what the strides cost), and B1's forward
-    at S 140 and 160 beside its plain version, SDPA at rate 0 and its
-    bound."""
+def phase_mma(gen) -> dict:
+    """B1's and B5's bf16 forward and backward, which run B3's tensor-core
+    kernels (csrc/attention_train_mma.cuh) on their strides: bf16 B1 (flat),
+    B5 (S-major) and B3 (head-major, split outside) give the same bits,
+    output and every gradient, on the same values at UC2's [128, 76, 768]
+    under its -10000 keys and at M3P's [128, 140, 768] and [128, 160, 768]
+    under -inf keys, rates 0 and 0.1, within grad_errors' tolerances of the
+    plain version. Times (median of 25 CUDA events, rate 0.1, bare
+    launches): the forward and the backward alone in the three layouts, in
+    turns, at S 76 and 140 (what the strides cost), and B1's and B5's at
+    S 140 and 160 beside the plain version, SDPA at rate 0 (its backward
+    through autograd) and the bound."""
     H, hd, B = 12, 64, MBS
     out = {"strides": {}}
     for S, inputs in ((76, attention_inputs), (140, neg_inf_inputs),
                       (160, neg_inf_inputs)):
         q, k, v, bias = inputs(B, S, H, hd, torch.bfloat16, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
         for rate in (0.0, RATE):
             kw = dict(dropout_rate=rate, seed=31)
-            with torch.no_grad():
-                flat = fused_attention_train_flat(q, k, v, bias, H, **kw)
-                sm = fused_attention_train_smajor(q, k, v, bias, H, **kw)
-                b3 = train_hm(q, k, v, bias, H, **kw)
-            check(bool(torch.isfinite(flat).all()), f"bf16 B1 S={S} not finite")
-            check(torch.equal(flat, sm) and torch.equal(flat, b3),
-                  f"bf16 forwards S={S} rate {rate}: B1, B5 and B3 differ")
-        print(f"bf16 forward [{B}, {S}, {H * hd}] rates 0 and {RATE}: B1 (flat), "
-              f"B5 (S-major) and B3 (head-major) equal bit for bit")
+            flat = value_and_grads(fused_attention_train_flat, q, k, v, bias, do,
+                                   H, **kw)
+            e = grad_errors(flat, value_and_grads(
+                fused_attention_train_flat_plain, q, k, v, bias, do, H, **kw),
+                torch.bfloat16, f"bf16 B1 S={S} rate {rate}")
+            for name, fn in (("B5", fused_attention_train_smajor), ("B3", train_hm)):
+                got = value_and_grads(fn, q, k, v, bias, do, H, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(got, flat)),
+                      f"bf16 {name} S={S} rate {rate}: not B1's bit for bit")
+            print(f"bf16 [{B}, {S}, {H * hd}] rate {rate}: B1 (flat), B5 (S-major) "
+                  f"and B3 (head-major) equal bit for bit, output and every "
+                  f"gradient; B1 against plain: " + ", ".join(
+                      f"{n} {x:.3g}" for n, x in e.items()))
         kw = dict(dropout_rate=RATE, seed=31)
         if S in (76, 140):
             t = {}     # in turns, the least of two timings per layout
             for lay in ("flat", "smajor", "head_major", "head_major", "smajor", "flat"):
-                ms = bare_mma_fwd_ms(lay, q, k, v, bias, H, **kw)
-                t[lay] = min(t.get(lay, ms), ms)
-            out["strides"][f"S{S}"] = t
-            print(f"bf16 forward alone at S={S} rate {RATE} by layout: "
-                  + ", ".join(f"{lay} {ms:.4f} ms" for lay, ms in t.items())
-                  + " (rows of 128 bytes 1,536 / 196,608 / 128 bytes apart)")
+                ms = bare_layout_ms(lay, q, k, v, bias, do, H, **kw)
+                t[lay] = [min(a, b) for a, b in zip(t.get(lay, ms), ms)]
+            out["strides"][f"S{S}"] = {f"{lay}_{d}": t[lay][i] for lay in t
+                                       for i, d in enumerate(("fwd", "bwd"))}
+            for i, d in enumerate(("forward", "backward")):
+                print(f"bf16 {d} alone at S={S} rate {RATE} by layout: "
+                      + ", ".join(f"{lay} {ms[i]:.4f} ms" for lay, ms in t.items())
+                      + " (rows of 128 bytes 1,536 / 196,608 / 128 bytes apart)")
         if S == 76:
             continue
-        ms = bare_mma_fwd_ms("flat", q, k, v, bias, H, **kw)
-        qh, kh, vh = (x.view(B, S, H, hd).transpose(1, 2) for x in (q, k, v))
+        b1 = bare_layout_ms("flat", q, k, v, bias, do, H, **kw)
+        b5 = bare_layout_ms("smajor", q, k, v, bias, do, H, **kw)
+        qr, kr, vr, br = (x.detach().requires_grad_() for x in (q, k, v, bias))
+        qh, kh, vh = (x.view(B, S, H, hd).transpose(1, 2) for x in (qr, kr, vr))
+        do_s = do.view(B, S, H, hd).transpose(1, 2)
+        o_p = fused_attention_train_flat_plain(qr, kr, vr, br, H, **kw)
+        o_s = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(torch.bfloat16))
         with torch.no_grad():
-            plain = time_ms(lambda: fused_attention_train_flat_plain(
+            fwd_plain = time_ms(lambda: fused_attention_train_flat_plain(
                 q, k, v, bias, H, **kw))
-            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=bias.to(torch.bfloat16)))
-        nbytes = 4 * B * S * H * hd * q.element_size() + B * S * 4
-        ops = 4 * B * H * S * S * hd
-        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
-        print(f"B1 fwd [{B}, {S}, {H * hd}] bf16 rate {RATE} (-inf keys): kernel "
-              f"{ms:.4f} ms ({bms / ms:.1%} of its bound), plain {plain:.4f} ms, "
-              f"sdpa (rate 0) {lib:.4f} ms, bound {bms:.4f} ms ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); tensor cores")
-        out[f"S{S}"] = dict(shape=[B, S, H * hd], ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=bms, bound_by=by)
+        bwd_plain = time_ms(lambda: torch.autograd.grad(
+            o_p, (qr, kr, vr, br), do, retain_graph=True))
+        bwd_lib = time_ms(lambda: torch.autograd.grad(
+            o_s, (qr, kr, vr), do_s, retain_graph=True))
+        del o_p, o_s
+        e = q.element_size()
+        for i, (name, plain, lib, nbytes, ops) in enumerate((
+                ("fwd", fwd_plain, fwd_lib, 4 * B * S * H * hd * e + B * S * 4,
+                 4 * B * H * S * S * hd),
+                ("bwd", bwd_plain, bwd_lib, 7 * B * S * H * hd * e + 2 * B * S * 4,
+                 10 * B * H * S * S * hd))):
+            bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+            print(f"B1 {name} [{B}, {S}, {H * hd}] bf16 rate {RATE} (-inf keys): "
+                  f"kernel {b1[i]:.4f} ms ({bms / b1[i]:.1%} of its bound), B5 "
+                  f"{b5[i]:.4f} ms, plain {plain:.4f} ms, sdpa (rate 0) "
+                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP); tensor cores")
+            out[f"S{S}_{name}"] = dict(shape=[B, S, H * hd], ms=b1[i],
+                                       smajor_ms=b5[i], plain_ms=plain,
+                                       library_ms=lib, bound_ms=bms, bound_by=by)
+        torch.cuda.empty_cache()
     return out
 
 
 def phase_long_s(gen) -> dict:
-    """The key-blocked variant, where one head's K, V (and the backward's
-    [S, S] tile) do not fit a block's shared memory: B1 at S 159 (its
-    backward key-blocked) and 612 (both in fp32; in bf16 the forward is the
-    tensor-core one at every S) against its plain version, fp32 and
-    bf16, rates 0 and 0.1, under M3P's -inf keys; B5 equal to B1 bit for
-    bit there, and B3 (both entries) too in fp32; bf16 B3 (the tensor-core
-    kernels) against the plain version with B1's keep mask and B1's
-    forward bits; B4 against its plain version at S 159 and
-    612; K1 and B2 at S 418 and 612 against the plain version (fp32
-    key-blocked, bf16 the tensor-core kernel); the keep mask
-    at 612. Times (median of 25 CUDA events, bf16, rate 0.1): B1's bare
-    launches at [128, 159, 768] and [32, 612, 768] beside their bounds and
-    the plain version."""
+    """S past the CUDA-core kernels' shared memory, where fp32 takes their
+    key-blocked variant (one head's K, V and the backward's [S, S] tile do
+    not fit a block) and bf16 the tensor-core kernels, which take every S:
+    B1 at S 159 (fp32: its backward key-blocked) and 612 (fp32: both)
+    against its plain version, fp32 and bf16, rates 0 and 0.1, under M3P's
+    -inf keys; B5 and B3 (both entries) equal to B1 bit for bit there in
+    both dtypes, with B1's keep mask; B4 against its plain version at S 159
+    and 612; K1 and B2 at S 418 and 612 against the plain version (fp32
+    key-blocked, bf16 the tensor-core kernel); the keep mask at 612. Times
+    (median of 25 CUDA events, bf16, rate 0.1): B1's bare launches at
+    [128, 159, 768] and [32, 612, 768] beside their bounds and the plain
+    version."""
     H, hd = 12, 64
     for S in (159, 612):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1185,29 +1184,18 @@ def phase_long_s(gen) -> dict:
                                      do, H, **kw)
                 want = value_and_grads(fused_attention_train_flat_plain, q, k, v,
                                        bias, do, H, **kw)
-                e = grad_errors(b1, want, dtype,
-                                f"key-blocked B1 S={S} {dtype} rate {rate}")
+                e = grad_errors(b1, want, dtype, f"B1 S={S} {dtype} rate {rate}")
                 for name, fn in (("B5", fused_attention_train_smajor),
                                  ("B3", fused_attention_train), ("B3 hm", train_hm)):
                     got = value_and_grads(fn, q, k, v, bias, do, H, **kw)
-                    if name == "B5" or dtype == torch.float32:
-                        check(all(torch.equal(a, b) for a, b in zip(got, b1)),
-                              f"key-blocked {name} S={S} {dtype} rate {rate} is "
-                              f"not B1's bit for bit")
-                    else:   # bf16 B3: the tensor-core kernels, at every S
-                        grad_errors(got, want, dtype, f"{name} S={S} {dtype} rate {rate}")
-                        check(torch.equal(got[0], b1[0]),
-                              f"{name} S={S} bf16 rate {rate}: forward is not B1's")
+                    check(all(torch.equal(a, b) for a, b in zip(got, b1)),
+                          f"{name} S={S} {dtype} rate {rate} is not B1's bit for bit")
                 print(f"B1 S={S} {dtype} rate {rate} (-inf bias; "
                       + ("forward key-blocked from S 418, backward key-blocked"
-                         if dtype == torch.float32 else "forward on the tensor "
-                         "cores, not key-blocked; backward key-blocked")
+                         if dtype == torch.float32 else "tensor-core forward and "
+                         "backward, not key-blocked")
                       + "): max abs err " + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
-                      + ("; B5 and B3 (both entries) equal to it bit for bit"
-                         if dtype == torch.float32 else "; B5 equal to it bit for "
-                         "bit, B3 (both entries, tensor-core kernels) within "
-                         "tolerance of the plain version and its forward "
-                         "equal to B1's"))
+                      + "; B5 and B3 (both entries) equal to it bit for bit")
             if dtype == torch.bfloat16:
                 check_b3_keep_mask(13, 2, H, S, hd)
             args = block_args(2, S, dtype, gen)
@@ -1242,8 +1230,7 @@ def phase_long_s(gen) -> dict:
         q, k, v, bias = neg_inf_inputs(B, S, H, hd, torch.bfloat16, gen)
         do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
         kw = dict(dropout_rate=RATE, seed=16)
-        fwd_ms, bwd_ms = bare_train_ms("flat_attention_train", q, k, v, bias, do,
-                                       B, S, H, **kw)
+        fwd_ms, bwd_ms = bare_train_ms(_FLAT, q, k, v, bias, do, B, S, H, **kw)
         qr, kr, vr, br = (x.detach().requires_grad_() for x in (q, k, v, bias))
         o_p = fused_attention_train_flat_plain(qr, kr, vr, br, H, **kw)
         with torch.no_grad():
@@ -1259,15 +1246,12 @@ def phase_long_s(gen) -> dict:
                 ("bwd", bwd_ms, bwd_plain, 7 * B * S * H * hd * e + 2 * B * S * 4,
                  10 * B * H * S * S * hd)):
             bms, by = bound_ms(nbytes, ops, torch.bfloat16)
-            fp32_bms, _ = bound_ms(nbytes, ops, torch.float32)
-            # bf16: the forward is the tensor-core one at every S
-            variant = "key-blocked" if name == "bwd" else "tensor-core"
-            print(f"B1 {name} [{B}, {S}, {H * hd}] bf16 rate {RATE} ({variant}): "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)"
-                  + (f"; on fp32 CUDA cores {fp32_bms:.4f} ms" if name == "bwd" else ""))
-            out[f"S{S}_{name}"] = dict(shape=[B, S, H * hd], variant=variant, ms=ms,
-                                       plain_ms=plain, bound_ms=bms, bound_by=by)
+            print(f"B1 {name} [{B}, {S}, {H * hd}] bf16 rate {RATE} (tensor-core): "
+                  f"kernel {ms:.4f} ms ({bms / ms:.1%} of its bound), plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} GFLOP)")
+            out[f"S{S}_{name}"] = dict(shape=[B, S, H * hd], ms=ms, plain_ms=plain,
+                                       bound_ms=bms, bound_by=by)
         torch.cuda.empty_cache()
     return out
 
@@ -1994,8 +1978,8 @@ def phase_m3p(smi: str) -> dict:
               f"(tol 1%)")
         check(abs(l_true - l_flat) <= 0.01 * abs(l_flat),
               "M3P step-1 loss of the True route is not within 1% of flat's")
-        # a task length of 60 tokens: S = 160, past the all-keys backward's
-        # limit (159), so B1's key-blocked backward runs on the auto route
+        # a task length of 60 tokens: S = 160, the most that B1's bf16
+        # backward takes in one key chunk (10 warps at hd 64) on the auto route
         trains["m3p_train_s160"] = phase_train(cfg, model, w, smi, "auto",
                                                seq=M3P_LONG_SEQ)
         by_path["m3p_train_s160"] = trains["m3p_train_s160"]["launches"]
@@ -2317,10 +2301,10 @@ def main() -> int:
     kern.update(phase_smajor_kernel(torch.Generator("cuda").manual_seed(2)))
     kern.update(phase_block_kernel(torch.Generator("cuda").manual_seed(3)))
     kern.update(phase_blocked_kernel(torch.Generator("cuda").manual_seed(4)))
-    mma_fwd = phase_mma_forwards(torch.Generator("cuda").manual_seed(7))
+    mma = phase_mma(torch.Generator("cuda").manual_seed(7))
     t_phase = time.perf_counter()
     long_s = phase_long_s(torch.Generator("cuda").manual_seed(5))
-    print(f"key-blocked phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"long-S phase {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     kern.update(phase_roi_pool(torch.Generator("cuda").manual_seed(6)))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2357,11 +2341,11 @@ def main() -> int:
                    **m3p["launches"], extract_c4=extract["extract_c4"],
                    extract_eval=extract["extract_eval"])
     for name in ("fwd", "bwd"):
-        kern[f"flat_attention_train_{name}/{torch.bfloat16}"]["key_blocked"] = {
-            k: v for k, v in long_s.items() if k.endswith(name)}
-    kern[f"flat_attention_train_fwd/{torch.bfloat16}"].update(
-        m3p_shapes={k: v for k, v in mma_fwd.items() if k != "strides"},
-        strides_ms=mma_fwd["strides"])
+        kern[f"flat_attention_train_{name}/{torch.bfloat16}"].update(
+            long_s={k: v for k, v in long_s.items() if k.endswith(name)},
+            m3p_shapes={k: v for k, v in mma.items() if k.endswith(name)},
+            strides_ms={S: {lay: ms for lay, ms in t.items() if lay.endswith(name)}
+                        for S, t in mma["strides"].items()})
     bf16 = torch.bfloat16
     # `device_code`: the device code each kernel runs in bf16 on its main path
     csrc = "clg_vqa_tpu_torch/csrc/"
@@ -2381,13 +2365,13 @@ def main() -> int:
              f"flat_attention_train_fwd/{bf16}", "flat_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:385"),
             ("flat_attention_train_bwd", "train",
-             f"flat_attention_train_bwd/{bf16}", "flat_attention_train.cu", core,
+             f"flat_attention_train_bwd/{bf16}", "flat_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:413"),
             ("smajor_attention_train_fwd", "finetune",
              f"smajor_attention_train_fwd/{bf16}", "smajor_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:1082"),
             ("smajor_attention_train_bwd", "finetune",
-             f"smajor_attention_train_bwd/{bf16}", "smajor_attention_train.cu", core,
+             f"smajor_attention_train_bwd/{bf16}", "smajor_attention_train.cu", mma,
              "clg_vqa_tpu/ops/attention.py:1100"),
             ("block_attention_train_fwd", "train_proj",
              f"block_attention_train_fwd/{bf16}", "block_attention_train.cu",

@@ -1,11 +1,10 @@
 // Training attention for Hopper (sm_90a): the per-(head, sample) device code
-// shared by the flat kernels (flat_attention_train.cu, B1) and the S-major
-// kernels (smajor_attention_train.cu, B5) in fp32 and in both dtypes'
-// backward, the head-major kernels (blocked_attention_train.cu, B3, and its
-// eval twin blocked_attention.cu, B2, in fp32) and the core of the
-// whole-block kernels (block_attention_train.cu, B4), whose backward reads
-// an fp32 do. The bf16 forwards of B1, B5 and B3 run the tensor-core code of
-// attention_train_mma.cuh instead.
+// shared in fp32 by the flat kernels (flat_attention_train.cu, B1), the
+// S-major kernels (smajor_attention_train.cu, B5), the head-major kernels
+// (blocked_attention_train.cu, B3, and its eval twin blocked_attention.cu,
+// B2), and in both dtypes by the core of the whole-block kernels
+// (block_attention_train.cu, B4), whose backward reads an fp32 do. In bf16,
+// B1, B5 and B3 run the tensor-core code of attention_train_mma.cuh instead.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
 // gradients sits at b * sample + s * row + h * head + d:
@@ -251,8 +250,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-// TD, the type of do: T for B1 and B5; float for B4, whose do is the fp32
-// product g Wo^T.
+// TD, the type of do: float in every instantiation (fp32 B1, B5 and B3; B4
+// in both dtypes, whose do is the fp32 product g Wo^T).
 template <typename T, typename TD, int HDIM>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -844,14 +843,13 @@ inline int forward(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// dout_f32 = 0: do in the operands' dtype (B1, B5); 1: do in float32 (B4).
+// B4's core: do in float32, q/k/v and the gradients in the operands' dtype.
 // dq32: null for the all-keys backward; for the key-blocked one, a float32
 // [B, H, S, hd] buffer (its contents on entry do not matter).
 inline int backward(int dtype, const void* q, const void* k, const void* v,
                     const void* bias, const void* dout, void* dq, void* dk, void* dv,
                     void* dbias_heads, int B, int S, int H, int hd, Layout lay, int keep_t,
-                    float rscale, unsigned long long seed, void* stream, int dout_f32 = 0,
-                    void* dq32 = nullptr) {
+                    float rscale, unsigned long long seed, void* stream, void* dq32) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   float* dbh = static_cast<float*>(dbias_heads);
@@ -859,13 +857,9 @@ inline int backward(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return (int)bwd_hd<float, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, lay,
                                      keep_t, rscale, seed, st, q32);
-  if (dtype == 1 && dout_f32)
+  if (dtype == 1)
     return (int)bwd_hd<__nv_bfloat16, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S,
                                              H, lay, keep_t, rscale, seed, st, q32);
-  if (dtype == 1)
-    return (int)bwd_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, bf, dout, dq, dk, dv, dbh,
-                                                     B, S, H, lay, keep_t, rscale, seed, st,
-                                                     q32);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,15 +1,17 @@
 // bf16 training attention for Hopper (sm_90a) on tensor cores: the forward
-// and backward device code of B3 (blocked_attention_train.cu, head-major
-// [B, H, S, hd]) in bf16, one kernel each for every S. The forward is also
-// the bf16 forward of B1 (flat_attention_train.cu, [B, S, H*hd]) and B5
-// (smajor_attention_train.cu, [S, B, H*hd]), which pass no stats or words:
-// their backward stays on attention_train.cuh. The operand strides are
+// and backward device code, one kernel each for every S, of three layouts
+// in bf16: B3 (blocked_attention_train.cu, head-major [B, H, S, hd]), B1
+// (flat_attention_train.cu, [B, S, H*hd]) and B5
+// (smajor_attention_train.cu, [S, B, H*hd]). Each forward saves the row
+// statistics and keep bits that its backward reads; those buffers are
+// indexed by (b*H + h) whatever the layout. The operand strides are
 // attention_train.cuh's Layout, so on the same values the three layouts give
 // the same bits; fp32 keeps that header's kernels.
 //
 // Replaces, in bf16, the TPU kernels of clg_vqa_tpu/ops/attention.py:
 // _train_fwd_kernel (:209-220) and _train_bwd_kernel (:223-263), with
-// _probs (:197-206). Per (b, h):
+// _probs (:197-206) (B3); _flat_fwd_kernel and _flat_bwd_kernel (:385-459,
+// B1); _sm_fwd_kernel and _sm_bwd_kernel (:1082-1144, B5). Per (b, h):
 //   s = (q k^T) * (1/sqrt(hd)) + bias in fp32; p a max-subtracted fp32
 //   softmax, normalised before dropout; p_d = keep ? p * 256/t : 0;
 //   o = p_d v with an fp32 accumulator, cast once to bf16;
@@ -26,7 +28,11 @@
 // the forward moves 110 MB (0.033 ms at 3.35 TB/s) against 7.7 GFLOP, the
 // backward 193 MB (0.058 ms) against 19.3 GFLOP: 70 and 100 operations per
 // byte, under the 295 at which bf16 tensor cores become the limit, so the
-// bound is the bytes. What holds the kernels above it is their instruction
+// bound is the bytes. At UC2 training (B 128, S 76, 12 heads of 64; B1 flat
+// or B5 S-major, whose strides move the same bytes) the forward moves
+// 59.8 MB (0.0179 ms) against 2.27 GFLOP and the backward 104.7 MB
+// (0.0312 ms) against 5.68 GFLOP: 38 and 54 operations per byte, bound by
+// the bytes too. What holds the kernels above it is their instruction
 // stream, as in attention_eval.cuh: mma.sync products (the forward runs 3
 // products of S x S x hd per head, 1 of them a lo half below; the backward
 // 10, 3 of them lo halves), the per-element softmax and dropout work and the

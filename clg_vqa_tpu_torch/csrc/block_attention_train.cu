@@ -455,7 +455,7 @@ int block_bwd(int dtype, const void* x, const void* q, const void* k, const void
   cudaError_t e = linear<T, true, false, EPI_F32>(dc, d, st);
   if (e != cudaSuccess) return (int)e;
   const int ec = attn_train::backward(dtype, q, k, v, bias, dctx, dq, dk, dv, dbh, B, S, H, hd,
-                                      flat(S, H, hd), keep_t, rscale, seed, stream, 1, dq32);
+                                      flat(S, H, hd), keep_t, rscale, seed, stream, dq32);
   if (ec != 0) return ec;
   b4_head_sum_kernel<<<(N + 255) / 256, 256, 0, st>>>(dbh, dbias, B, H, S);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -8,11 +8,12 @@ plain PyTorch versions.
   ``fused_attention_train_flat`` (:596-634; ``_flat_fwd_kernel`` /
   ``_flat_bwd_kernel`` :385-459 via ``_attn_train_flat_fwd/_bwd``
   :495-528), a forward and a backward kernel behind an
-  ``autograd.Function``. The bf16 forward runs B3's tensor-core forward
-  (``csrc/attention_train_mma.cuh``) on B1's strides at every S; the fp32
-  forward and both backwards run ``csrc/attention_train.cuh`` (fp32 CUDA
-  cores), which recomputes p and replays the keep bits, so it needs
-  nothing saved by the forward.
+  ``autograd.Function``. bf16 runs the tensor-core kernels of
+  ``csrc/attention_train_mma.cuh`` (bf16 ``mma.sync`` products; the
+  forward saves each row's max and 1/l and the keep bits, the backward
+  reads them and runs a pass for D = sum_j dp p and a key-major pass) on
+  B1's strides at every S; fp32 runs ``csrc/attention_train.cuh`` (fp32
+  CUDA cores), whose backward recomputes p and replays the keep bits.
 - S-major training (B5): ``csrc/smajor_attention_train.cu``, port of
   ``fused_attention_train_smajor`` / ``fused_attention_smajor``
   (:1197-1238; ``_sm_fwd_kernel`` / ``_sm_bwd_kernel`` :1082-1144 via
@@ -24,22 +25,19 @@ plain PyTorch versions.
   kernels below.
 - Key-blocked variant: where one head's K, V (and, in the backward, the
   [S, S] tile) do not fit one block's shared memory, every fp32 eval and
-  every CUDA-core training launch here takes the key-blocked twin of its
-  kernel in ``csrc/attention_train.cuh`` (K and V staged 64 keys at a
-  time; the backward's dq summed in a float32 buffer allocated here).
-  Below that limit the all-keys kernels run, bit for bit as before. So no
-  S that the JAX kernels take is refused.
+  fp32 training launch here takes the key-blocked twin of its kernel in
+  ``csrc/attention_train.cuh`` (K and V staged 64 keys at a time; the
+  backward's dq summed in a float32 buffer allocated here). Below that
+  limit the all-keys kernels run, bit for bit as before. So no S that the
+  JAX kernels take is refused.
 - Head-blocked eval (B2): ``csrc/blocked_attention.cu``, port of
   ``fused_attention`` (:135-175, body ``_attn_kernel`` :117-132), and
   head-blocked training (B3): ``csrc/blocked_attention_train.cu``, port of
   ``fused_attention_train`` (:976-1002) and ``fused_attention_train_hm``
   (:344-372; ``_train_fwd_kernel`` / ``_train_bwd_kernel`` :209-263 via
-  ``_attn_train_fwd/_bwd`` :289-322): in fp32 B1's device code on
-  head-major [B, H, S, hd] operands; in bf16 the tensor-core kernels of
-  ``csrc/attention_train_mma.cuh`` (bf16 ``mma.sync`` products; the
-  forward saves each row's max and sum and the keep bits, the backward runs
-  a pass for D = sum_j dp p and a key-major pass) at every S, with B1's
-  keep mask.
+  ``_attn_train_fwd/_bwd`` :289-322): B1's device codes on head-major
+  [B, H, S, hd] operands, so on the same values B1, B5 and B3 give the
+  same bits in both dtypes.
 
 q/k/v keep the projections' [B, S, H*hd] layout (B5: swapped to
 [S, B, H*hd]; B2 and B3: split into [B, H, S, hd]) and the kernels loop
@@ -56,8 +54,9 @@ keyed by the 64-bit seed and counted by (absolute sample, head, query row,
 key column // 16): element j takes byte j % 16 of the 16 bytes that one
 Philox call returns. A mask is therefore a function of (seed, sample, head,
 row, column) alone, independent of tiling and of the other samples of the
-batch, and the backward replays it without storing it. The CUDA kernels
-and :func:`dropout_keep_mask` compute the same bits.
+batch. The fp32 backward replays it; the bf16 forward stores its 16-bit
+words for the bf16 backward. The CUDA kernels and
+:func:`dropout_keep_mask` compute the same bits.
 """
 from __future__ import annotations
 
@@ -306,14 +305,18 @@ def fused_attention_train_flat_plain(q, k, v, bias, num_heads: int, *,
     return merge_heads(out).to(q.dtype)
 
 
+_FLAT = "flat_attention_train"
+_SM = "smajor_attention_train"
+_HM = "blocked_attention_train"
+
+
 @functools.cache
-def _train_kernels(name: str = "flat_attention_train"):
-    """(forward, backward, smem_bytes) of ``csrc/<name>.cu``: B1's
+def _train_kernels(name: str = _FLAT):
+    """(forward, backward, smem_bytes) of the fp32 CUDA-core kernels
+    (``csrc/attention_train.cuh``) of ``csrc/<name>.cu``: B1's
     ``flat_attention_train``, B5's ``smajor_attention_train`` or B3's
-    ``blocked_attention_train``, which share one C interface. B3's entries
-    take fp32 only, and so do B1's and B5's forwards (bf16 runs the
-    tensor-core forward, :func:`_train_mma_fwd`); B1's and B5's backwards
-    take both dtypes."""
+    ``blocked_attention_train``, which share one C interface. They take
+    fp32 only: bf16 runs the tensor-core kernels, :func:`_train_mma`."""
     lib = _build.load(name)
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -331,6 +334,30 @@ def _train_kernels(name: str = "flat_attention_train"):
     return fwd, bwd, smem
 
 
+@functools.cache
+def _train_mma(name: str):
+    """(forward, backward, smem_bytes, needs_dq32) of the bf16 tensor-core
+    kernels (``csrc/attention_train_mma.cuh``) that ``csrc/<name>.cu``
+    instantiates on its strides: B1's, B5's or B3's, which share one C
+    interface."""
+    lib = _build.load(name)
+    fwd = getattr(lib, f"{name}_mma_fwd")
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    bwd = getattr(lib, f"{name}_mma_bwd")
+    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    smem = getattr(lib, f"{name}_mma_smem_bytes")
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    needs = getattr(lib, f"{name}_mma_needs_dq32")
+    needs.argtypes = [ctypes.c_int] * 2
+    needs.restype = ctypes.c_int
+    return fwd, bwd, smem, needs
+
+
 def _train_seed(dropout_rate: float, seed: int | None) -> tuple[int, int]:
     """(keep threshold, 64-bit seed) of a training attention call."""
     t = keep_threshold(dropout_rate)
@@ -339,43 +366,20 @@ def _train_seed(dropout_rate: float, seed: int | None) -> tuple[int, int]:
     return t, 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
 
 
-_FLAT = "flat_attention_train"
-_SM = "smajor_attention_train"
-
-
-@functools.cache
-def _train_mma_fwd(name: str):
-    """The bf16 tensor-core forward (``csrc/attention_train_mma.cuh``) that
-    B1's ``flat_attention_train`` and B5's ``smajor_attention_train``
-    instantiate on their strides; the C interface of B3's
-    ``blocked_attention_train_mma_fwd``, whose shared memory it shares."""
-    lib = _build.load(name)
-    fwd = getattr(lib, f"{name}_mma_fwd")
-    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    return fwd
-
-
-def _takes_mma_fwd(name: str, q: torch.Tensor) -> bool:
-    """Whether ``csrc/<name>.cu``'s forward on q runs the tensor-core
-    forward: B1 and B5 in bf16 (fp32 and B3's fp32 entries do not)."""
-    return q.dtype == torch.bfloat16 and name in (_FLAT, _SM)
-
-
 def _check_aligned16(*tensors) -> None:
     """Raise unless every operand starts on a 16-byte boundary, as the bf16
-    tensor-core kernels (K1, B2, B3, B1's and B5's forwards) copy 16-byte
-    rows."""
+    tensor-core kernels (K1, B2, and B1's, B5's and B3's training kernels)
+    copy 16-byte rows."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bf16 kernels copy 16-byte rows: q/k/v must "
                          "start on 16-byte boundaries")
 
 
-def _check_mma_smem(S: int, hd: int, backward: int) -> None:
+def _check_mma_smem(name: str, S: int, hd: int, backward: int) -> None:
     """Raise unless one block of the bf16 tensor-core training forward
-    (backward = 0) or backward (1) fits its shared memory at (S, hd)."""
-    need = _b3_mma_kernels()[2](S, hd, backward)
+    (backward = 0) or backward (1) of ``csrc/<name>.cu`` fits its shared
+    memory at (S, hd)."""
+    need = _train_mma(name)[2](S, hd, backward)
     if need > _MAX_SMEM:
         raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
                          f"memory per block, over the {_MAX_SMEM} limit")
@@ -383,36 +387,54 @@ def _check_mma_smem(S: int, hd: int, backward: int) -> None:
 
 def _check_train_cuda(q: torch.Tensor, S: int, hd: int, name: str) -> None:
     """Raise unless the CUDA training kernels of ``csrc/<name>.cu`` take
-    these operands: the forward's shared memory (the tensor-core forward's
-    in bf16 for B1 and B5, which takes every S; else the all-keys or
-    key-blocked kernel's) and the backward's (all-keys or key-blocked)."""
+    these operands: in bf16 the tensor-core forward's and backward's shared
+    memory (they take every S up to 612 and beyond), in fp32 the all-keys or
+    key-blocked kernels'."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or hd not in (32, 64, 128):
         raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
                          f"(32, 64, 128); got {q.dtype}, hd={hd}")
-    _, _, smem_bytes = _train_kernels(name)
-    if _takes_mma_fwd(name, q):
-        _check_mma_smem(S, hd, 0)
-    else:
-        _key_blocked(smem_bytes, S, hd, 0)
-    _key_blocked(smem_bytes, S, hd, 1)
+    for backward in (0, 1):
+        if q.dtype == torch.bfloat16:
+            _check_mma_smem(name, S, hd, backward)
+        else:
+            _key_blocked(_train_kernels(name)[2], S, hd, backward)
+
+
+def _train_buffers(q: torch.Tensor, B: int, H: int, S: int, keep_t: int):
+    """(stats, words): what the bf16 forward writes for its backward, each
+    row's softmax max and 1/l (float32 [B, H, S, 2]) and, with dropout, each
+    Philox call's 16 keep bits (int16 [B, H, S, ceil(S/16)]; else None),
+    indexed by (sample, head) in every layout. (None, None) in fp32, whose
+    backward recomputes p and replays the bits."""
+    if q.dtype != torch.bfloat16:
+        return None, None
+    stats = torch.empty(B, H, S, 2, dtype=torch.float32, device=q.device)
+    words = (torch.empty(B, H, S, -(-S // 16), dtype=torch.int16, device=q.device)
+             if keep_t < 256 else None)
+    return stats, words
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
-                      num_heads: int, keep_t: int, seed: int) -> None:
-    """The forward of ``csrc/<name>.cu`` into ``out``: in bf16, B1's and
-    B5's tensor-core forward (q/k/v on 16-byte boundaries, else it raises);
-    otherwise the fp32 ``attention_train.cuh`` kernel, key-blocked past its
-    shared memory (these entries refuse any other dtype)."""
+                      num_heads: int, keep_t: int, seed: int, stats=None,
+                      words=None) -> None:
+    """The forward of ``csrc/<name>.cu`` into ``out``: in bf16 the
+    tensor-core forward (q/k/v on 16-byte boundaries, else it raises), which
+    also fills :func:`_train_buffers`' stats and words where given; in fp32
+    the ``attention_train.cuh`` kernel, key-blocked past its shared memory."""
     hd = q.numel() // (B * S * num_heads)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if _takes_mma_fwd(name, q):
+    if q.dtype == torch.bfloat16:
         _check_aligned16(q, k, v, out)
-        err = _train_mma_fwd(name)(
+        err = _train_mma(name)[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), None, None, B, S, num_heads, hd, keep_t,
-            256.0 / keep_t, seed, stream)
+            out.data_ptr(), _ptr(stats), _ptr(words), B, S, num_heads, hd,
+            keep_t, 256.0 / keep_t, seed, stream)
     else:
         fwd, _, smem_bytes = _train_kernels(name)
         err = fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -424,52 +446,71 @@ def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
 
 
 def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
-                      num_heads: int, keep_t: int, seed: int):
+                      num_heads: int, keep_t: int, seed: int, stats=None,
+                      words=None):
     """dq, dk, dv in q's layout and the bias gradient [B, S], summed over
-    heads here in a fixed order, so the bits do not vary between runs. The
-    key-blocked backward also takes a float32 [B, H, S, hd] dq buffer."""
-    _, bwd, smem_bytes = _train_kernels(name)
+    heads here in a fixed order, so the bits do not vary between runs. bf16
+    runs the tensor-core backward on the forward's stats and words (it
+    refuses a call without them); fp32 the ``attention_train.cuh`` kernel,
+    which recomputes p and replays the keep bits. Past one key chunk (bf16)
+    or one block's shared memory (fp32, the key-blocked kernel) the backward
+    also takes a float32 [B, H, S, hd] dq buffer."""
     hd = q.numel() // (B * S * num_heads)
     dout = dout.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=q.device)
     db_heads = torch.empty(B, num_heads, S, **f32)
-    dq32 = (torch.empty(B, num_heads, S, hd, **f32)
-            if _key_blocked(smem_bytes, S, hd, 1) else None)
-    err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-              dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads, hd, keep_t,
-              256.0 / keep_t, seed, torch.cuda.current_stream(q.device).cuda_stream,
-              None if dq32 is None else dq32.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        # autograd's cotangent may be a view off a 16-byte boundary
+        if dout.data_ptr() % 16:
+            dout = dout.clone()
+        _, bwd, _, needs_dq32 = _train_mma(name)
+        dq32 = torch.empty(B, num_heads, S, hd, **f32) if needs_dq32(S, hd) else None
+        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), b2.data_ptr(),
+                  dout.data_ptr(), _ptr(stats), _ptr(words), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), db_heads.data_ptr(), B, S,
+                  num_heads, hd, keep_t, 256.0 / keep_t, stream, _ptr(dq32))
+    else:
+        _, bwd, smem_bytes = _train_kernels(name)
+        dq32 = (torch.empty(B, num_heads, S, hd, **f32)
+                if _key_blocked(smem_bytes, S, hd, 1) else None)
+        err = bwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  b2.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), db_heads.data_ptr(), B, S, num_heads, hd, keep_t,
+                  256.0 / keep_t, seed, stream, _ptr(dq32))
     if err != 0:
         raise RuntimeError(f"{name} backward launch failed: CUDA error {err}")
     return dq, dk, dv, db_heads.sum(1)
 
 
-class _FlatTrainFn(torch.autograd.Function):
-    """B1 on the card: the forward kernel (bf16: the tensor-core forward),
-    and the backward kernel that recomputes the probabilities in fp32 and
-    replays the keep mask. The bias gradient comes out per (sample, head) as
-    [B, H, S] and is summed over heads in a fixed order."""
+class _TrainFn(torch.autograd.Function):
+    """B1, B5 or B3 on the card, on contiguous operands of the layout of
+    ``csrc/<name>.cu``: the forward kernel, saving in bf16 what the
+    tensor-core backward reads (:func:`_train_buffers`), and the backward
+    kernel. The bias gradient comes out per (sample, head) as [B, H, S] and
+    is summed over heads in a fixed order (the TPU kernels accumulate it
+    across their head loop or grid axis). ``entry``, the public function,
+    counts the launches."""
 
     @staticmethod
-    def forward(ctx, q, k, v, b2, num_heads, keep_t, seed):
-        B, S, _ = q.shape
+    def forward(ctx, q, k, v, b2, name, entry, B, S, num_heads, keep_t, seed):
         out = torch.empty_like(q)
-        _launch_train_fwd(_FLAT, q, k, v, b2, out, B, S, num_heads, keep_t,
-                          seed)
-        fused_attention_train_flat.launches += 1
-        ctx.save_for_backward(q, k, v, b2)
-        ctx.meta = (num_heads, keep_t, seed)
+        stats, words = _train_buffers(q, B, num_heads, S, keep_t)
+        _launch_train_fwd(name, q, k, v, b2, out, B, S, num_heads, keep_t,
+                          seed, stats, words)
+        entry.launches += 1
+        ctx.save_for_backward(q, k, v, b2, stats, words)
+        ctx.meta = (name, entry, B, S, num_heads, keep_t, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, b2 = ctx.saved_tensors
-        B, S, _ = q.shape
-        grads = _launch_train_bwd(_FLAT, q, k, v, b2, dout, B, S, *ctx.meta)
-        fused_attention_train_flat.backward_launches += 1
-        return (*grads, None, None, None)
+        q, k, v, b2, stats, words = ctx.saved_tensors
+        name, entry, *meta = ctx.meta
+        grads = _launch_train_bwd(name, q, k, v, b2, dout, *meta, stats, words)
+        entry.backward_launches += 1
+        return (*grads,) + (None,) * 7
 
 
 def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
@@ -494,8 +535,9 @@ def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,
     b2 = _bias2(bias.to(q.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(q)
-    return _FlatTrainFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                              b2, num_heads, t, seed)
+    return _TrainFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), b2,
+                          _FLAT, fused_attention_train_flat, B, S, num_heads,
+                          t, seed)
 
 
 fused_attention_train_flat.launches = 0
@@ -508,8 +550,8 @@ def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
                        dtype=torch.float32) -> torch.Tensor:
     """Bool [B, H, S, S]: the keep mask that ``train`` (a training entry on
     [B, S, H*hd] operands, :func:`fused_attention_train_flat` by default)
-    realizes on ``device`` with operands of ``dtype`` (bf16 reads B1's and
-    B5's tensor-core forward), read back through its forward. With q = k = 0
+    realizes on ``device`` with operands of ``dtype`` (bf16 reads the
+    tensor-core forward), read back through its forward. With q = k = 0
     and no bias every probability is 1/S, and v one-hot on key column j
     copies p_d[..., j] into an output column, so the nonzero outputs are the
     kept entries; ceil(S/hd) calls cover every key column. On the card this
@@ -604,32 +646,6 @@ class _SwapSB(torch.autograd.Function):
         return _swap01(g)
 
 
-class _SmTrainFn(torch.autograd.Function):
-    """B5 on the card, on S-major operands: the forward kernel (bf16: the
-    tensor-core forward), and the backward kernel that recomputes the
-    probabilities in fp32 and replays the keep mask
-    (clg_vqa_tpu/ops/attention.py:_attn_train_core_sm, :1147-1194)."""
-
-    @staticmethod
-    def forward(ctx, qs, ks, vs, b2, num_heads, keep_t, seed):
-        S, B, _ = qs.shape
-        out = torch.empty_like(qs)
-        _launch_train_fwd(_SM, qs, ks, vs, b2, out, B, S, num_heads, keep_t,
-                          seed)
-        fused_attention_train_smajor.launches += 1
-        ctx.save_for_backward(qs, ks, vs, b2)
-        ctx.meta = (num_heads, keep_t, seed)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        qs, ks, vs, b2 = ctx.saved_tensors
-        S, B, _ = qs.shape
-        grads = _launch_train_bwd(_SM, qs, ks, vs, b2, dout, B, S, *ctx.meta)
-        fused_attention_train_smajor.backward_launches += 1
-        return (*grads, None, None, None)
-
-
 def smajor_attention_core(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                           bias: torch.Tensor, num_heads: int, *,
                           dropout_rate: float = 0.0,
@@ -649,8 +665,9 @@ def smajor_attention_core(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
     b2 = _bias2(bias.to(qs.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(qs)
-    return _SmTrainFn.apply(qs.contiguous(), ks.contiguous(), vs.contiguous(),
-                            b2, num_heads, t, seed)
+    return _TrainFn.apply(qs.contiguous(), ks.contiguous(), vs.contiguous(),
+                          b2, _SM, fused_attention_train_smajor, B, S,
+                          num_heads, t, seed)
 
 
 def fused_attention_train_smajor(q: torch.Tensor, k: torch.Tensor,
@@ -717,9 +734,6 @@ fused_attention_smajor.launches = 0
 # B2 / B3: head-blocked attention on head-major [B, H, S, hd] operands
 # ---------------------------------------------------------------------------
 
-_HM = "blocked_attention_train"
-
-
 def _check_hm(qh, kh, vh) -> tuple[int, int, int, int]:
     """(B, H, S, hd) of head-major operands of one shape and dtype."""
     if qh.dim() != 4 or kh.shape != qh.shape or vh.shape != qh.shape:
@@ -778,126 +792,6 @@ def fused_attention_train_hm_plain(qh, kh, vh, bias, *,
     return split_heads(out, H, out.dtype)
 
 
-@functools.cache
-def _b3_mma_kernels():
-    """(forward, backward, smem_bytes, needs_dq32) of B3's bf16 tensor-core
-    kernels in ``csrc/blocked_attention_train.cu``."""
-    lib = _build.load(_HM)
-    fwd = lib.blocked_attention_train_mma_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    bwd = lib.blocked_attention_train_mma_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    smem = lib.blocked_attention_train_mma_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_longlong
-    needs = lib.blocked_attention_train_mma_needs_dq32
-    needs.argtypes = [ctypes.c_int] * 2
-    needs.restype = ctypes.c_int
-    return fwd, bwd, smem, needs
-
-
-def _check_b3_bf16(S: int, hd: int, *tensors) -> None:
-    """Raise unless B3's bf16 kernels take these head-major operands: hd
-    in (32, 64, 128), 16-byte aligned starts (the kernels copy 16-byte
-    rows), shared memory within one block's."""
-    if hd not in (32, 64, 128):
-        raise ValueError(f"the CUDA kernels take fp32/bf16 with hd in "
-                         f"(32, 64, 128); got {tensors[0].dtype}, hd={hd}")
-    _check_aligned16(*tensors)
-    for backward in (0, 1):
-        _check_mma_smem(S, hd, backward)
-
-
-def _b3_bf16_buffers(qh, keep_t: int):
-    """The bf16 forward's outputs: out [B, H, S, hd] and what the backward
-    reads, each row's softmax statistics (float32 [B, H, S, 2]) and, with
-    dropout, the keep bits of each Philox call (int16 [B, H, S, ceil(S/16)];
-    else None)."""
-    B, H, S, _ = qh.shape
-    stats = torch.empty(B, H, S, 2, dtype=torch.float32, device=qh.device)
-    words = (torch.empty(B, H, S, -(-S // 16), dtype=torch.int16, device=qh.device)
-             if keep_t < 256 else None)
-    return torch.empty_like(qh), stats, words
-
-
-def _b3_bf16_fwd(qh, kh, vh, b2, out, stats, words, keep_t: int, seed: int) -> None:
-    """Launch the bf16 forward into :func:`_b3_bf16_buffers`' tensors."""
-    B, H, S, hd = qh.shape
-    err = _b3_mma_kernels()[0](
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), None if words is None else words.data_ptr(),
-        B, S, H, hd, keep_t, 256.0 / keep_t, seed,
-        torch.cuda.current_stream(qh.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{_HM} bf16 forward launch failed: CUDA error {err}")
-
-
-def _b3_bf16_bwd(qh, kh, vh, b2, dout, stats, words, keep_t: int):
-    """dq, dk, dv [B, H, S, hd] and the bias gradient [B, S], summed over
-    heads here in a fixed order, from the forward's stats and keep bits;
-    past one key chunk the kernel also takes a float32 dq buffer."""
-    B, H, S, hd = qh.shape
-    _, bwd, _, needs_dq32 = _b3_mma_kernels()
-    dout = dout.to(qh.dtype).contiguous()
-    if dout.data_ptr() % 16:
-        dout = dout.clone()
-    dq, dk, dv = (torch.empty_like(qh) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=qh.device)
-    db_heads = torch.empty(B, H, S, **f32)
-    dq32 = torch.empty(B, H, S, hd, **f32) if needs_dq32(S, hd) else None
-    err = bwd(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), b2.data_ptr(),
-              dout.data_ptr(), stats.data_ptr(),
-              None if words is None else words.data_ptr(), dq.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), db_heads.data_ptr(), B, S, H, hd,
-              keep_t, 256.0 / keep_t,
-              torch.cuda.current_stream(qh.device).cuda_stream,
-              None if dq32 is None else dq32.data_ptr())
-    if err != 0:
-        raise RuntimeError(f"{_HM} bf16 backward launch failed: CUDA error {err}")
-    return dq, dk, dv, db_heads.sum(1)
-
-
-class _BlockedTrainFn(torch.autograd.Function):
-    """B3 on the card, on contiguous head-major operands: the forward
-    kernel, and the backward kernel that recomputes the probabilities and
-    replays the keep mask (clg_vqa_tpu/ops/attention.py:_attn_train_core,
-    :283-327); bf16 takes the tensor-core kernels, fp32 B1's device code.
-    The TPU kernel sums the bias gradient over heads in its head grid loop
-    (:259-263); here it comes out as [B, H, S] and is summed over heads
-    0..H-1 in a fixed order, as B1's is. Both train entries count their
-    launches in ``fused_attention_train``."""
-
-    @staticmethod
-    def forward(ctx, qh, kh, vh, b2, keep_t, seed):
-        B, H, S, _ = qh.shape
-        if qh.dtype == torch.bfloat16:
-            out, stats, words = _b3_bf16_buffers(qh, keep_t)
-            _b3_bf16_fwd(qh, kh, vh, b2, out, stats, words, keep_t, seed)
-            ctx.save_for_backward(qh, kh, vh, b2, stats, words)
-        else:
-            out = torch.empty_like(qh)
-            _launch_train_fwd(_HM, qh, kh, vh, b2, out, B, S, H, keep_t, seed)
-            ctx.save_for_backward(qh, kh, vh, b2)
-        fused_attention_train.launches += 1
-        ctx.meta = (H, keep_t, seed)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        qh, kh, vh, b2, *saved = ctx.saved_tensors
-        B, _, S, _ = qh.shape
-        if qh.dtype == torch.bfloat16:
-            grads = _b3_bf16_bwd(qh, kh, vh, b2, dout, *saved, ctx.meta[1])
-        else:
-            grads = _launch_train_bwd(_HM, qh, kh, vh, b2, dout, B, S, *ctx.meta)
-        fused_attention_train.backward_launches += 1
-        return (*grads, None, None)
-
-
 def fused_attention_train_hm(qh: torch.Tensor, kh: torch.Tensor,
                              vh: torch.Tensor, bias: torch.Tensor, *,
                              dropout_rate: float = 0.0,
@@ -922,15 +816,12 @@ def fused_attention_train_hm(qh: torch.Tensor, kh: torch.Tensor,
         return fused_attention_train_hm_plain(qh, kh, vh, bias,
                                               dropout_rate=dropout_rate,
                                               seed=seed)
-    qh, kh, vh = (x.contiguous() for x in (qh, kh, vh))
-    if qh.dtype == torch.bfloat16 and qh.device.type == "cuda":
-        _check_b3_bf16(S, hd, qh, kh, vh)
-    else:
-        _check_train_cuda(qh, S, hd, _HM)
+    _check_train_cuda(qh, S, hd, _HM)
     b2 = _bias2(bias.to(qh.device), B, S)
     if B == 0 or S == 0:
         return torch.zeros_like(qh)
-    return _BlockedTrainFn.apply(qh, kh, vh, b2, t, seed)
+    return _TrainFn.apply(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                          b2, _HM, fused_attention_train, B, S, H, t, seed)
 
 
 def fused_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -41,11 +41,10 @@ from .profile_eval import model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-# The attention core: attn_train::fwd_kernel / bwd_kernel (B1's and B5's
-# backwards and fp32 forwards, B4's core, fp32 B3) and
-# attn_train_mma::fwd_kernel / bwd_kernel (the tensor-core kernels: bf16
-# B3, and the bf16 forwards of B1 and B5); the key-blocked twins match the
-# same keys.
+# The attention core: attn_train::fwd_kernel / bwd_kernel (fp32 B1, B5 and
+# B3, and B4's core in both dtypes) and attn_train_mma::fwd_kernel /
+# bwd_kernel (the tensor-core kernels of bf16 B1, B5 and B3); the
+# key-blocked twins match the same keys.
 GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
           ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<", "bwd_blocked_kernel<")),
           ("B4 products and sums", ("b4_",)),

@@ -97,11 +97,11 @@ def test_flat_train_kernels_match_plain(cuda, S, dtype, rate):
     """B1 forward and backward against autograd of the plain version, same
     seed. Forward: atol 1e-5 (fp32) or one bf16 ulp of the largest output;
     dq/dk/dv: 2e-4 * max|grad| (fp32) or two bf16 ulps of the largest grad;
-    dbias: 1e-4 * max|dbias|. The fp32 forward and both backwards run
-    attention_train.cuh (fp32 CUDA cores), which differs from the plain
-    version in summation order only; the bf16 forward runs the tensor-core
-    forward of attention_train_mma.cuh (exact bf16 products summed in fp32,
-    p_d as hi + lo bf16 terms)."""
+    dbias: 1e-4 * max|dbias|. fp32 runs attention_train.cuh (fp32 CUDA
+    cores), which differs from the plain version in summation order only;
+    bf16 runs the tensor-core kernels of attention_train_mma.cuh (exact bf16
+    products summed in fp32, p_d and ds as hi + lo bf16 terms, D the exact
+    sum_j dp p)."""
     q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=1234)
@@ -179,8 +179,8 @@ def test_bf16_linear_function_on_cuda_matches_cpu(cuda):
 def test_smajor_train_kernels_match_plain(cuda, S, dtype, rate):
     """B5 forward and backward against autograd of its plain version, same
     seed, with B1's tolerances (test_flat_train_kernels_match_plain; B1's
-    device codes, the bf16 forward on the tensor cores); the entry makes its
-    eight layout copies."""
+    device codes, bf16 on the tensor cores); the entry makes its eight
+    layout copies."""
     q, k, v, bias = _attention_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=1234)
@@ -210,8 +210,8 @@ def test_smajor_train_kernels_match_plain(cuda, S, dtype, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_smajor_kernels_equal_flat_kernels_bit_for_bit(cuda, dtype):
-    """B5 and B1 run the same device codes on two layouts (bf16 forward:
-    attention_train_mma.cuh; the rest: attention_train.cuh) and key dropout
+    """B5 and B1 run the same device codes on two layouts (bf16:
+    attention_train_mma.cuh; fp32: attention_train.cuh) and key dropout
     alike: output and every gradient equal bit for bit."""
     q, k, v, bias = _attention_inputs(cuda, 16, 76, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda)
@@ -619,10 +619,9 @@ def _assert_b3_mask_is_b1s(dev, S, rate, B=4, H=12, hd=64):
 def test_blocked_train_kernels_match_plain_and_b1(cuda, S, dtype, rate):
     """B3 through both entries, forward and backward, under the -inf key
     bias: against autograd of its plain version with B1's tolerances
-    (test_flat_train_kernels_match_plain); in fp32 equal to B1's kernels bit
-    for bit (one device code, one keep mask), in bf16 (the tensor-core
-    kernels) with B1's keep mask; one launch of each kernel per entry
-    call."""
+    (test_flat_train_kernels_match_plain) and equal to B1's kernels bit for
+    bit (one device code a dtype, one keep mask; bf16: the tensor-core
+    kernels); one launch of each kernel per entry call."""
     q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     kw = dict(dropout_rate=rate, seed=4321)
@@ -637,8 +636,7 @@ def test_blocked_train_kernels_match_plain_and_b1(cuda, S, dtype, rate):
         torch.cuda.synchronize()
         assert TA.fused_attention_train.launches == f0 + 1
         assert TA.fused_attention_train.backward_launches == b0 + 1
-        if dtype == torch.float32:
-            assert all(torch.equal(a, b) for a, b in zip(got, flat))
+        assert all(torch.equal(a, b) for a, b in zip(got, flat))
         assert all(torch.isfinite(t).all() for t in got)
         for i in range(4):
             scale = want[i].float().abs().max().item()
@@ -754,7 +752,7 @@ def test_bf16_blocked_train_kernels_match_plain(cuda, S, hd):
     a second run gives the same bits. Shared memory fits one block."""
     H = 384 // hd
     for backward in (0, 1):
-        assert TA._b3_mma_kernels()[2](S, hd, backward) <= TA._MAX_SMEM
+        assert TA._train_mma(TA._HM)[2](S, hd, backward) <= TA._MAX_SMEM
     q, k, v, bias = _neg_inf_inputs(cuda, 4, S, H, hd, torch.bfloat16)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
     for bias in (b for b in (bias, _leading_neg_inf(bias, S)) if b is not None):
@@ -790,7 +788,7 @@ def test_bf16_blocked_train_kernel_refuses_unaligned_operands(cuda):
 
 
 # ---------------------------------------------------------------------------
-# bf16 B1 and B5 forwards: B3's tensor-core forward on their strides
+# bf16 B1 and B5: B3's tensor-core kernels on their strides
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -800,8 +798,7 @@ def test_bf16_flat_and_smajor_forwards_equal_b3s_bit_for_bit(cuda, S):
     strides: bf16 B1 (flat), B5 (S-major) and B3 (head-major, split
     outside) give the same output bits on the same values and seed, rates
     0 and 0.1, under UC2's -10000 keys, M3P's -inf keys and a sample whose
-    leading 64 + S // 8 keys are -inf too; finite; one launch each. At S 159
-    and 612 the backward is key-blocked and the forward is not."""
+    leading 64 + S // 8 keys are -inf too; finite; one launch each."""
     H = 12
     q, k, v, bias = _attention_inputs(cuda, 8, S, H, 64, torch.bfloat16)
     _, _, _, neg_inf = _neg_inf_inputs(cuda, 8, S, H, 64, torch.bfloat16)
@@ -826,8 +823,9 @@ def test_bf16_flat_and_smajor_forwards_equal_b3s_bit_for_bit(cuda, S):
 @pytest.mark.parametrize("S", [13, 76, 140, 612])
 def test_bf16_flat_and_smajor_forward_masks_are_the_plain_mask(cuda, S):
     """The tensor-core forward's realized keep bits, read through B1's and
-    B5's entries with bf16 operands, equal dropout_keep_mask, which their
-    fp32 CUDA-core backward replays."""
+    B5's entries with bf16 operands, equal dropout_keep_mask; the forward
+    stores them for the backward
+    (test_bf16_flat_and_smajor_backward_reads_the_forward_mask)."""
     t = TA.keep_threshold(0.1)
     want = TA.dropout_keep_mask(99, 8, 12, S, t, cuda)
     for train in (TA.fused_attention_train_flat, TA.fused_attention_train_smajor):
@@ -862,9 +860,147 @@ def test_bf16_flat_and_smajor_forwards_refuse_unaligned_operands(cuda):
                                   bias, 4, **kw)
 
 
+# S at and around the backward's key-chunk limits (16 x 10 warps = 160 at
+# hd 32 and 64, 16 x 8 = 128 at hd 128), the fp32 kernels' shared-memory
+# limits (159, 418) and the longest M3P sequence
+BWD_S = [1, 13, 76, 140, 159, 160, 161, 418, 612]
+
+
+def _train_biases(dev, B, S, H, hd):
+    """UC2's -10000 padding (a third of sample 1's keys), M3P's -inf keys
+    (the same keys) and the -inf bias with sample 2's leading 64 + S // 8
+    keys -inf too, where S leaves a later key."""
+    pad = _attention_inputs(dev, B, S, H, hd, torch.bfloat16)[3]
+    neg_inf = _neg_inf_inputs(dev, B, S, H, hd, torch.bfloat16)[3]
+    return [b for b in (pad, neg_inf, _leading_neg_inf(neg_inf, S)) if b is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", BWD_S)
+def test_bf16_flat_and_smajor_backwards_equal_b3s_bit_for_bit(cuda, S, hd):
+    """One device code (csrc/attention_train_mma.cuh) at three strides, both
+    ways: bf16 B1 (flat), B5 (S-major) and B3 (head-major, split outside)
+    give the same output and gradients (dq, dk, dv, dbias) bit for bit on
+    the same values, cotangent and seed, rates 0 and 0.1, under each of
+    _train_biases; finite; one launch of each kernel per call; a second
+    run gives the same bits. Past one key chunk the backward sums dq in its
+    float32 buffer."""
+    H, B = 384 // hd, 8
+    q, k, v, _ = _attention_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    flat_fn, sm_fn = TA.fused_attention_train_flat, TA.fused_attention_train_smajor
+    for bias in _train_biases(cuda, B, S, H, hd):
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=2025)
+            counts = [flat_fn.launches, flat_fn.backward_launches, sm_fn.launches,
+                      sm_fn.backward_launches]
+            flat = _train_grads(flat_fn, q, k, v, bias, w, H=H, **kw)
+            sm = _train_grads(sm_fn, q, k, v, bias, w, H=H, **kw)
+            torch.cuda.synchronize()
+            assert [flat_fn.launches, flat_fn.backward_launches, sm_fn.launches,
+                    sm_fn.backward_launches] == [c + 1 for c in counts]
+            b3 = _train_grads(_hm_train, q, k, v, bias, w, H=H, **kw)
+            assert all(torch.isfinite(t).all() for t in flat)
+            assert all(torch.equal(a, b) for a, b in zip(flat, sm)), (S, hd, rate)
+            assert all(torch.equal(a, b) for a, b in zip(flat, b3)), (S, hd, rate)
+            again = _train_grads(flat_fn, q, k, v, bias, w, H=H, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(flat, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", BWD_S)
+def test_bf16_flat_and_smajor_backwards_match_plain(cuda, S, hd):
+    """bf16 B1 and B5, forward and backward, against autograd of the plain
+    version (fused_attention_train_flat_plain) on the same seed, with
+    chip_smoke.py:grad_errors' tolerances (_assert_train_close: output one
+    bf16 ulp of its largest value, dq/dk/dv two, dbias 1e-4 of its
+    largest), rates 0 and 0.1, under each of _train_biases."""
+    H, B = 384 // hd, 8
+    q, k, v, _ = _attention_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    for bias in _train_biases(cuda, B, S, H, hd):
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=2026)
+            want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w,
+                                H=H, **kw)
+            for fn in (TA.fused_attention_train_flat, TA.fused_attention_train_smajor):
+                got = _train_grads(fn, q, k, v, bias, w, H=H, **kw)
+                assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
+                _assert_train_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_flat_and_smajor_backwards_refuse_unaligned_operands(cuda):
+    """The tensor-core backward copies 16-byte rows. Its q/k/v are the
+    forward's, which refuses them off a 16-byte boundary
+    (test_bf16_flat_and_smajor_forwards_refuse_unaligned_operands); a
+    cotangent off one, as autograd may hand it to B1's entry or B5's core,
+    is copied first, so its gradients equal an aligned cotangent's bit for
+    bit. Nothing falls back to the CUDA-core backward: without the
+    forward's statistics the bf16 backward raises, and the fp32 entries
+    return cudaErrorInvalidValue (1) for bf16."""
+    B, S, H, hd = 8, 13, 4, 64
+    q, k, v, bias = _attention_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda).bfloat16()
+    kw = dict(dropout_rate=0.1, seed=3)
+    for fn, ops, dout in ((TA.fused_attention_train_flat, (q, k, v), w),
+                          (TA.smajor_attention_core,
+                           [x.transpose(0, 1).contiguous() for x in (q, k, v)],
+                           w.transpose(0, 1).contiguous())):
+        grads = []
+        for d in (dout, _shifted(dout)):
+            ins = [t.detach().clone().requires_grad_() for t in (*ops, bias)]
+            grads.append(torch.autograd.grad(fn(*ins, H, **kw), ins, d))
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), fn
+    t = TA.keep_threshold(0.1)
+    b2 = TA._bias2(bias, B, S)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        TA._launch_train_bwd(TA._FLAT, q, k, v, b2, w, B, S, H, t, 3)
+    dq = torch.empty_like(q)
+    dbh = torch.empty(B, H, S, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name in (TA._FLAT, TA._SM):
+        fwd, bwd, _ = TA._train_kernels(name)
+        assert fwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), b2.data_ptr(),
+                   dq.data_ptr(), B, S, H, hd, t, 256.0 / t, 3, stream, 0) == 1
+        assert bwd(1, q.data_ptr(), k.data_ptr(), v.data_ptr(), b2.data_ptr(),
+                   w.data_ptr(), dq.data_ptr(), dq.data_ptr(), dq.data_ptr(),
+                   dbh.data_ptr(), B, S, H, hd, t, 256.0 / t, 3, stream, None) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [76, 140, 612])
+def test_bf16_flat_and_smajor_backward_reads_the_forward_mask(cuda, S):
+    """The output is linear in v under a fixed mask, so <dv, v> equals the
+    loss <out, w> when the backward uses the mask the forward realized, whose
+    keep bits it reads from the forward. The tolerance is chip_smoke.py's
+    bf16 one, 4 * 2^-8 of the root of the sum of the squared terms (out and
+    dv are rounded to bf16, errors of random sign); the loss of another
+    seed's forward misses this dv's inner product by far more."""
+    H = 12
+    q, k, v, bias = _attention_inputs(cuda, 8, S, H, 64, torch.bfloat16)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(7))
+    w = w.bfloat16()
+    for fn in (TA.fused_attention_train_flat, TA.fused_attention_train_smajor):
+        def run(seed):
+            vv = v.detach().clone().requires_grad_()
+            out = fn(q, k, vv, bias, H, dropout_rate=0.1, seed=seed)
+            (dv,) = torch.autograd.grad(out, vv, w)
+            return out.detach().double() * w.double(), dv
+
+        terms, dv = run(7)
+        inner = (dv.double() * v.double()).sum().item()
+        tol = 4 * 2.0 ** -8 * terms.square().sum().sqrt().item()
+        assert abs(inner - terms.sum().item()) <= tol, (fn, inner, tol)
+        other, _ = run(8)
+        assert abs(inner - other.sum().item()) > 4 * tol, fn
+
+
 # ---------------------------------------------------------------------------
-# The key-blocked variant: S past the all-keys kernels' shared memory
-# (training kernels from S = 159 at hd 64, K1 from 418, B2 from 412)
+# The key-blocked variant: S past the fp32 all-keys kernels' shared memory
+# (fp32 training kernels from S = 159 at hd 64, fp32 K1 from 418, B2 from 412)
 # ---------------------------------------------------------------------------
 
 LONG_S = [159, 200, 256, 612]
@@ -889,13 +1025,11 @@ def _assert_train_close(got, want, dtype):
 @pytest.mark.parametrize("S", LONG_S)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
-    """B1 past its all-keys limit against autograd of the plain version with
-    B1's tolerances: the key-blocked backward, and in fp32 the key-blocked
-    forward from S = 418 (the bf16 forward is the tensor-core one at every
-    S); B5 equal to it bit for bit, and B3 (both entries) too in fp32; in
-    bf16 B3 (the tensor-core kernels) within the same tolerances of the
-    plain version, with B1's keep mask; one launch of each kernel per
-    call."""
+    """B1 past its fp32 all-keys limit against autograd of the plain version
+    with B1's tolerances: in fp32 the key-blocked backward, and the
+    key-blocked forward from S = 418; in bf16 the tensor-core kernels, which
+    take every S. B5 and B3 (both entries) equal to it bit for bit, bf16
+    B3's keep mask B1's; one launch of each kernel per call."""
     q, k, v, bias = _neg_inf_inputs(cuda, 8, S, 12, 64, dtype)
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     kw = dict(dropout_rate=rate, seed=2468)
@@ -908,10 +1042,7 @@ def test_key_blocked_train_kernels_match_plain(cuda, S, dtype, rate):
     _assert_train_close(flat, want, dtype)
     for fn in (TA.fused_attention_train_smajor, TA.fused_attention_train, _hm_train):
         got = _train_grads(fn, q, k, v, bias, w, **kw)
-        if fn is TA.fused_attention_train_smajor or dtype == torch.float32:
-            assert all(torch.equal(a, b) for a, b in zip(got, flat)), fn
-        else:
-            _assert_train_close(got, want, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, flat)), fn
     if dtype == torch.bfloat16 and rate:
         _assert_b3_mask_is_b1s(cuda, S, rate, B=2)
 
@@ -981,20 +1112,26 @@ def test_key_blocked_eval_kernels_match_plain(cuda, S, dtype):
 
 @pytest.mark.cuda
 def test_key_blocked_kernels_are_deterministic(cuda):
-    q, k, v, bias = _neg_inf_inputs(cuda, 8, 612, 12, 64, torch.bfloat16)
-    w = torch.randn(q.shape, device=cuda)
-    a = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, dropout_rate=0.1, seed=5)
-    b = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, dropout_rate=0.1, seed=5)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    """B1 at S 612: fp32 (the key-blocked kernels) and bf16 (the tensor-core
+    kernels, dq summed over key chunks) give the same bits twice."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = _neg_inf_inputs(cuda, 8, 612, 12, 64, dtype)
+        w = torch.randn(q.shape, device=cuda)
+        a = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w,
+                         dropout_rate=0.1, seed=5)
+        b = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w,
+                         dropout_rate=0.1, seed=5)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), dtype
 
 
 @pytest.mark.cuda
 def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
     """Every wrapper finds a kernel whose shared memory fits one block, for
     every S the configs allow (text up to 512 tokens plus 100 regions).
-    The eval kernels consult the all-keys limit in fp32 only: in bf16 one
-    tensor-core kernel takes every S, its shared memory bounded whatever S
-    is; so does B1's and B5's bf16 forward (B3's tensor-core forward)."""
+    The eval and training kernels consult the all-keys limit in fp32 only:
+    in bf16 one tensor-core kernel a direction takes every S, its shared
+    memory growing with S by a few [S] fp32 vectors only (the training
+    kernels of B1, B5 and B3, csrc/attention_train_mma.cuh)."""
     for name in ("flat_attention_train", "smajor_attention_train",
                  "blocked_attention_train"):
         smem = TA._train_kernels(name)[2]
@@ -1007,8 +1144,12 @@ def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
         for hd in (32, 64, 128):
             for S in (417, 418, 612):
                 TA._key_blocked(smem, S, hd)
-    for hd in (32, 64, 128):
-        TA._check_mma_smem(2048, hd, 0)
+    for name in (TA._FLAT, TA._SM, TA._HM):
+        for hd in (32, 64, 128):
+            for S in (1, 159, 160, 161, 612):
+                for backward in (0, 1):
+                    TA._check_mma_smem(name, S, hd, backward)
+            TA._check_mma_smem(name, 2048, hd, 0)
     assert TA._key_blocked(TA._train_kernels()[2], 159, 64, 1)
     assert not TA._key_blocked(TA._train_kernels()[2], 158, 64, 1)
     # bf16 eval at hd 128 (its largest shared memory), past S = 612
@@ -1023,7 +1164,8 @@ def test_no_shared_attention_kernel_refuses_s_up_to_612(cuda):
 @pytest.mark.cuda
 def test_m3p_train_step_at_s160_on_auto(cuda):
     """An M3P task with 60 text tokens gives S = 100 + 60 = 160: the auto
-    route (B1 in bf16 on the card) trains, through the key-blocked backward."""
+    route (B1 in bf16 on the card) trains, through the tensor-core backward
+    at its one-chunk limit (no float32 dq buffer at 160, one at 161)."""
     from clg_vqa_tpu_torch.config import M3PConfig
     from clg_vqa_tpu_torch.models.m3p import M3P
     from clg_vqa_tpu_torch.train.loop import TrainState, make_train_step
@@ -1052,7 +1194,8 @@ def test_m3p_train_step_at_s160_on_auto(cuda):
     assert np.isfinite(m["loss"].item()) and np.isfinite(m["grad_norm"].item())
     assert TA.fused_attention_train_flat.launches - f0 == 2 * cfg.num_layers
     assert TA.fused_attention_train_flat.backward_launches - b0 == 2 * cfg.num_layers
-    assert TA._key_blocked(TA._train_kernels()[2], T + R, 64, 1)
+    needs_dq32 = TA._train_mma(TA._FLAT)[3]
+    assert not needs_dq32(T + R, 64) and needs_dq32(T + R + 1, 64)
 
 
 # ---------------------------------------------------------------------------
