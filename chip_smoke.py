@@ -20,11 +20,17 @@ final line:
     backward reading the keep bits the forward stored). The S-major
     training attention (B5) is held to its plain version and to B1, bit
     for bit, and its entry's layout copies are timed. The whole-block
-    training attention (B4: projections, core, output projection) is held
-    to its plain version (y and every gradient, S 13, 76 and 140, fp32 and
-    bf16, rates 0 and 0.1), its y to the flat route's (linear, B1, linear)
-    on one seed, its keep mask to B1's; it is bit-deterministic, and timed
-    beside the flat route as a yardstick.
+    training attention (B4: projections, core, output projection; in bf16
+    the products on wgmma fed by TMA, csrc/gemm_wgmma.cuh, and the core on
+    the tensor-core kernels) is held to its plain version (y and every
+    gradient, S 13, 76 and 140, fp32 and bf16, rates 0 and 0.1), its y to
+    the flat route's (linear, B1, linear) on one seed, its keep mask to
+    B1's, and with identity weights and zero biases to B1 bit for bit (y,
+    the bias gradient summed over heads in order, dx = (dq + dk) + dv);
+    with identity q/k/v weights and a random Wo its core, taking dctx as
+    hi + lo bf16 terms, is held to B1's gates against the plain core on the
+    fp32 dctx, which hi alone misses; it is bit-deterministic, and timed beside its bound, the plain version,
+    multi_head_attention_forward and the flat route.
  4. the eval path at UC2's full width (12 x 768, vocab 250002, 1842
     answers; random weights from a seed): run_eval at batch 1024 in bf16
     over a synthetic 400-image CFS store and device feature bank, then
@@ -87,7 +93,8 @@ beside SDPA; and S past the CUDA-core kernels' shared memory, where fp32
 takes their key-blocked variant: B1 at S 159 and 612 (values, gradients,
 keep mask; in bf16 the tensor-core kernels) against its plain version, B5
 and B3 (both entries) equal to it bit for bit in both dtypes, B4 at S 159
-and 612, K1 and B2 at S 418 and 612, and B1's bf16 times there.
+and 612 (fp32 key-blocked, bf16 the tensor-core core), K1 and B2 at S 418
+and 612, and B1's bf16 times there.
 Launch counters, set to 0 just before each path's timed run and read just
 after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
@@ -142,7 +149,7 @@ from clg_vqa_tpu_torch.ops.attention import (
     smajor_attention_core, smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
 from clg_vqa_tpu_torch.ops.block_attention import (
-    fused_attention_block, fused_attention_block_plain,
+    _core_backward_plain, fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
 from clg_vqa_tpu_torch.ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
@@ -503,7 +510,7 @@ def bare_train_ms(name, q, k, v, bias, do, B, S, H, *, dropout_rate, seed):
     into preallocated outputs (in bf16 with the row statistics and keep bits
     it writes for its backward), and the backward launch, reading what the
     forward's timed launches left, with its gradients' allocation and the
-    fixed-order head sum of the bias gradient. No autograd and no operand
+    head sum of the bias gradient, as the entry takes it. No autograd and no operand
     copies are in the interval."""
     t = keep_threshold(dropout_rate)
     b2 = _bias2(bias, B, S)
@@ -513,7 +520,7 @@ def bare_train_ms(name, q, k, v, bias, do, B, S, H, *, dropout_rate, seed):
     return (time_ms(lambda: _launch_train_fwd(name, q, k, v, b2, o, B, S, H,
                                               t, seed, *saved)),
             time_ms(lambda: _launch_train_bwd(name, q, k, v, b2, do, B, S, H,
-                                              t, seed, *saved)))
+                                              t, seed, *saved)[3].sum(1)))
 
 
 def phase_smajor_kernel(gen) -> dict:
@@ -674,15 +681,111 @@ def block_errors(got, want, dtype, what: str) -> dict:
     return errs
 
 
+def check_block_identity(B: int, S: int, gen) -> None:
+    """bf16 B4 with Wq = Wk = Wv = Wo = I and zero biases is B1 on
+    q = k = v = x bit for bit: every product is exact and dctx's lo term is
+    zero. y is B1's output; the bias gradient is B1's per-head gradients
+    summed in order h = 0..H-1 (its launcher's buffer: B1's entry sums with
+    an unordered db_heads.sum(1)); dx is (dq + dk) + dv in bf16, in that
+    order. Rates 0 and 0.1; any difference is a fault."""
+    H, hd = 12, 64
+    D = H * hd
+    x, _, _, bias = attention_inputs(B, S, H, hd, torch.bfloat16, gen)
+    g = torch.randn(x.shape, device="cuda", generator=gen).bfloat16()
+    eye, zb = torch.eye(D, device="cuda").bfloat16(), torch.zeros(D, device="cuda")
+    b2 = _bias2(bias, B, S)
+    for rate in (0.0, RATE):
+        t = keep_threshold(rate)
+        ins = [a.detach().clone().requires_grad_() for a in [x] + [eye, zb] * 4 + [bias]]
+        y = fused_attention_block(*ins, H, dropout_rate=rate, seed=21)
+        grads = torch.autograd.grad(y, ins, g)
+        out = torch.empty_like(x)
+        stats, words = _train_buffers(x, B, H, S, t)
+        _launch_train_fwd(_FLAT, x, x, x, b2, out, B, S, H, t, 21, stats, words)
+        dq, dk, dv, dbh = _launch_train_bwd(_FLAT, x, x, x, b2, g, B, S, H, t, 21,
+                                            stats, words)
+        what = f"B4 identity gate [{B}, {S}, {D}] rate {rate}"
+        check(torch.equal(y, out), f"{what}: y is not B1's output")
+        check(torch.equal(grads[-1].view(B, S), sum_heads(dbh)),
+              f"{what}: the bias gradient is not B1's")
+        check(torch.equal(grads[0], (dq + dk) + dv), f"{what}: dx is not (dq + dk) + dv")
+    print(f"B4 identity gate [{B}, {S}, {D}] bf16, rates 0 and {RATE}: y, the bias "
+          f"gradient and dx equal B1's bit for bit")
+
+
+def sum_heads(dbh: torch.Tensor) -> torch.Tensor:
+    """[B, H, S] summed over heads in order h = 0..H-1, as B4 sums them."""
+    db = dbh[:, 0]
+    for h in range(1, dbh.shape[1]):
+        db = db + dbh[:, h]
+    return db
+
+
+def core_gate_errors(dx, dbias, want, B: int, S: int, D: int) -> tuple:
+    """(dx's error over its tolerance, the bias gradient's over its) of a
+    bf16 B4 core against the plain core's fp32 (dq, dk, dv, per-head bias
+    gradient) ``want`` on q = k = v = x, with B1's gates: the bias gradient
+    within 1e-4 of its largest value; dx = (dq + dk) + dv in bf16 within
+    two bf16 ulps of each term's largest value plus one ulp of the largest
+    partial sum for the two bf16 roundings of the sums."""
+    dq, dk, dv = (t.view(B, S, D) for t in want[:3])
+    db = sum_heads(want[3])
+    tol_x = (2 * sum(bf16_ulp(t.abs().max().item()) for t in (dq, dk, dv))
+             + bf16_ulp(max((dq + dk).abs().max().item(), (dq + dk + dv).abs().max().item())))
+    err_x = (dx.float() - (dq + dk + dv)).abs().max().item()
+    err_b = (dbias.float().view(B, S) - db).abs().max().item()
+    return err_x / tol_x, err_b / (1e-4 * db.abs().max().item())
+
+
+def check_block_core(B: int, S: int, gen) -> None:
+    """The core of bf16 B4 with dctx's lo term at work: Wq = Wk = Wv = I and
+    zero biases make q = k = v = x exactly, and a random Wo gives
+    dctx = g Wo a nonzero lo. B4's bias gradient and dx must hold B1's
+    gates (core_gate_errors) against the plain core on x and the fp32 dctx,
+    at rates 0 and 0.1. The control, B1's backward on hi = bf16(dctx) alone
+    (what B4's kernel computes if it drops the lo products), must miss the
+    bias-gradient gate."""
+    H, hd = 12, 64
+    D = H * hd
+    x, _, _, bias = attention_inputs(B, S, H, hd, torch.bfloat16, gen)
+    g = torch.randn(x.shape, device="cuda", generator=gen).bfloat16()
+    wo = (torch.randn(D, D, device="cuda", generator=gen) / D ** 0.5).bfloat16()
+    eye, zb = torch.eye(D, device="cuda").bfloat16(), torch.zeros(D, device="cuda")
+    b2 = _bias2(bias, B, S)
+    dctx = (g.float().view(B * S, D) @ wo.float()).view(B, S, D)
+    for rate in (0.0, RATE):
+        t = keep_threshold(rate)
+        ins = [a.detach().clone().requires_grad_()
+               for a in [x, eye, zb, eye, zb, eye, zb, wo, zb, bias]]
+        y = fused_attention_block(*ins, H, dropout_rate=rate, seed=23)
+        grads = torch.autograd.grad(y, ins, g)
+        want = _core_backward_plain(x, x, x, b2.float(), dctx, H, t, 23)
+        rx, rb = core_gate_errors(grads[0], grads[-1], want, B, S, D)
+        out = torch.empty_like(x)
+        stats, words = _train_buffers(x, B, H, S, t)
+        _launch_train_fwd(_FLAT, x, x, x, b2, out, B, S, H, t, 23, stats, words)
+        dq, dk, dv, dbh = _launch_train_bwd(_FLAT, x, x, x, b2, dctx.bfloat16(), B, S, H,
+                                            t, 23, stats, words)
+        cx, cb = core_gate_errors((dq + dk) + dv, sum_heads(dbh), want, B, S, D)
+        what = f"B4 core gate [{B}, {S}, {D}] rate {rate}"
+        print(f"{what}: error over tolerance, hi + lo (B4): dx {rx:.3g}, bias "
+              f"gradient {rb:.3g}; hi alone (control): dx {cx:.3g}, bias gradient {cb:.3g}")
+        check(rx <= 1 and rb <= 1, f"{what}: B4's core misses B1's gates")
+        check(cb > 1, f"{what}: the hi-only control meets the bias-gradient gate")
+
+
 def phase_block_kernel(gen) -> dict:
     """B4 against its plain version (y and every gradient) at S 13 and 140
     and at the fine-tune step's shapes ([128, 76, 768], bf16 and fp32, rates
     0 and 0.1); y against the flat route's composition (linear, B1, linear)
-    on the same seed; bit-determinism; the realized keep mask against B1's
-    and dropout_keep_mask, and its keep fraction. Times (median of 25 CUDA
-    events, rate 0.1, bf16): B4 forward and backward, the plain version,
-    the flat route as the yardstick, and PyTorch's multi_head_attention_
-    forward at rate 0 as the library call."""
+    on the same seed; bit-determinism; the identity gate in bf16
+    (check_block_identity) and the core gate with its hi-only control
+    (check_block_core) at the fine-tune step's shapes and at S 161; the
+    realized keep mask against B1's and dropout_keep_mask, and its keep
+    fraction. Times (median of 25 CUDA events, rate 0.1, bf16): B4 forward
+    and backward beside their bound, the plain version, the flat route as
+    the yardstick, and PyTorch's multi_head_attention_forward at rate 0 as
+    the library call."""
     kw = dict(dropout_rate=RATE, seed=11)
     for S in (13, 140):
         for dtype in (torch.float32, torch.bfloat16):
@@ -728,6 +831,10 @@ def phase_block_kernel(gen) -> dict:
               f"another seed changes y")
         if dtype == torch.float32:
             continue
+        check_block_identity(B, S, gen)
+        check_block_identity(8, 161, gen)
+        check_block_core(B, S, gen)
+        check_block_core(8, 161, gen)
 
         ins = [x.detach().requires_grad_() for x in args]
         y_k = fused_attention_block(*ins, H, **kw)
@@ -778,7 +885,8 @@ def phase_block_kernel(gen) -> dict:
                   f"B1) {t['flat']:.4f} ms, multi_head_attention_forward "
                   f"(rate 0) {t['library']:.4f} ms, bound {bms:.4f} ms ({by}; "
                   f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
-                  f"{ops / t['kernel'] / 1e9:.1f} TFLOP/s")
+                  f"{ops / t['kernel'] / 1e9:.1f} TFLOP/s; kernel / library "
+                  f"{t['kernel'] / t['library']:.2f}")
             out[f"block_attention_train_{name}/{dtype}"] = dict(
                 max_abs_err=(err["y"] if key else max(
                     v for n, v in err.items() if n != "y")),
@@ -1168,8 +1276,9 @@ def phase_long_s(gen) -> dict:
     against its plain version, fp32 and bf16, rates 0 and 0.1, under M3P's
     -inf keys; B5 and B3 (both entries) equal to B1 bit for bit there in
     both dtypes, with B1's keep mask; B4 against its plain version at S 159
-    and 612; K1 and B2 at S 418 and 612 against the plain version (fp32
-    key-blocked, bf16 the tensor-core kernel); the keep mask at 612. Times
+    and 612 (fp32 key-blocked, bf16 the tensor-core core); K1 and B2 at S
+    418 and 612 against the plain version (fp32 key-blocked, bf16 the
+    tensor-core kernel); the keep mask at 612. Times
     (median of 25 CUDA events, bf16, rate 0.1): B1's bare launches at
     [128, 159, 768] and [32, 612, 768] beside their bounds and the plain
     version."""
@@ -1204,7 +1313,8 @@ def phase_long_s(gen) -> dict:
             e = block_errors(block_grads(fused_attention_block, args, dy, **kw),
                              block_grads(fused_attention_block_plain, args, dy, **kw),
                              dtype, f"key-blocked S={S} {dtype}")
-            print(f"key-blocked B4 S={S} {dtype} rate {RATE}: max abs err y "
+            core = "key-blocked" if dtype == torch.float32 else "tensor-core"
+            print(f"B4 S={S} {dtype} rate {RATE} ({core} core): max abs err y "
                   f"{e['y']:.3g}, dx {e['x']:.3g}")
     for S in (418, 612):
         for dtype in (torch.float32, torch.bfloat16):
@@ -2349,8 +2459,8 @@ def main() -> int:
     bf16 = torch.bfloat16
     # `device_code`: the device code each kernel runs in bf16 on its main path
     csrc = "clg_vqa_tpu_torch/csrc/"
-    core, mma, ev = (csrc + f for f in ("attention_train.cuh", "attention_train_mma.cuh",
-                                        "attention_eval.cuh"))
+    mma, ev, gemm = (csrc + f for f in ("attention_train_mma.cuh", "attention_eval.cuh",
+                                        "gemm_wgmma.cuh"))
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
          "device_code": code, "launches": by_path[path][name],
@@ -2375,11 +2485,11 @@ def main() -> int:
              "clg_vqa_tpu/ops/attention.py:1100"),
             ("block_attention_train_fwd", "train_proj",
              f"block_attention_train_fwd/{bf16}", "block_attention_train.cu",
-             csrc + "block_attention_train.cu and " + core,
+             f"{csrc}block_attention_train.cu, {gemm} and {mma}",
              "clg_vqa_tpu/ops/attention.py:678"),
             ("block_attention_train_bwd", "train_proj",
              f"block_attention_train_bwd/{bf16}", "block_attention_train.cu",
-             csrc + "block_attention_train.cu and " + core,
+             f"{csrc}block_attention_train.cu, {gemm} and {mma}",
              "clg_vqa_tpu/ops/attention.py:726"),
             ("blocked_attention", "m3p_eval_blocked", "blocked_attention",
              "blocked_attention.cu", ev, "clg_vqa_tpu/ops/attention.py:117"),

@@ -2,9 +2,9 @@
 // shared in fp32 by the flat kernels (flat_attention_train.cu, B1), the
 // S-major kernels (smajor_attention_train.cu, B5), the head-major kernels
 // (blocked_attention_train.cu, B3, and its eval twin blocked_attention.cu,
-// B2), and in both dtypes by the core of the whole-block kernels
-// (block_attention_train.cu, B4), whose backward reads an fp32 do. In bf16,
-// B1, B5 and B3 run the tensor-core code of attention_train_mma.cuh instead.
+// B2) and the core of the whole-block kernels (block_attention_train.cu,
+// B4). Every instantiation is fp32: in bf16, B1, B5, B3 and B4 run the
+// tensor-core code of attention_train_mma.cuh, K1 and B2 attention_eval.cuh.
 //
 // Layout. Element d of head h, query row s, sample b of q, k, v, do and the
 // gradients sits at b * sample + s * row + h * head + d:
@@ -30,12 +30,13 @@
 // (ops/attention.py:dropout_keep_mask) computes the same bits, and the
 // backward replays them without storing a mask.
 //
-// What bounds it on the H100: at UC2 training (B=128, S=76, H*hd=768, bf16)
-// the forward moves ~60 MB and does ~2.3 GFLOP, the backward ~105 MB and
-// ~5.7 GFLOP. These first kernels run their products on the fp32 CUDA cores
-// (67 TFLOP/s), so they are bound by operations, not bytes (0.034 ms and
-// 0.085 ms at that peak against 0.018 ms and 0.031 ms by bytes); tensor
-// cores are left for a later change.
+// What bounds it on the H100: at UC2 training's shapes (B=128, S=76,
+// H*hd=768) in fp32 the forward moves ~120 MB and does ~2.3 GFLOP, the
+// backward ~209 MB and ~5.7 GFLOP. The products run on the fp32 CUDA cores
+// (67 TFLOP/s): 0.034 ms and 0.085 ms of operations against 0.036 ms and
+// 0.062 ms of bytes, so the backward is bound by operations and the forward
+// by both about equally. This is the fp32 parity mode; bf16 takes the
+// tensor cores.
 //
 // Design: one block per (head, sample). The forward stages K (rows padded to
 // hd+1 floats against bank conflicts) and V in shared memory as fp32, and
@@ -91,9 +92,7 @@ struct Layout {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -250,12 +249,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-// TD, the type of do: float in every instantiation (fp32 B1, B5 and B3; B4
-// in both dtypes, whose do is the fp32 product g Wo^T).
-template <typename T, typename TD, int HDIM>
+template <typename T, int HDIM>
 __global__ void __launch_bounds__(kThreads)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, const TD* __restrict__ dout,
+           const float* __restrict__ bias, const T* __restrict__ dout,
            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
            float* __restrict__ dbias_heads, int S, Layout lay, float scale, int keep_t,
            float rscale, uint64_t seed) {
@@ -468,8 +465,8 @@ __device__ __forceinline__ void stage_keys(float* Kb, float* Vb, const T* k, con
 // Every query row's softmax statistics over all keys, a key block at a time:
 // ms = the max m, ls = sum exp(s - m) and, with DP, cs = sum dp p. The rows
 // of warp w are w, w + 8, ...; each keeps its running values in ms/ls/cs.
-template <typename T, typename TD, int HDIM, bool DP>
-__device__ void row_stats(const T* q, const T* k, const T* v, const TD* dout, float* Kb,
+template <typename T, int HDIM, bool DP>
+__device__ void row_stats(const T* q, const T* k, const T* v, const T* dout, float* Kb,
                           float* Vb, const float* bs, float* ms, float* ls, float* cs,
                           float* rw, uint32_t* mw, int S, long long base, Layout lay,
                           float scale, int keep_t, float rscale, uint64_t seed, int h,
@@ -496,7 +493,7 @@ __device__ void row_stats(const T* q, const T* k, const T* v, const TD* dout, fl
       if (DP) {
         if (keep_t < 256) block_bits(mw, S, j0, i, h, b, seed, lane);
         float dor[HDIM];
-        load_row<TD, HDIM>(dor, rw, dout + row, lane);
+        load_row<T, HDIM>(dor, rw, dout + row, lane);
         block_dp<HDIM>(dor, Vb, mw, nk, keep_t, rscale, lane, dp);
       }
       const float m_old = ms[i];
@@ -543,7 +540,7 @@ fwd_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   float* pw = rw + HDIM;
   uint32_t* mw = reinterpret_cast<uint32_t*>(pw + kKeyBlock);
   for (int j = threadIdx.x; j < S; j += kThreads) bs[j] = bias[(long long)b * S + j];
-  row_stats<T, T, HDIM, false>(q, k, v, q, Kb, nullptr, bs, ms, ls, nullptr, rw, mw, S, base,
+  row_stats<T, HDIM, false>(q, k, v, q, Kb, nullptr, bs, ms, ls, nullptr, rw, mw, S, base,
                                lay, scale, keep_t, rscale, seed, h, b);
 
   // outputs of kFwdRows rows at a time; thread (warp, lane) owns rows warp,
@@ -592,10 +589,10 @@ fwd_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
-template <typename T, typename TD, int HDIM>
+template <typename T, int HDIM>
 __global__ void __launch_bounds__(kThreads)
 bwd_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ bias, const TD* __restrict__ dout,
+                   const float* __restrict__ bias, const T* __restrict__ dout,
                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
                    float* __restrict__ dbias_heads, float* __restrict__ dq32, int S, Layout lay,
                    float scale, int keep_t, float rscale, uint64_t seed) {
@@ -624,7 +621,7 @@ bwd_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   uint32_t* mw = reinterpret_cast<uint32_t*>(rw + HDIM);
   const bool drop = keep_t < 256;
   for (int j = threadIdx.x; j < S; j += kThreads) bs[j] = bias[(long long)b * S + j];
-  row_stats<T, TD, HDIM, true>(q, k, v, dout, Kb, Vb, bs, ms, ls, cs, rw, mw, S, base, lay,
+  row_stats<T, HDIM, true>(q, k, v, dout, Kb, Vb, bs, ms, ls, cs, rw, mw, S, base, lay,
                                scale, keep_t, rscale, seed, h, b);
 
   for (int j0 = 0; j0 < S; j0 += kKeyBlock) {
@@ -753,7 +750,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
 
 // dq32 != nullptr: the key-blocked backward, with dq32 its float32
 // [B, H, S, hd] dq buffer.
-template <typename T, typename TD, int HDIM>
+template <typename T, int HDIM>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                        const void* dout, void* dq, void* dk, void* dv, float* dbh,
                        int B, int S, int H, Layout lay, int keep_t, float rscale,
@@ -761,22 +758,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float*
   if (dq32) {
     static_assert(kBwdRows == 32, "the bias-gradient sum gives each lane one row");
     const size_t smem = bwd_blocked_smem_floats(S, HDIM) * sizeof(float);
-    auto kern = bwd_blocked_kernel<T, TD, HDIM>;
+    auto kern = bwd_blocked_kernel<T, HDIM>;
     cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return e;
     kern<<<dim3(H, B), kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-        static_cast<const TD*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
         static_cast<T*>(dv), dbh, dq32, S, lay, inv_sqrt(HDIM), keep_t, rscale, seed);
     return cudaGetLastError();
   }
   const size_t smem = bwd_smem_floats(S, HDIM) * sizeof(float);
-  auto kern = bwd_kernel<T, TD, HDIM>;
+  auto kern = bwd_kernel<T, HDIM>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3(H, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const TD*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), dbh, S, lay, inv_sqrt(HDIM), keep_t, rscale, seed);
   return cudaGetLastError();
 }
@@ -799,68 +796,33 @@ cudaError_t fwd_hd(int hd, const void* q, const void* k, const void* v, const fl
   }
 }
 
-template <typename T, typename TD>
+template <typename T>
 cudaError_t bwd_hd(int hd, const void* q, const void* k, const void* v, const float* bias,
                    const void* dout, void* dq, void* dk, void* dv, float* dbh, int B,
                    int S, int H, Layout lay, int keep_t, float rscale, uint64_t seed,
                    cudaStream_t st, float* dq32) {
   switch (hd) {
     case 32:
-      return launch_bwd<T, TD, 32>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
-                                   rscale, seed, st, dq32);
+      return launch_bwd<T, 32>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+                               rscale, seed, st, dq32);
     case 64:
-      return launch_bwd<T, TD, 64>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
-                                   rscale, seed, st, dq32);
+      return launch_bwd<T, 64>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+                               rscale, seed, st, dq32);
     case 128:
-      return launch_bwd<T, TD, 128>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay,
-                                    keep_t, rscale, seed, st, dq32);
+      return launch_bwd<T, 128>(q, k, v, bias, dout, dq, dk, dv, dbh, B, S, H, lay, keep_t,
+                                rscale, seed, st, dq32);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The entry points of one layout, behind the plain C interface: dtype 0 =
-// float32, 1 = bfloat16; the return value is cudaGetLastError(). The caller
-// takes the key-blocked variant (blocked = 1) where the all-keys kernel's
-// shared memory at (S, hd) does not fit one block.
+// Shared memory (bytes) of one block of the forward (backward = 0) or the
+// backward (backward = 1) at (S, hd). The caller takes the key-blocked
+// variant (blocked = 1) where the all-keys kernel's shared memory does not
+// fit one block.
 inline long long smem_bytes(int S, int hd, int backward, int blocked = 0) {
   const long long f = backward ? (blocked ? bwd_blocked_smem_floats(S, hd) : bwd_smem_floats(S, hd))
                                : (blocked ? fwd_blocked_smem_floats(S, hd) : fwd_smem_floats(S, hd));
   return f * (long long)sizeof(float);
-}
-
-inline int forward(int dtype, const void* q, const void* k, const void* v,
-                   const void* bias, void* out, int B, int S, int H, int hd, Layout lay,
-                   int keep_t, float rscale, unsigned long long seed, void* stream,
-                   int blocked = 0) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  if (dtype == 0)
-    return (int)fwd_hd<float>(hd, q, k, v, bf, out, B, S, H, lay, keep_t, rscale, seed, st,
-                              blocked);
-  if (dtype == 1)
-    return (int)fwd_hd<__nv_bfloat16>(hd, q, k, v, bf, out, B, S, H, lay, keep_t, rscale,
-                                      seed, st, blocked);
-  return (int)cudaErrorInvalidValue;
-}
-
-// B4's core: do in float32, q/k/v and the gradients in the operands' dtype.
-// dq32: null for the all-keys backward; for the key-blocked one, a float32
-// [B, H, S, hd] buffer (its contents on entry do not matter).
-inline int backward(int dtype, const void* q, const void* k, const void* v,
-                    const void* bias, const void* dout, void* dq, void* dk, void* dv,
-                    void* dbias_heads, int B, int S, int H, int hd, Layout lay, int keep_t,
-                    float rscale, unsigned long long seed, void* stream, void* dq32) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  float* dbh = static_cast<float*>(dbias_heads);
-  float* q32 = static_cast<float*>(dq32);
-  if (dtype == 0)
-    return (int)bwd_hd<float, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S, H, lay,
-                                     keep_t, rscale, seed, st, q32);
-  if (dtype == 1)
-    return (int)bwd_hd<__nv_bfloat16, float>(hd, q, k, v, bf, dout, dq, dk, dv, dbh, B, S,
-                                             H, lay, keep_t, rscale, seed, st, q32);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

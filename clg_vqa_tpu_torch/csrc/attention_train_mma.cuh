@@ -140,11 +140,12 @@ __host__ __device__ constexpr long long cmax(long long a, long long b) { return 
 // Four fp32 [S] vectors (bias, m, 1/l, D; padded to 32), then one region
 // that the two passes share: (1) the K and V ring and the Q and dO rows of
 // a pass; (2) the K and V chunk, the Q and dO ring and two query tiles' ds^T,
-// hi and lo.
-__host__ __device__ constexpr long long bwd_smem_bytes(int S, int hdim) {
+// hi and lo. lo: dO also comes as a second bf16 term (the dO rows and ring
+// twice).
+__host__ __device__ constexpr long long bwd_smem_bytes(int S, int hdim, bool lo = false) {
   return 4LL * round32(S) * (long long)sizeof(float) +
-         cmax((2LL * kStages * kKeys + 32LL * bwd_warps(S, hdim)) * (hdim + 8),
-              (32LL * bwd_warps(S, hdim) + 2LL * kQStages * kQT) * (hdim + 8) +
+         cmax((2LL * kStages * kKeys + (lo ? 48LL : 32LL) * bwd_warps(S, hdim)) * (hdim + 8),
+              (32LL * bwd_warps(S, hdim) + (lo ? 3LL : 2LL) * kQStages * kQT) * (hdim + 8) +
                   4LL * 16 * bwd_warps(S, hdim) * kLT) *
              (long long)sizeof(bf16);
 }
@@ -409,10 +410,16 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   }
 }
 
-template <int HDIM>
+// LO: dO comes as two bf16 terms, dout + dout_lo (B4's fp32 dctx), and each
+// product that reads dO is issued again with the lo term into the same
+// accumulators: dp = dO V^T (pass 1), dp^T = V dO^T and dv += p_d^T dO
+// (pass 2; the lo half of p_d is not taken against the lo term, a
+// 2^-16-relative part). Without LO the code is the one-term kernel.
+template <int HDIM, bool LO = false>
 __global__ void __launch_bounds__(bwd_max_warps(HDIM) * 32)
 bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const float* __restrict__ bias, const bf16* __restrict__ dout, bf16* __restrict__ dq,
+           const float* __restrict__ bias, const bf16* __restrict__ dout,
+           const bf16* __restrict__ dout_lo, bf16* __restrict__ dq,
            bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dbias_heads,
            float* __restrict__ dq32, const float* __restrict__ stats,
            const uint16_t* __restrict__ keep_words, int S, Layout lay, float scale, int keep_t,
@@ -435,6 +442,7 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const bf16* kb = k + base;
   const bf16* vb = v + base;
   const bf16* ob = dout + base;
+  const bf16* ol = LO ? dout_lo + base : nullptr;
   const bool drop = keep_t < 256;
   const Copier<HDIM> cp(tid, nthreads, lay);
   // the forward's row statistics; keys past S get bias -inf and rows past
@@ -460,10 +468,12 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     bf16* Vr = Kr + kStages * kKeys * LD;
     bf16* Qr = Vr + kStages * kKeys * LD;  // [rows][LD]
     bf16* Or = Qr + rows * LD;             // [rows][LD]
+    bf16* Ol = Or + rows * LD;             // LO: [rows][LD]
     const int nkt = (S + kKeys - 1) / kKeys;
     for (int p0 = 0; p0 < S; p0 += rows) {
       cp.rows(Qr, qb, p0, rows, S, lay);
       cp.rows(Or, ob, p0, rows, S, lay);
+      if (LO) cp.rows(Ol, ol, p0, rows, S, lay);
 #pragma unroll
       for (int t = 0; t < kStages - 1; ++t) {
         if (t < nkt) {
@@ -523,6 +533,11 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
           for (int x = 0; x < 4; ++x) sc[n][x] = dp[n][x] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk) {
+          // LO: the lo term's fragment, read here rather than kept
+          uint32_t dl[4];
+          if (LO)
+            ldmatrix_x4(dl, Ol + (warp * 16 + (quad & 1) * 8 + r8) * LD + kk * 16 +
+                                (quad >> 1) * 8);
 #pragma unroll
           for (int n = 0; n < kKeys / 16; ++n) {
             if (n >= ng) break;
@@ -534,6 +549,10 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
             mma_bf16(sc[2 * n + 1], qa[kk], bk[2], bk[3]);
             mma_bf16(dp[2 * n], da[kk], bv[0], bv[1]);
             mma_bf16(dp[2 * n + 1], da[kk], bv[2], bv[3]);
+            if (LO) {
+              mma_bf16(dp[2 * n], dl, bv[0], bv[1]);
+              mma_bf16(dp[2 * n + 1], dl, bv[2], bv[3]);
+            }
           }
         }
 #pragma unroll
@@ -568,7 +587,8 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   bf16* Vc = Kc + rows * LD;
   bf16* Qq = Vc + rows * LD;             // [kQStages][kQT][LD]
   bf16* Oq = Qq + kQStages * kQT * LD;
-  bf16* Ts = Oq + kQStages * kQT * LD;   // [2][hi, lo][rows][kLT]: ds^T of two query tiles
+  bf16* Olq = Oq + kQStages * kQT * LD;  // LO: the lo term's ring
+  bf16* Ts = Olq + (LO ? kQStages * kQT * LD : 0);   // [2][hi, lo][rows][kLT]: ds^T of two query tiles
   const int nqt = (S + kQT - 1) / kQT;
   const bool chunked = rows < S;         // dq summed over chunks in dq32
   float* q32 = chunked ? dq32 + ((long long)b * H + h) * S * HDIM : nullptr;
@@ -582,6 +602,7 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       if (t < nqt) {
         cp.rows(Qq + t * kQT * LD, qb, t * kQT, kQT, S, lay);
         cp.rows(Oq + t * kQT * LD, ob, t * kQT, kQT, S, lay);
+        if (LO) cp.rows(Olq + t * kQT * LD, ol, t * kQT, kQT, S, lay);
       }
       cp_async_commit();
     }
@@ -654,11 +675,13 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
       if (tn < nqt) {
         cp.rows(Qq + (tn % kQStages) * kQT * LD, qb, tn * kQT, kQT, S, lay);
         cp.rows(Oq + (tn % kQStages) * kQT * LD, ob, tn * kQT, kQT, S, lay);
+        if (LO) cp.rows(Olq + (tn % kQStages) * kQT * LD, ol, tn * kQT, kQT, S, lay);
       }
       cp_async_commit();
       const int i0 = t * kQT;
       const bf16* qs = Qq + (t % kQStages) * kQT * LD;
       const bf16* os = Oq + (t % kQStages) * kQT * LD;
+      const bf16* ls = Olq + (t % kQStages) * kQT * LD;
       if (kactive) {
         // the keep bits of the warp's 16 keys for this lane's 8 queries
         // (n * 8 + 2 t4 + e), from pass 1
@@ -697,6 +720,12 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
             mma_bf16(sT[2 * m + 1], ka, bq[2], bq[3]);
             mma_bf16(pT[2 * m], va, bo[0], bo[1]);
             mma_bf16(pT[2 * m + 1], va, bo[2], bo[3]);
+            if (LO) {
+              uint32_t bl[4];
+              ldmatrix_x4(bl, ls + off);
+              mma_bf16(pT[2 * m], va, bl[0], bl[1]);
+              mma_bf16(pT[2 * m + 1], va, bl[2], bl[3]);
+            }
           }
         }
         // p_d^T into sT, ds^T into pT
@@ -749,6 +778,12 @@ bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
             mma_bf16(adv[2 * n + 1], ph, bo[2], bo[3]);
             mma_bf16(adv[2 * n], pl, bo[0], bo[1]);
             mma_bf16(adv[2 * n + 1], pl, bo[2], bo[3]);
+            if (LO) {
+              uint32_t bl[4];
+              ldmatrix_x4_trans(bl, ls + off);
+              mma_bf16(adv[2 * n], ph, bl[0], bl[1]);
+              mma_bf16(adv[2 * n + 1], ph, bl[2], bl[3]);
+            }
             mma_bf16(adk[2 * n], sh, bq[0], bq[1]);
             mma_bf16(adk[2 * n + 1], sh, bq[2], bq[3]);
             mma_bf16(adk[2 * n], sl, bq[0], bq[1]);
@@ -806,20 +841,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
-template <int HDIM>
+template <int HDIM, bool LO>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
-                       const void* dout, const float* stats, const uint16_t* words, void* dq,
-                       void* dk, void* dv, float* dbh, float* dq32, int B, int S, int H,
-                       Layout lay, int keep_t, float rscale, cudaStream_t st) {
+                       const void* dout, const void* dout_lo, const float* stats,
+                       const uint16_t* words, void* dq, void* dk, void* dv, float* dbh,
+                       float* dq32, int B, int S, int H, Layout lay, int keep_t, float rscale,
+                       cudaStream_t st) {
   if (16 * bwd_warps(S, HDIM) < S && dq32 == nullptr) return cudaErrorInvalidValue;
   if (stats == nullptr || (keep_t < 256 && words == nullptr)) return cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(S, HDIM);
-  auto kern = bwd_kernel<HDIM>;
+  if (LO && dout_lo == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(S, HDIM, LO);
+  auto kern = bwd_kernel<HDIM, LO>;
   cudaError_t e = attn_train::set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3(H, B), 32 * bwd_warps(S, HDIM), smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      bias, static_cast<const bf16*>(dout), static_cast<const bf16*>(dout_lo),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dbh, dq32, stats, words, S, lay, attn_train::inv_sqrt(HDIM),
       keep_t, rscale);
   return cudaGetLastError();
@@ -828,8 +866,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float*
 // The entry points behind the plain C interface, bf16 operands in layout
 // lay, bias float32 [B, S]; S >= 1, hd 32, 64 or 128. Each returns
 // cudaGetLastError() (cudaErrorInvalidValue for an hd it does not take).
-inline long long smem_bytes(int S, int hd, int backward) {
-  return backward ? bwd_smem_bytes(S, hd) : fwd_smem_bytes(S, hd);
+// lo: the backward that takes dO as two bf16 terms.
+inline long long smem_bytes(int S, int hd, int backward, bool lo = false) {
+  return backward ? bwd_smem_bytes(S, hd, lo) : fwd_smem_bytes(S, hd);
 }
 
 // Whether the backward at (S, hd) sums dq over key chunks in a float32
@@ -862,14 +901,16 @@ inline int forward(const void* q, const void* k, const void* v, const void* bias
 }
 
 // The backward reads the forward's stats and (with dropout) words; dq32 as
-// needs_dq32 says, else null.
+// needs_dq32 says, else null. LO: dO is dout + dout_lo, two bf16 terms.
+template <bool LO = false>
 inline int backward(const void* q, const void* k, const void* v, const void* bias,
                     const void* dout, const void* stats, const void* words, void* dq, void* dk,
                     void* dv, void* dbias_heads, void* dq32, int B, int S, int H, int hd,
-                    Layout lay, int keep_t, float rscale, void* stream) {
+                    Layout lay, int keep_t, float rscale, void* stream,
+                    const void* dout_lo = nullptr) {
   return (int)by_hd(hd, [&](auto c) {
-    return launch_bwd<decltype(c)::value>(
-        q, k, v, static_cast<const float*>(bias), dout, static_cast<const float*>(stats),
+    return launch_bwd<decltype(c)::value, LO>(
+        q, k, v, static_cast<const float*>(bias), dout, dout_lo, static_cast<const float*>(stats),
         static_cast<const uint16_t*>(words), dq, dk, dv, static_cast<float*>(dbias_heads),
         static_cast<float*>(dq32), B, S, H, lay, keep_t, rscale,
         static_cast<cudaStream_t>(stream));

@@ -48,8 +48,9 @@ int blocked_attention_fwd(int dtype, const void* q, const void* k, const void* v
     return blocked ? (int)cudaErrorInvalidValue
                    : attn_eval::forward(q, k, v, bias, out, B, S, H, hd, head_major, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, head_major, 256, 1.0f,
-                             0ULL, stream, blocked);
+  return (int)attn_train::fwd_hd<float>(hd, q, k, v, static_cast<const float*>(bias), out, B,
+                                        S, H, head_major, 256, 1.0f, 0ULL,
+                                        static_cast<cudaStream_t>(stream), blocked);
 }
 
 }  // extern "C"

@@ -79,7 +79,7 @@ int blocked_attention_train_bwd(int dtype, const void* q, const void* k, const v
                                 int keep_t, float rscale, unsigned long long seed,
                                 void* stream, void* dq32) {
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)attn_train::bwd_hd<float, float>(
+  return (int)attn_train::bwd_hd<float>(
       hd, q, k, v, static_cast<const float*>(bias), dout, dq, dk, dv,
       static_cast<float*>(dbias_heads), B, S, H, head_major(S, H, hd), keep_t, rscale, seed,
       static_cast<cudaStream_t>(stream), static_cast<float*>(dq32));

@@ -184,8 +184,9 @@ int flat_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                    : attn_eval::forward(q, k, v, bias, out, B, S, H, hd, flat, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (blocked)
-    return attn_train::forward(dtype, q, k, v, bias, out, B, S, H, hd, flat, 256, 1.0f, 0ULL,
-                               stream, 1);
+    return (int)attn_train::fwd_hd<float>(hd, q, k, v, static_cast<const float*>(bias), out,
+                                          B, S, H, flat, 256, 1.0f, 0ULL,
+                                          static_cast<cudaStream_t>(stream), 1);
   return (int)dispatch_hd(q, k, v, static_cast<const float*>(bias), out, B, S, H, hd,
                           static_cast<cudaStream_t>(stream));
 }

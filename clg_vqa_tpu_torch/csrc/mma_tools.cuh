@@ -1,8 +1,9 @@
 // Warp-level tensor-core and async-copy tools for Hopper (sm_90a), shared by
-// the whole-block training attention (block_attention_train.cu, B4) and the
-// bf16 eval attention (attention_eval.cuh, K1 and B2): 16-byte cp.async
-// copies with zero fill, ldmatrix (plain and .trans) of four 8x8 bf16
-// matrices, and the bf16 mma.sync.m16n8k16 with fp32 accumulators.
+// the bf16 eval attention (attention_eval.cuh, K1 and B2) and the bf16
+// training attention (attention_train_mma.cuh, B1, B5, B3 and B4's core):
+// 16-byte cp.async copies with zero fill, ldmatrix (plain and .trans) of
+// four 8x8 bf16 matrices, and the bf16 mma.sync.m16n8k16 with fp32
+// accumulators.
 #pragma once
 
 #include <cuda_bf16.h>

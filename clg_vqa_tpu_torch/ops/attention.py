@@ -448,11 +448,11 @@ def _launch_train_fwd(name: str, q, k, v, b2, out, B: int, S: int,
 def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
                       num_heads: int, keep_t: int, seed: int, stats=None,
                       words=None):
-    """dq, dk, dv in q's layout and the bias gradient [B, S], summed over
-    heads here in a fixed order, so the bits do not vary between runs. bf16
-    runs the tensor-core backward on the forward's stats and words (it
-    refuses a call without them); fp32 the ``attention_train.cuh`` kernel,
-    which recomputes p and replays the keep bits. Past one key chunk (bf16)
+    """dq, dk, dv in q's layout and the bias gradient per head [B, H, S]
+    (the caller sums it over heads). bf16 runs the tensor-core backward on
+    the forward's stats and words (it refuses a call without them); fp32 the
+    ``attention_train.cuh`` kernel, which recomputes p and replays the keep
+    bits. Past one key chunk (bf16)
     or one block's shared memory (fp32, the key-blocked kernel) the backward
     also takes a float32 [B, H, S, hd] dq buffer."""
     hd = q.numel() // (B * S * num_heads)
@@ -481,7 +481,7 @@ def _launch_train_bwd(name: str, q, k, v, b2, dout, B: int, S: int,
                   256.0 / keep_t, seed, stream, _ptr(dq32))
     if err != 0:
         raise RuntimeError(f"{name} backward launch failed: CUDA error {err}")
-    return dq, dk, dv, db_heads.sum(1)
+    return dq, dk, dv, db_heads
 
 
 class _TrainFn(torch.autograd.Function):
@@ -508,9 +508,10 @@ class _TrainFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, b2, stats, words = ctx.saved_tensors
         name, entry, *meta = ctx.meta
-        grads = _launch_train_bwd(name, q, k, v, b2, dout, *meta, stats, words)
+        dq, dk, dv, db_heads = _launch_train_bwd(name, q, k, v, b2, dout, *meta,
+                                                 stats, words)
         entry.backward_launches += 1
-        return (*grads,) + (None,) * 7
+        return (dq, dk, dv, db_heads.sum(1)) + (None,) * 7
 
 
 def fused_attention_train_flat(q: torch.Tensor, k: torch.Tensor,

@@ -8,10 +8,12 @@ other, bit for bit.
 (its kernels build into ROOT/build/torch_kernels), runs every attention
 kernel whose bits a change to the shared CUDA headers must keep on fixed
 inputs made from seeds, and saves the outputs and gradients: fp32 B1, B5
-and B3 (both entries) all-keys and key-blocked, bf16 B3 both ways and the
-bf16 forwards of B1, B5 and B3, B4 in both dtypes, K1 and B2 in both
-dtypes. ``compare`` counts the cases whose tensors are equal and names the
-others; it exits 1 if any differs. To check a change against its parent,
+and B3 (both entries) all-keys and key-blocked, bf16 B3 both ways, the
+bf16 forwards of B1, B5 and B3 and B1's and B5's bf16 backwards, B4 in both
+dtypes, K1 and B2 in both dtypes. ``compare`` counts the cases whose
+tensors are equal and names the others; it exits 1 if any differs (a PR
+that redesigns a kernel expects that kernel's cases, and only those, to
+differ). To check a change against its parent,
 unpack the parent commit (``git archive``) into a gitignored directory and
 run both checkouts on one card. Needs a CUDA device.
 """
@@ -64,12 +66,15 @@ def run(root, out):
                     for name, fn in train.items():
                         res[f"fp32 {name} S{S} hd{hd} inf{int(neg_inf)} r{rate}"] = grads(
                             fn, q, k, v, bias, w, H, dropout_rate=rate, seed=17)
-    # bf16 B3 both ways (its device code is unchanged); bf16 B1, B5 forwards
+    # bf16 B3 both ways; bf16 B1, B5 both ways and B3's forward
     for S in (13, 76, 140, 160, 161, 612):
         q, k, v, bias, w = inputs(8, S, 12, 64, torch.bfloat16, True, S)
         for rate in (0.0, 0.1):
             kw = dict(dropout_rate=rate, seed=19)
             res[f"bf16 B3hm S{S} r{rate}"] = grads(hm_train, q, k, v, bias, w, 12, **kw)
+            for name in ("B1", "B5"):
+                res[f"bf16 {name} S{S} r{rate}"] = grads(train[name], q, k, v, bias, w, 12,
+                                                         **kw)
             with torch.no_grad():
                 for name in ("B1", "B5", "B3"):
                     res[f"bf16 {name} fwd S{S} r{rate}"] = train[name](

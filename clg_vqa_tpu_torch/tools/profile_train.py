@@ -41,13 +41,14 @@ from .profile_eval import model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
-# The attention core: attn_train::fwd_kernel / bwd_kernel (fp32 B1, B5 and
-# B3, and B4's core in both dtypes) and attn_train_mma::fwd_kernel /
-# bwd_kernel (the tensor-core kernels of bf16 B1, B5 and B3); the
-# key-blocked twins match the same keys.
+# The attention core: attn_train::fwd_kernel / bwd_kernel (fp32 B1, B5, B3
+# and B4's core) and attn_train_mma::fwd_kernel / bwd_kernel (the
+# tensor-core kernels of bf16 B1, B5, B3 and B4); the key-blocked twins
+# match the same keys. B4's products are gemm_wgmma's kernels (bf16) and
+# b4_fp32_kernel, its sums b4_*_kernel.
 GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
           ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<", "bwd_blocked_kernel<")),
-          ("B4 products and sums", ("b4_",)),
+          ("B4 products and sums", ("b4_", "gemm_wgmma")),
           ("rows_gather", ("rows_gather_kernel",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
           ("softmax", ("softmax",)),

@@ -466,6 +466,231 @@ def test_block_on_chip_properties(cuda, prop):
         assert err <= 1e-4 * scale, (name, err, scale)
 
 
+BLOCK_S = [1, 13, 76, 140, 159, 160, 161, 418, 612]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", BLOCK_S)
+def test_bf16_block_kernels_match_plain(cuda, S, hd):
+    """bf16 B4 (its products on wgmma, its core the tensor-core kernels
+    taking dctx as hi + lo) against the plain version with
+    _assert_block_close's bf16 tolerances at rates 0 and 0.1 under each of
+    _train_biases (UC2's -10000 padding, -inf keys, a sample's leading keys
+    -inf); a second run gives the same bits. The core's own gates (B1's,
+    the bias gradient within 1e-4) need the plain version's q, k and v,
+    which the kernel's projections may round otherwise by an ulp: the CPU
+    emulation (tests/test_torch_b4_mma_numerics.py) holds them, and the
+    identity gate below holds the core to B1 bit for bit."""
+    H, B = 384 // hd, 4
+    args, w = _block_inputs(cuda, B, S, H, hd, torch.bfloat16, seed=S)
+    for bias in _train_biases(cuda, B, S, H, hd):
+        a = args[:-1] + [bias]
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=77)
+            got = _block_grads(TB.fused_attention_block, a, w, H, **kw)
+            again = _block_grads(TB.fused_attention_block, a, w, H, **kw)
+            assert torch.equal(got[0], again[0])
+            assert all(torch.equal(x, y) for x, y in zip(got[1], again[1]))
+            want = _block_grads(TB.fused_attention_block_plain, a, w, H, **kw)
+            _assert_block_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 161])
+def test_bf16_block_with_identity_weights_is_b1_bit_for_bit(cuda, S):
+    """With Wq = Wk = Wv = Wo = I and zero biases every product of bf16 B4 is
+    exact and dctx's lo term is zero, so B4 is B1 on q = k = v = x: y is
+    B1's output, the bias gradient B1's per-head gradients summed in order
+    h = 0..H-1 (B1's own entry sums with db_heads.sum(1), whose order is not
+    fixed, so its launcher's per-head buffer is summed here), and dx is
+    (dq + dk) + dv of B1's bf16 gradients, in bf16 in that order. Bit for
+    bit, at rates 0 and 0.1."""
+    B, H, hd = 4, 12, 64
+    D = H * hd
+    x, _, _, bias = _attention_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1)).bfloat16()
+    eye, zb = torch.eye(D, device=cuda).bfloat16(), torch.zeros(D, device=cuda)
+    b2 = TA._bias2(bias, B, S)
+    for rate in (0.0, 0.1):
+        t = TA.keep_threshold(rate)
+        ins = [a.detach().clone().requires_grad_() for a in [x] + [eye, zb] * 4 + [bias]]
+        y = TB.fused_attention_block(*ins, H, dropout_rate=rate, seed=5)
+        grads = torch.autograd.grad(y, ins, g)
+        out = torch.empty_like(x)
+        stats, words = TA._train_buffers(x, B, H, S, t)
+        TA._launch_train_fwd(TA._FLAT, x, x, x, b2, out, B, S, H, t, 5, stats, words)
+        dq, dk, dv, dbh = TA._launch_train_bwd(TA._FLAT, x, x, x, b2, g, B, S, H, t, 5,
+                                               stats, words)
+        assert torch.equal(y, out)
+        assert torch.equal(grads[-1].view(B, S), _sum_heads(dbh))
+        assert torch.equal(grads[0], (dq + dk) + dv)
+
+
+def _sum_heads(dbh: torch.Tensor) -> torch.Tensor:
+    """[B, H, S] summed over heads in order h = 0..H-1, as B4 sums them."""
+    db = dbh[:, 0]
+    for h in range(1, dbh.shape[1]):
+        db = db + dbh[:, h]
+    return db
+
+
+def _core_gate_misses(dx, dbias, want, *, B, S, D):
+    """What of B1's gates a bf16 B4 core misses against the plain core's
+    fp32 (dq, dk, dv, per-head bias gradient) ``want`` on q = k = v = x:
+    the bias gradient within 1e-4 of its largest value, and dx = (dq + dk)
+    + dv in bf16 within two bf16 ulps of each term's largest value plus one
+    ulp of the largest partial sum for the two bf16 roundings of the sums.
+    An empty list when both hold."""
+    dq, dk, dv = (t.view(B, S, D) for t in want[:3])
+    db = _sum_heads(want[3])
+    tol_x = (2 * sum(_bf16_ulp(t.abs().max().item()) for t in (dq, dk, dv))
+             + _bf16_ulp(max((dq + dk).abs().max().item(), (dq + dk + dv).abs().max().item())))
+    err_x = (dx.float() - (dq + dk + dv)).abs().max().item()
+    tol_b = 1e-4 * db.abs().max().item()
+    err_b = (dbias.float().view(B, S) - db).abs().max().item()
+    misses = []
+    if err_x > tol_x:
+        misses.append(f"dx {err_x} > {tol_x}")
+    if err_b > tol_b:
+        misses.append(f"bias gradient {err_b} > {tol_b}")
+    return misses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [13, 76, 161])
+def test_bf16_block_core_takes_dctx_as_hi_and_lo(cuda, S):
+    """The core of bf16 B4 isolated on the card: with Wq = Wk = Wv = I and
+    zero biases its q, k and v are x exactly, and a random Wo gives
+    dctx = g Wo a nonzero lo term. B4's bias gradient and dx are held to
+    the plain core (_core_backward_plain on x, x, x and the fp32 dctx) with
+    B1's gates (_core_gate_misses), at rates 0 and 0.1. The control, B1's
+    backward on hi = bf16(dctx) alone (what B4's kernel computes if it
+    drops the lo products), must miss the bias-gradient gate, so the gate
+    sees the lo term."""
+    B, H, hd = 4, 12, 64
+    D = H * hd
+    gen = torch.Generator(cuda).manual_seed(3)
+    x, _, _, bias = _attention_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    g = torch.randn(x.shape, device=cuda, generator=gen).bfloat16()
+    wo = (torch.randn(D, D, device=cuda, generator=gen) / D ** 0.5).bfloat16()
+    eye, zb = torch.eye(D, device=cuda).bfloat16(), torch.zeros(D, device=cuda)
+    b2 = TA._bias2(bias, B, S)
+    dctx = (g.float().view(B * S, D) @ wo.float()).view(B, S, D)
+    for rate in (0.0, 0.1):
+        t = TA.keep_threshold(rate)
+        ins = [a.detach().clone().requires_grad_()
+               for a in [x, eye, zb, eye, zb, eye, zb, wo, zb, bias]]
+        y = TB.fused_attention_block(*ins, H, dropout_rate=rate, seed=9)
+        grads = torch.autograd.grad(y, ins, g)
+        want = TB._core_backward_plain(x, x, x, b2.float(), dctx, H, t, 9)
+        assert _core_gate_misses(grads[0], grads[-1], want, B=B, S=S, D=D) == []
+        out = torch.empty_like(x)
+        stats, words = TA._train_buffers(x, B, H, S, t)
+        TA._launch_train_fwd(TA._FLAT, x, x, x, b2, out, B, S, H, t, 9, stats, words)
+        dq, dk, dv, dbh = TA._launch_train_bwd(TA._FLAT, x, x, x, b2, dctx.bfloat16(), B,
+                                               S, H, t, 9, stats, words)
+        misses = _core_gate_misses((dq + dk) + dv, _sum_heads(dbh), want, B=B, S=S, D=D)
+        assert any(m.startswith("bias gradient") for m in misses), misses
+
+
+def _dyadic(shape, dev, gen):
+    """bf16 values i/8, |i| <= 16: every fp32 sum of their products is
+    exact, whatever its order."""
+    return (torch.randint(-16, 17, shape, device=dev, generator=gen) / 8).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("epilogue", TB.EPILOGUES)
+def test_wgmma_product_matches_mm(cuda, epilogue, wide):
+    """B4's product kernel alone (csrc/gemm_wgmma.cuh) against torch.mm in
+    fp32 on the same bf16 operands, at M = 296 and K = 200 (neither a
+    multiple of the 128 x 64 tile: TMA's zero fill and the masked stores;
+    both multiples of 8, as TMA's 16-byte row strides need), N = 256, in
+    each epilogue's layouts: bias (three jobs) within one bf16 ulp of the
+    largest output; hi + lo within 2e-5 of the largest product against a
+    float64 product (the two terms keep ~16 bits, 2^-17 = 7.6e-6 of a value,
+    beside the fp32 accumulator's rounding); the weight-gradient partials
+    (four jobs, four K ranges) and column sums summed over the ranges
+    within 1e-5 of the largest; the three jobs' bf16 sum bit for bit on
+    dyadic operands, whose fp32 sums are exact in any order. Both tile
+    widths, 128 x 128 and 128 x 256 (N = 384 there: one and a half tiles)."""
+    M, N, K = 296, 384 if wide else 256, 200
+    gen = torch.Generator(cuda).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen).bfloat16()
+
+    if epilogue == "bias":
+        a, b = [rnd(M, K) for _ in range(3)], [rnd(N, K) for _ in range(3)]
+        bias = [torch.randn(N, device=cuda, generator=gen) for _ in range(3)]
+        for out, aj, bj, cj in zip(TB.wgmma_product("bias", a, b, bias, wide=wide), a, b, bias):
+            ref = aj.float() @ bj.float().t() + cj
+            assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+            assert (out.float() - ref).abs().max().item() <= _bf16_ulp(ref.abs().max().item())
+    elif epilogue == "hilo":
+        a, b = rnd(M, K), rnd(K, N)
+        (out,) = TB.wgmma_product("hilo", [a], [b], wide=wide)
+        ref = a.double() @ b.double()
+        err = (out[0].double() + out[1].double() - ref).abs().max().item()
+        assert out.shape == (2, M, N) and err <= 2e-5 * ref.abs().max().item()
+    elif epilogue == "wgrad":
+        a, b = [rnd(K, M) for _ in range(4)], [rnd(K, N) for _ in range(4)]
+        for (part, cs), aj, bj in zip(TB.wgmma_product("wgrad", a, b, ksplit=4, wide=wide), a, b):
+            ref = aj.float().t() @ bj.float()
+            assert part.shape == (4, M, N) and cs.shape == (4, M)
+            assert (part.sum(0) - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+            cref = aj.float().sum(0)
+            assert (cs.sum(0) - cref).abs().max().item() <= 1e-5 * cref.abs().max().item()
+    else:
+        a, b = [_dyadic((M, K), cuda, gen) for _ in range(3)], [
+            _dyadic((K, N), cuda, gen) for _ in range(3)]
+        (out,) = TB.wgmma_product("sum", a, b, wide=wide)
+        r = [(aj.double() @ bj.double()).bfloat16() for aj, bj in zip(a, b)]
+        assert torch.equal(out, (r[0] + r[1]) + r[2])
+
+
+@pytest.mark.cuda
+def test_bf16_block_kernel_refuses_unaligned_operands(cuda):
+    """B4's products read their operands by TMA and its core copies 16-byte
+    rows: an x or a weight that starts off a 16-byte boundary raises rather
+    than faults. A cotangent off one, as autograd may hand it, is copied
+    first, so its gradients equal an aligned cotangent's bit for bit.
+    Nothing falls back: the bf16 backward without the forward's statistics
+    returns cudaErrorInvalidValue (1)."""
+    B, S, H, hd = 2, 13, 4, 64
+    args, w = _block_inputs(cuda, B, S, H, hd, torch.bfloat16)
+    kw = dict(dropout_rate=0.1, seed=3)
+    for i in (0, 1, 7):
+        bad = list(args)
+        bad[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            TB.fused_attention_block(*bad, H, **kw)
+    grads = []
+    dy = w.bfloat16()
+    for d in (dy, _shifted(dy)):
+        ins = [t.detach().clone().requires_grad_() for t in args]
+        grads.append(torch.autograd.grad(TB.fused_attention_block(*ins, H, **kw), ins, d))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    x = args[0]
+    f32 = dict(dtype=torch.float32, device=cuda)
+    D = H * hd
+    q, k, v, c, dq, dk, dv, dx = (torch.empty_like(x) for _ in range(8))
+    dctx = torch.empty(2, B, S, D, dtype=x.dtype, device=cuda)
+    dw = [torch.empty_like(args[1]) for _ in range(4)]
+    db = [torch.empty(D, **f32) for _ in range(4)]
+    scratch = torch.empty(TB._entry("scratch_floats")(D), **f32)
+    b2 = TA._bias2(args[-1], B, S)
+    t = TA.keep_threshold(0.1)
+    ptrs = [x, q, k, v, c, b2, dy, *args[1:9:2], dctx, dq, dk, dv,
+            torch.empty(B, H, S, **f32), torch.empty(B, S, **f32), dx, *dw, *db, scratch]
+    assert len(ptrs) == 27
+    err = TB._entry("bwd")(1, *[p.data_ptr() for p in ptrs], None, None, B, S, H, hd, t,
+                           256.0 / t, 3, torch.cuda.current_stream().cuda_stream, None)
+    assert err == 1
+
+
 # ---------------------------------------------------------------------------
 # B2 / B3: the head-blocked attention (M3P's fused_attn=True and "hm")
 # ---------------------------------------------------------------------------
