@@ -30,7 +30,10 @@ final line:
     with identity q/k/v weights and a random Wo its core, taking dctx as
     hi + lo bf16 terms, is held to B1's gates against the plain core on the
     fp32 dctx, which hi alone misses; it is bit-deterministic, and timed beside its bound, the plain version,
-    multi_head_attention_forward and the flat route.
+    multi_head_attention_forward and the flat route. The bank row gather
+    (K2) is held bit for bit to its plain version and timed in turns with
+    index_select at the eval (x 1024), train (x 128) and serving (x 8) calls
+    on UC2's [400, 36, 2048] fp32 bank and at M3P eval's [400, 100, 2048].
  4. the eval path at UC2's full width (12 x 768, vocab 250002, 1842
     answers; random weights from a seed): run_eval at batch 1024 in bf16
     over a synthetic 400-image CFS store and device feature bank, then
@@ -72,11 +75,13 @@ final line:
     auto route, which runs B1's tensor-core backward at its one-chunk limit
     (10 warps at hd 64).
 11. the detector: RoIPool (B6) at the C4 extractor's shape ([50, 84, 1024]
-    bf16, 300 rois) bit-exact against its plain version and timed; then
+    bf16, 300 rois) bit-exact against its plain version, also on a map with
+    NaN and infinities, and timed; then
     `python -m clg_vqa_tpu_torch.cli extract --detector c4` in process at
     full width and depth (R101-C4, pad 800 x 1344, bf16, random weights
     from seed 0) over 8 synthetic 480 x 640 images (one B6 launch each),
-    the store read back, the extractor timed warm, and a full-width UC2
+    the store read back, the extractor timed warm, B6 timed on one image's
+    own feature map and proposals, and a full-width UC2
     run_eval over 64 questions on the extracted store (K1, K2).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
@@ -152,6 +157,7 @@ from clg_vqa_tpu_torch.ops.block_attention import (
     _core_backward_plain, fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
 from clg_vqa_tpu_torch.ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
+from clg_vqa_tpu_torch.tools.measure import bound_ms, c4_rois, time_ms
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
@@ -161,10 +167,6 @@ from clg_vqa_tpu_torch.train.optim import (make_optimizer,
                                            warmup_constant_schedule,
                                            warmup_linear_schedule)
 from clg_vqa_tpu_torch.utils.convert import load_numpy_state
-
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 EVAL_BS = 1024
 N_IMAGES, N_QA = 400, 8192
@@ -191,29 +193,6 @@ C4_SHAPE, C4_ROIS = (50, 84, 1024), 300
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def time_ms(fn, n: int = 25) -> float:
-    """Median of n CUDA-event timings of fn(), after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bf16_ulp(x: float) -> float:
@@ -314,27 +293,57 @@ def phase_kernels() -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=bms, bound_by=by)
 
+    out["rows_gather"] = phase_rows_gather(gen)
+    return out
+
+
+def gather_case(bank, idx, label: str) -> dict:
+    """K2 at one call's shape: bit-exact against its plain version, then the
+    kernel and index_select timed in turns (kernel, library, library,
+    kernel) beside the byte bound: each distinct bank row the call touches
+    read once, every output row written once, the indices read once."""
+    got = rows_gather(bank, idx)
+    check(torch.equal(got, rows_gather_plain(bank, idx)), f"K2 {label} is not bit-exact")
+    kern = lambda: rows_gather(bank, idx)                  # noqa: E731
+    lib = lambda: torch.index_select(bank, 0, idx)         # noqa: E731
+    k1, l1, l2, k2 = time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern)
+    n_unique = torch.unique(idx).numel()
+    row = bank[0].numel() * bank.element_size()
+    nbytes = (n_unique + idx.numel()) * row + idx.numel() * 4
+    bms, by = bound_ms(nbytes, 0, torch.float32)
+    ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+    print(f"K2 {label}: {list(bank.shape)} {bank.dtype} x {idx.numel()} "
+          f"({n_unique} distinct rows): bit-exact; kernel {k1:.4f} / {k2:.4f} ms, "
+          f"index_select {l1:.4f} / {l2:.4f} ms (in turns; kernel / library "
+          f"{ms / lib_ms:.2f}x), bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB; "
+          f"{bms / ms:.1%} of it)")
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                kernel_ms_in_turns=[k1, k2], library_ms_in_turns=[l1, l2])
+
+
+def phase_rows_gather(gen) -> dict:
+    """K2, the bank row gather (csrc/rows_gather.cu), at the main
+    paths' calls: UC2 eval (bank [400, 36, 2048] fp32 x 1024 indices; the
+    kernel line's numbers), the train step's (x 128), serving's (x 8) and
+    M3P eval's rows ([400, 100, 2048] x 1024); then the eval call's plain
+    version alone."""
     N, C = N_IMAGES, 2048
     bank = torch.randn(N, R, C, device="cuda", generator=gen)
-    idx = torch.randint(0, N, (EVAL_BS,), device="cuda", generator=gen,
-                        dtype=torch.int32)
-    got = rows_gather(bank, idx)
-    ref = rows_gather_plain(bank, idx)
-    check(torch.equal(got, ref), "rows_gather is not bit-exact")
-    ms = time_ms(lambda: rows_gather(bank, idx))
-    plain = time_ms(lambda: rows_gather_plain(bank, idx))
-    lib = time_ms(lambda: torch.index_select(bank, 0, idx))
-    # bytes this call needs: each bank row it touches read once, every
-    # output row written once, the indices read once
-    n_unique = torch.unique(idx).numel()
-    nbytes = (n_unique + EVAL_BS) * R * C * 4 + EVAL_BS * 4
-    bms, by = bound_ms(nbytes, 0, torch.float32)
-    print(f"K2 [{N},{R},{C}] fp32 x {EVAL_BS} ({n_unique} distinct rows): "
-          f"bit-exact; kernel {ms:.4f} ms, plain {plain:.4f} ms, index_select "
-          f"{lib:.4f} ms, bound {bms:.4f} ms ({nbytes / 1e6:.1f} MB)")
-    out["rows_gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                              library_ms=lib, bound_ms=bms, bound_by=by)
-    return out
+    calls, idxs = {}, {}
+    for label, B in (("eval", EVAL_BS), ("train", MBS), ("serving", 8)):
+        idxs[label] = torch.randint(0, N, (B,), device="cuda", generator=gen,
+                                    dtype=torch.int32)
+        calls[label] = gather_case(bank, idxs[label], label)
+    plain = time_ms(lambda: rows_gather_plain(bank, idxs["eval"]))
+    del bank
+    m3p = torch.randn(N, 100, C, device="cuda", generator=gen)
+    idx = torch.randint(0, N, (EVAL_BS,), device="cuda", generator=gen, dtype=torch.int32)
+    calls["m3p_eval"] = gather_case(m3p, idx, "m3p_eval")
+    del m3p
+    torch.cuda.empty_cache()
+    ev = calls["eval"]
+    return dict(max_abs_err=0.0, ms=ev["ms"], plain_ms=plain, library_ms=ev["library_ms"],
+                bound_ms=ev["bound_ms"], bound_by=ev["bound_by"], calls=calls)
 
 
 def train_attention(q, k, v, bias, do, *, plain=False, **kw):
@@ -2105,20 +2114,14 @@ def phase_roi_pool(gen) -> dict:
     800 x 1344 at stride 16) and 300 rois (random ones over the padded
     image plus rois past its edges, degenerate ones and one far larger than
     max_bin bins) -> [300, 14, 14, 1024]; bit-exact against the plain
-    version, the same bits twice; median of 25 CUDA-event timings beside the
-    byte bound and the plain version (no library RoIPool: torchvision is
-    absent)."""
+    version, the same bits twice, and bit-exact again on the map with 1% of
+    its elements each NaN, +inf and -inf (a bin holding a NaN gives 0, as
+    JAX's ops/roi.py gives); the kernel timed before and after the plain
+    version (median of 25 CUDA-event timings each) beside the byte bound (no
+    library RoIPool: torchvision is absent)."""
     H, W, C = C4_SHAPE
     feat = torch.randn(H, W, C, device="cuda", generator=gen).bfloat16()
-    x1 = torch.rand(C4_ROIS - 4, device="cuda", generator=gen) * 1300
-    y1 = torch.rand(C4_ROIS - 4, device="cuda", generator=gen) * 790
-    wh = torch.rand(C4_ROIS - 4, 2, device="cuda", generator=gen) * torch.tensor(
-        [600.0, 450.0], device="cuda")
-    rois = torch.cat([torch.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1),
-                      torch.tensor([[-80.0, -80.0, 1500.0, 900.0],
-                                    [200.0, 100.0, 200.0, 100.0],
-                                    [400.0, 300.0, 360.0, 250.0],
-                                    [1330.0, 790.0, 1800.0, 1200.0]], device="cuda")])
+    rois = c4_rois(gen, C4_ROIS)
     kw = dict(output_size=(14, 14), spatial_scale=1 / 16, max_bin=8)
     with torch.no_grad():
         got = roi_pool_nhwc(feat, rois, **kw)
@@ -2129,16 +2132,27 @@ def phase_roi_pool(gen) -> dict:
               f"B6 output {tuple(got.shape)} {got.dtype}")
         check(torch.equal(got, ref), "B6 is not bit-exact against its plain version")
         check(torch.equal(got, again), "B6: two runs differ")
-        ms = time_ms(lambda: roi_pool_nhwc(feat, rois, **kw))
+        u = torch.rand(H, W, C, device="cuda", generator=gen)
+        odd = feat.masked_fill(u < 0.01, float("nan")).masked_fill(
+            (u >= 0.01) & (u < 0.02), float("inf")).masked_fill(
+            (u >= 0.02) & (u < 0.03), float("-inf"))
+        odd_ref = roi_pool_nhwc_plain(odd, rois, **kw)
+        check(torch.equal(roi_pool_nhwc(odd, rois, **kw), odd_ref),
+              "B6 on a map with NaN and infinities is not bit-exact")
+        n_zero = int((odd_ref == 0).sum())
+        k1 = time_ms(lambda: roi_pool_nhwc(feat, rois, **kw))
         plain = time_ms(lambda: roi_pool_nhwc_plain(feat, rois, **kw), n=5)
+        k2 = time_ms(lambda: roi_pool_nhwc(feat, rois, **kw))
+    ms = (k1 + k2) / 2
     nbytes = feat.numel() * 2 + rois.numel() * 4 + got.numel() * 2
     bms, by = bound_ms(nbytes, 0, torch.bfloat16)
     print(f"B6 roi_pool [{H}, {W}, {C}] bf16 x {C4_ROIS} rois -> [{C4_ROIS}, 14, 14, "
-          f"{C}]: bit-exact, deterministic; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB); no library RoIPool "
-          f"(torchvision absent)")
+          f"{C}]: bit-exact, deterministic, bit-exact on the NaN/inf map ({n_zero} "
+          f"zeros); kernel {k1:.4f} / {k2:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB; {bms / ms:.1%} of it); no "
+          f"library RoIPool (torchvision absent)")
     return {"roi_pool": dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
-                             bound_ms=bms, bound_by=by)}
+                             bound_ms=bms, bound_by=by, kernel_ms_in_turns=[k1, k2])}
 
 
 def phase_extract(tmp: str, smi: str) -> dict:
@@ -2203,6 +2217,7 @@ def phase_extract(tmp: str, smi: str) -> dict:
           "the timed extractor gives other records than the CLI")
     print(f"extract_many, device_batch 1: {N_EXTRACT} images in {dt:.3f} s -> "
           f"{N_EXTRACT / dt:.2f} images/s (warm) on {smi}")
+    proposals = time_roi_pool_on_proposals(ex, items[0])
     del ex
     torch.cuda.empty_cache()
 
@@ -2233,7 +2248,34 @@ def phase_extract(tmp: str, smi: str) -> dict:
     del model
     torch.cuda.empty_cache()
     return {"extract_c4": counts, "extract_eval": eval_counts,
-            "images_per_s": N_EXTRACT / dt}
+            "images_per_s": N_EXTRACT / dt, "proposals": proposals}
+
+
+def time_roi_pool_on_proposals(ex, item) -> dict:
+    """B6 on one image's own call: the extractor's feature map and its RPN's
+    proposals, caught at the pooler; bit-exact against the plain version,
+    the kernel timed beside its byte bound."""
+    seen, pool = [], ex._pool
+
+    def catch(feat, boxes, **kw):
+        seen.append((feat, boxes, kw))
+        return pool(feat, boxes, **kw)
+
+    ex._pool = catch
+    list(ex.extract_many([item]))
+    ex._pool = pool
+    feat, boxes, kw = seen[0]
+    with torch.no_grad():
+        got = roi_pool_nhwc(feat, boxes, **kw)
+        check(torch.equal(got, roi_pool_nhwc_plain(feat, boxes, **kw)),
+              "B6 on the extractor's proposals is not bit-exact")
+        ms = time_ms(lambda: roi_pool_nhwc(feat, boxes, **kw))
+    nbytes = (feat.numel() + got.numel()) * feat.element_size() + boxes.numel() * 4
+    bms, by = bound_ms(nbytes, 0, torch.bfloat16)
+    print(f"B6 on one image's proposals: map {list(feat.shape)} {feat.dtype}, "
+          f"{boxes.shape[0]} boxes: bit-exact; kernel {ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}; {bms / ms:.1%} of it)")
+    return dict(ms=ms, bound_ms=bms, bound_by=by, n_boxes=int(boxes.shape[0]))
 
 
 def uc2_distance_matrix(cfg: UC2Config, seed: int = 0) -> np.ndarray:
@@ -2419,6 +2461,7 @@ def main() -> int:
     kern.update(phase_roi_pool(torch.Generator("cuda").manual_seed(6)))
     with tempfile.TemporaryDirectory() as tmp:
         extract = phase_extract(tmp, smi)
+    kern["roi_pool"]["extract_proposals"] = extract["proposals"]
     print(f"detector phase {time.perf_counter() - t_phase:.1f} s")
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)

@@ -7,8 +7,10 @@
 // in f32 (round half to even, as jnp.round); roi_h = max(y2 - y1 + 1, 1);
 // bin p spans rows (p*roi_h)/PH + y1 .. ((p+1)*roi_h + PH - 1)/PH + y1 (exact
 // integer division of non-negative numerators), clipped to [0, H], cut to at
-// most max_bin rows from its start; columns alike. The max is taken in f32;
-// an empty bin (or one whose max is not finite) gives 0, as ops/roi.py does.
+// most max_bin rows from its start; columns alike. The max is taken in f32
+// and propagates a NaN (PTX max.NaN), as jnp.maximum does in ops/roi.py; an
+// empty bin, or one whose max is not finite (NaN, +inf, or only -inf), gives
+// 0, as ops/roi.py does.
 //
 // What bounds it on the H100: at the C4 extractor's shapes (features
 // [50, 84, 1024] bf16, 300 rois, 14 x 14 bins) the call reads an 8.6 MB map
@@ -73,6 +75,13 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// The max of a and b, NaN if either is (fmaxf would drop the NaN).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // Bounds [s, e) of bin p of P over a roi of extent roi starting at origin,
 // clipped to [0, lim] and cut to max_bin from s.
 __device__ __forceinline__ void bin_bounds(int p, int roi, int P, int origin, int lim,
@@ -109,7 +118,7 @@ roi_pool_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
           float f[V::N];
           V::load(feat + ((long long)y * W + x) * C + cv * V::N, f);
 #pragma unroll
-          for (int i = 0; i < V::N; ++i) m[i] = fmaxf(m[i], f[i]);
+          for (int i = 0; i < V::N; ++i) m[i] = max_nan(m[i], f[i]);
         }
 #pragma unroll
       for (int i = 0; i < V::N; ++i) m[i] = isfinite(m[i]) ? m[i] : 0.f;

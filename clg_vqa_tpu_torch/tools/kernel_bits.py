@@ -1,5 +1,5 @@
-"""Hold the attention kernels of two checkouts of this repository to each
-other, bit for bit.
+"""Hold the kernels of two checkouts of this repository to each other, bit
+for bit.
 
     python3 clg_vqa_tpu_torch/tools/kernel_bits.py run ROOT OUT.pt
     python3 clg_vqa_tpu_torch/tools/kernel_bits.py compare A.pt B.pt
@@ -10,7 +10,10 @@ kernel whose bits a change to the shared CUDA headers must keep on fixed
 inputs made from seeds, and saves the outputs and gradients: fp32 B1, B5
 and B3 (both entries) all-keys and key-blocked, bf16 B3 both ways, the
 bf16 forwards of B1, B5 and B3 and B1's and B5's bf16 backwards, B4 in both
-dtypes, K1 and B2 in both dtypes. ``compare`` counts the cases whose
+dtypes, K1 and B2 in both dtypes; and the bank row gather K2 (UC2's and
+M3P's banks, fp32 and bf16, 12293 indices of 16-byte rows) and RoIPool B6
+(the C4 shape and a map with NaN and infinities, fp32 and bf16), whose
+results are exact. ``compare`` counts the cases whose
 tensors are equal and names the others; it exits 1 if any differs (a PR
 that redesigns a kernel expects that kernel's cases, and only those, to
 differ). To check a change against its parent,
@@ -103,6 +106,29 @@ def run(root, out):
             with torch.no_grad():
                 res[f"K1 {dtype} S{S}"] = TA.fused_attention_flat(q, k, v, bias, 12).cpu()
                 res[f"B2 {dtype} S{S}"] = TA.fused_attention(q, k, v, bias, 12).cpu()
+    # K2 and B6; this file runs as a script, so its directory is on sys.path
+    # and gives this checkout's measure.py, whatever ROOT holds
+    from measure import c4_rois
+    from clg_vqa_tpu_torch.ops import bank_gather as TG
+    from clg_vqa_tpu_torch.ops import roi_pool as RP
+    g = torch.Generator(dev).manual_seed(29)
+    for shape, B, dtype in (((400, 36, 2048), 1024, torch.float32),
+                            ((400, 36, 2048), 128, torch.bfloat16),
+                            ((400, 100, 2048), 1024, torch.float32),
+                            ((1000, 4), 12293, torch.float32)):
+        bank = torch.randn(*shape, device=dev, generator=g).to(dtype)
+        idx = torch.randint(0, shape[0], (B,), device=dev, generator=g, dtype=torch.int32)
+        res[f"K2 {dtype} {list(shape)} x{B}"] = TG.rows_gather(bank, idx).cpu()
+    feat = torch.randn(50, 84, 1024, device=dev, generator=g)
+    u = torch.rand(50, 84, 1024, device=dev, generator=g)
+    odd = feat.masked_fill(u < 0.01, float("nan")).masked_fill(u > 0.99, float("inf"))
+    rois = c4_rois(g)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, m in (("randn", feat), ("nan/inf", odd)):
+                res[f"B6 {dtype} {name}"] = RP.roi_pool_nhwc(
+                    m.to(dtype), rois, output_size=(14, 14), spatial_scale=1 / 16,
+                    max_bin=8).cpu()
     torch.save(res, out)
     print(f"{root}: {len(res)} cases")
 

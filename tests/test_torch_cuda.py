@@ -4,6 +4,10 @@ imports no JAX, so the machine with the card runs it without the JAX suite:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -69,6 +73,65 @@ def test_rows_gather_kernel_bit_exact(cuda, dtype):
     torch.cuda.synchronize()
     assert TG.rows_gather.launches == before + 1
     assert torch.equal(got, TG.rows_gather_plain(bank, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "B=1", "B=12293", "all the same", "all distinct", "m3p rows fp32",
+    "bf16 bank", "16-byte rows", "ragged last block"])
+def test_rows_gather_kernel_cases_bit_exact(cuda, case):
+    """The kernel at the shapes and index patterns the main paths give it
+    and at its edges (one index, twelve thousand 64-byte rows, rows of one
+    16-byte vector, rows that are not a multiple of a block's share):
+    bit-exact against the plain version, one launch count per call."""
+    g = torch.Generator(cuda).manual_seed(len(case))
+    shape, B, dtype, pattern = {
+        "B=1": ((400, 36, 2048), 1, torch.float32, "uniform"),
+        "B=12293": ((400, 4, 4), 12293, torch.float32, "uniform"),
+        "all the same": ((400, 36, 2048), 1024, torch.float32, "same"),
+        "all distinct": ((3000, 36, 64), 2048, torch.float32, "distinct"),
+        "m3p rows fp32": ((400, 100, 2048), 1024, torch.float32, "uniform"),
+        "bf16 bank": ((400, 36, 2048), 1024, torch.bfloat16, "uniform"),
+        "16-byte rows": ((1000, 4), 5000, torch.float32, "uniform"),
+        "ragged last block": ((64, 100, 2040), 300, torch.bfloat16, "uniform"),
+    }[case]
+    bank = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    n = shape[0]
+    if pattern == "same":
+        idx = torch.full((B,), n // 2, dtype=torch.int32, device=cuda)
+    elif pattern == "distinct":
+        idx = torch.randperm(n, device=cuda, generator=g)[:B].to(torch.int32)
+    else:
+        idx = torch.randint(0, n, (B,), device=cuda, generator=g, dtype=torch.int32)
+    if case == "ragged last block":              # a block copies 256 x 4 16-byte vectors
+        row_bytes = bank[0].numel() * bank.element_size()
+        assert row_bytes % (256 * 4 * 16) and row_bytes > 256 * 4 * 16
+    before = TG.rows_gather.launches
+    got = TG.rows_gather(bank, idx)
+    torch.cuda.synchronize()
+    assert TG.rows_gather.launches == before + 1
+    assert torch.equal(got, TG.rows_gather_plain(bank, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["-1", "n_rows"])
+def test_rows_gather_kernel_traps_out_of_range_indices(cuda, bad):
+    """An index outside [0, n_rows) traps in the kernel: the call reads
+    nothing outside the bank and the next synchronisation raises. The trap
+    poisons the CUDA context, so it runs in a child process."""
+    code = (
+        "import torch\n"
+        "from clg_vqa_tpu_torch.ops.bank_gather import rows_gather\n"
+        "bank = torch.randn(10, 36, 64, device='cuda')\n"
+        f"idx = torch.tensor([1, 2, {bad.replace('n_rows', '10')}, 3], dtype=torch.int32, "
+        "device='cuda')\n"
+        "rows_gather(bank, idx)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no fault')\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0 and "no fault" not in run.stdout
+    assert "CUDA error" in run.stderr or "AcceleratorError" in run.stderr, run.stderr[-2000:]
 
 
 @pytest.mark.cuda
@@ -1485,6 +1548,48 @@ def test_roi_pool_kernel_edge_cases(cuda, dtype, shape, out, stride, max_bin):
         got = RP.roi_pool_nhwc(feat, rois, **kw)
     assert torch.equal(got, RP.roi_pool_nhwc_plain(feat, rois, **kw))
     assert torch.equal(got.cpu(), RP.roi_pool_nhwc_plain(feat.cpu(), rois.cpu(), **kw))
+
+
+def _nan_inf_map(dev, H, W, C, dtype, seed):
+    """randn with NaN, +inf and -inf: 1% of elements each at random, a whole
+    column of NaN in the first half of the channels (inside bins, on their
+    shared edges, or between bins cut to max_bin), a whole row of +inf in
+    the second half and one position of -inf in every channel."""
+    g = torch.Generator(dev).manual_seed(seed)
+    feat = torch.randn(H, W, C, device=dev, generator=g)
+    u = torch.rand(H, W, C, device=dev, generator=g)
+    feat[u < 0.01] = float("nan")
+    feat[(u >= 0.01) & (u < 0.02)] = float("inf")
+    feat[(u >= 0.02) & (u < 0.03)] = float("-inf")
+    feat[:, 5, :C // 2] = float("nan")
+    feat[6, :, C // 2:] = float("inf")
+    feat[3, W - 6, :] = float("-inf")
+    return feat.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out,stride,max_bin", [
+    ((12, 20, 256), (7, 7), 8, 8), ((12, 20, 256), (3, 3), 8, 2),
+    ((50, 84, 1024), (14, 14), 16, 8)])
+def test_roi_pool_kernel_nan_and_inf_give_the_plain_versions_bits(cuda, dtype, shape, out,
+                                                                  stride, max_bin):
+    """A bin that holds a NaN gives 0, as the plain version and JAX's
+    ops/roi.py give (the max propagates the NaN, then the finite rule); a
+    bin holding +inf, or only -inf, gives 0; a NaN between bins cut to
+    max_bin changes nothing: bit-exact against the plain version."""
+    from clg_vqa_tpu_torch.ops import roi_pool as RP
+    H, W, C = shape
+    feat = _nan_inf_map(cuda, H, W, C, dtype, seed=H + max_bin)
+    rois = torch.cat([_rois(cuda, 40, H, W, stride, seed=3),
+                      torch.tensor([[0.0, 0.0, W * stride - 1.0, H * stride - 1.0]],
+                                   device=cuda)])
+    kw = dict(output_size=out, spatial_scale=1 / stride, max_bin=max_bin)
+    with torch.no_grad():
+        got = RP.roi_pool_nhwc(feat, rois, **kw)
+    want = RP.roi_pool_nhwc_plain(feat, rois, **kw)
+    assert torch.isfinite(want).all() and (want == 0).any() and (want != 0).any()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
