@@ -48,7 +48,14 @@ final line:
     the whole-block one (fused_attn="proj", B4); then the same step with
     the flat and the S-major training attention timed in turns; then
     `python -m clg_vqa_tpu_torch.cli train --fused_attn proj` at full width
-    for a few steps over the same store, in process.
+    for a few steps over the same store, in process; then the paper's
+    sparse fine-tuning through the CLI in process: `prune` for 2 IMP rounds
+    (B1 steps, the 10% prune on the card, the rewind to theta_0, a val pass
+    on theta_0 * mask with K1) and `sft --mask_file <prune out>/mask_best.npz`
+    for one epoch, with the masks' zero counts held exactly to round(0.1 N)
+    and round(0.1 (N - first)) of the model's prunable count N, their files
+    to the JAX package's layout, and every pruned weight exactly 0 in the
+    SFT export and final state; imp_prune_step timed alone.
  7. training parity: a tiny UC2 trained 3 steps on the card (kernels)
     and on the CPU (plain path), and the full-width fp32 gradients of the
     flat (B1) and whole-block (B4) routes against the plain route.
@@ -161,6 +168,7 @@ from clg_vqa_tpu_torch.tools.measure import bound_ms, c4_rois, time_ms
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
+from clg_vqa_tpu_torch.train import pruning as pr
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
                                           make_train_step)
 from clg_vqa_tpu_torch.train.optim import (make_optimizer,
@@ -1714,6 +1722,174 @@ def phase_cli(tmp: str, world, smi: str) -> dict:
     return counts
 
 
+def phase_prune_sft(tmp: str, world, smi: str) -> dict:
+    """The paper's sparse fine-tuning through the CLI at UC2's full width
+    (configs/uc2_base.json, random weights from seed 0), in this process so
+    the launch counters see it: ``prune`` for 2 IMP rounds of CLI_STEPS
+    steps of acc 2 x mbs 128 (bf16, dropout 0.1, device bank, --fused_attn
+    auto: B1), each followed by the 10% prune, the rewind to theta_0 and a
+    val pass over CLI_VAL questions on theta_0 * mask (K1); then ``sft
+    --mask_file <prune out>/mask_best.npz`` for 1 epoch of CLI_STEPS steps.
+    Checks the masks' zero counts exactly against the model's prunable
+    count N, the mask files' JAX layout, mask_best against the rounds'
+    rewound scores, the launches, finite losses and that every weight
+    mask_best prunes is exactly 0 in model_best_sft.bin and in the final
+    state while the surviving ones moved from theta_0; then times
+    imp_prune_step alone on the card. Returns each command's launch
+    counts."""
+    root = os.path.join(tmp, "cli_prune")
+    task = write_cli_task(root, world)
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "uc2_base.json")
+    cfg = UC2Config.from_json(config, num_labels=len(world.label2ans))
+    theta0 = cli_build_model(SimpleNamespace(device="cuda", seed=0,
+                                             from_pretrained=""), cfg)
+    names = pr.prunable_paths(theta0)
+    n = sum(p.numel() for k, p in theta0.named_parameters() if k in names)
+    prune_out, sft_out = (os.path.join(root, d) for d in ("prune", "sft"))
+    best_file = os.path.join(prune_out, "mask_best.npz")
+    common = ["--config_file", config, "--tasks_config_file", task,
+              "--grad_acc_steps", str(ACC), "--fused_attn", "auto"]
+    counts, secs = {}, {}
+    n_blocks = 12 * ACC
+    for mode, extra, epochs in (
+            ("prune", ["--output_dir", prune_out, "--num_epoch", "2"], 2),
+            ("sft", ["--output_dir", sft_out, "--num_epoch", "1",
+                     "--mask_file", best_file], 1)):
+        argv = [mode, *common, *extra]
+        print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+        torch.cuda.synchronize()
+        reset_counts()
+        t_wall, t0 = time.time(), time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        counts[mode] = read_counts()
+        for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                             (signal.SIGINT, signal.default_int_handler)):
+            signal.signal(sig, handler)
+        print(f"cli {mode}: {epochs} x {CLI_STEPS} steps of {ACC} x {MBS} at "
+              f"full width + {epochs} val passes over {CLI_VAL} questions + "
+              f"saves in {secs[mode]:.2f} s on {smi}; launches {counts[mode]}")
+        c = counts[mode]
+        check(c["flat_attention_train_fwd"] == n_blocks * CLI_STEPS * epochs
+              and c["flat_attention_train_bwd"] == n_blocks * CLI_STEPS * epochs
+              and c["block_attention_train_fwd"] == 0
+              and c["block_attention_train_bwd"] == 0
+              and c["smajor_attention_train_fwd"] == 0
+              and c["smajor_attention_train_bwd"] == 0
+              and c["flat_attention"] > 0 and c["rows_gather"] > 0,
+              f"cli {mode} launches {c}, expected {n_blocks} B1 forward and "
+              f"backward per step, no B4 or B5, some K1 and K2")
+        out = prune_out if mode == "prune" else sft_out
+        recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+        losses = [r["loss"] for r in recs if r["kind"] == "train"]
+        check(len(losses) == CLI_STEPS * epochs
+              and all(map(math.isfinite, losses)),
+              f"cli {mode} train records {losses}")
+        print(f"cli {mode}: train losses {[round(x, 4) for x in losses]}")
+        if mode == "prune":
+            lt = [os.path.join(prune_out, f"mask_lt{r}.npz") for r in range(2)]
+            t_lt = [os.path.getmtime(f) for f in lt]
+            print(f"cli prune: round 0 wrote its mask {t_lt[0] - t_wall:.2f} s "
+                  f"after the command started (set-up included), round 1 "
+                  f"{t_lt[1] - t_lt[0]:.2f} s after round 0 (train, prune, "
+                  f"rewind, val, mask files) on {smi}")
+
+    # the masks: exact zero counts from the model's N, JAX's layout, and
+    # mask_best the round with the higher rewound score
+    with open(os.path.join(prune_out, "prune_meta.json")) as f:
+        pmeta = json.load(f)
+    scores = [h["score"] for h in pmeta["history"]]
+    best_round = scores.index(max(scores))
+    first = int(round(0.1 * n))
+    want_zeros = [first, first + int(round(0.1 * (n - first)))]
+    shapes = {pr._jax_path(k)[0]: (tuple(p.shape[::-1]) if k == "pooler.weight"
+                                   else (cfg.num_layers, *p.shape[::-1]))
+              for k, p in theta0.named_parameters() if k in names}
+    files = {}
+    for r in range(2):
+        with np.load(os.path.join(prune_out, f"mask_lt{r}.npz")) as z:
+            files[r] = {k: z[k] for k in z.files}
+        zeros = sum(int((a == 0).sum()) for a in files[r].values())
+        print(f"mask_lt{r}: {zeros} of N = {n} prunable weights zero "
+              f"({100 * zeros / n:.4f}%), want {want_zeros[r]}; rewound val "
+              f"score {scores[r]:.4f}")
+        check(zeros == want_zeros[r], f"mask_lt{r} zeros {zeros}, expected "
+              f"{want_zeros[r]}")
+        check({k: (a.shape, a.dtype) for k, a in files[r].items()}
+              == {k: (s, np.float32) for k, s in shapes.items()}
+              and set(files[r]) == set(pr.PRUNABLE_UC2),
+              f"mask_lt{r} keys/shapes {[(k, a.shape) for k, a in files[r].items()]}")
+    with np.load(best_file) as z:
+        check(set(z.files) == set(files[best_round]) and all(
+            np.array_equal(z[k], files[best_round][k]) for k in z.files),
+            f"mask_best is not mask_lt{best_round}, the best rewound score")
+    print(f"mask_best = mask_lt{best_round} (rewound scores {scores})")
+
+    # SFT: every pruned weight exactly 0 in the export and the final state,
+    # the surviving ones moved from theta_0
+    mask = pr.load_mask(best_file, theta0)
+    exported = load_pretrained(os.path.join(sft_out, "model_best_sft.bin"), cfg)
+    with open(os.path.join(sft_out, "meta.json")) as f:
+        meta = json.load(f)
+    final = torch.load(os.path.join(sft_out, meta["state_dir"], "state.pt"),
+                       map_location="cuda", weights_only=True)["params"]
+    n_pruned = moved = 0
+    for k in names:
+        m, w0 = mask[k], theta0.state_dict()[k]
+        bad_bin = int((torch.from_numpy(exported[k]).cuda()[m == 0] != 0).sum())
+        bad_final = int((final[k][m == 0] != 0).sum())
+        check(bad_bin == 0 and bad_final == 0, f"{k}: {bad_bin} pruned weights "
+              f"nonzero in model_best_sft.bin, {bad_final} in the final state")
+        # one epoch, one val pass: the best export is the final state, so
+        # the async export kept the weights of its submit
+        check(torch.equal(torch.from_numpy(exported[k]).cuda(), final[k]),
+              f"{k}: model_best_sft.bin differs from the final state")
+        n_pruned += int((m == 0).sum())
+        moved += int((final[k][m == 1] != w0[m == 1]).sum())
+    check(meta["step"] == CLI_STEPS and n_pruned == want_zeros[best_round]
+          and moved > 0, f"sft meta {meta}, {n_pruned} pruned, {moved} moved")
+    print(f"sft: all {n_pruned} pruned weights exactly 0 in "
+          f"model_best_sft.bin and in the final state; {moved} of "
+          f"{n - n_pruned} surviving weights moved from theta_0")
+    del final, exported, mask
+
+    # imp_prune_step alone on the card, over theta_0's 85.5 M magnitudes
+    ms, peaks = [], []
+    base = torch.cuda.memory_allocated()
+    for _ in range(3):
+        m0 = pr.init_mask(theta0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m1 = pr.imp_prune_step(theta0, m0, 0.1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        check(sum(int((v == 0).sum()) for v in m1.values() if v is not None)
+              == first, "imp_prune_step zero count")
+    del m0
+    # a mask file's write and read on the host, as a round pays them
+    path = os.path.join(root, "timed_mask.npz")
+    t0 = time.perf_counter()
+    pr.save_mask(path, m1)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = pr.load_mask(path, theta0)
+    t_load = time.perf_counter() - t0
+    check(all(torch.equal(back[k], m1[k]) for k in names), "mask file round trip")
+    print(f"imp_prune_step on the card (N = {n}, fraction 0.1): "
+          f"{[round(x, 2) for x in ms]} ms, peak {max(peaks) / 1e6:.0f} MB "
+          f"above the model; save_mask {t_save:.2f} s "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), load_mask {t_load:.2f} s; "
+          f"on {smi}")
+    del m1, back
+    del theta0
+    torch.cuda.empty_cache()
+    return {"launches": counts, "seconds": secs, "prune_step_ms": ms}
+
+
 def _tiny_batch(r: np.random.RandomState, acc: int, mbs: int, T: int, R: int,
                 feat: int, vocab: int, num_labels: int) -> dict:
     ids = r.randint(3, vocab, (acc, mbs, T)).astype(np.int32)
@@ -2476,6 +2652,7 @@ def main() -> int:
         train_proj = phase_train(cfg, model, w, smi, fused="proj")
         phase_train_ab(cfg, model, w, smi)
         cli = phase_cli(tmp, w, smi)
+        prune_sft = phase_prune_sft(tmp, w, smi)
     del model
     torch.cuda.empty_cache()
     phase_train_parity()
@@ -2491,6 +2668,8 @@ def main() -> int:
     by_path = dict(main_path["launches"], train=train["launches"],
                    train_proj=train_proj["launches"],
                    finetune=recipe["launches"], cli_proj=cli,
+                   prune=prune_sft["launches"]["prune"],
+                   sft=prune_sft["launches"]["sft"],
                    **m3p["launches"], extract_c4=extract["extract_c4"],
                    extract_eval=extract["extract_eval"])
     for name in ("fwd", "bwd"):

@@ -1,12 +1,14 @@
-"""CLI: python -m clg_vqa_tpu_torch.cli {train,eval,score,convert,extract} ...
+"""CLI: python -m clg_vqa_tpu_torch.cli
+{train,prune,sft,eval,score,convert,extract} ...
 
-The port of clg_vqa_tpu/cli/__main__.py:23-262 with its flags and printed
-lines, plus ``--device`` (default ``cuda``; ``cpu`` for the tests). It
-mirrors the reference entry points train_task.py, eval_task.py,
-scripts/GQA_score.py, conversions/ and features_extraction/ (``extract``,
-the R101-C4 36-box detector; ``--detector x101`` is ROADMAP.md §A slice
-10b). The prune, sft and convert-store commands are not ported yet (slices
-5 and 11b).
+The port of clg_vqa_tpu/cli/__main__.py with its flags and printed lines,
+plus ``--device`` (default ``cuda``; ``cpu`` for the tests). It mirrors the
+reference entry points train_task.py, train_task_prunning.py (``prune``,
+IMP rounds), train_task_sft.py (``sft``, from a ``--mask_file``),
+eval_task.py, scripts/GQA_score.py, conversions/ and features_extraction/
+(``extract``, the R101-C4 36-box detector; ``--detector x101`` is
+ROADMAP.md §A slice 10b). The convert-store command is not ported yet
+(slice 11b).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import torch
 from . import common as C
 
 
-def cmd_train(args):
+def _train_like(args, mode: str):
+    """train, prune or sft: one assembly of model, data and runner, then
+    the mode's recipe."""
     from ..data.gqa import load_answer_vocab
     from ..data.pipeline import TrainPipeline
     from ..train.driver import FinetuneRunner
@@ -76,8 +80,17 @@ def cmd_train(args):
         train_bank=train_bank, save_every=args.save_every,
         mid_save=args.mid_save, fused_attn=args.fused_attn,
         model_name=C.model_name(cfg))
-    best = runner.finetune(resume=args.resume)
-    print(f"Best validation score: {100*best:.3f}")
+    if mode == "train":
+        best = runner.finetune(resume=args.resume)
+        print(f"Best validation score: {100*best:.3f}")
+    elif mode == "prune":
+        res = runner.imp_prune(fraction=args.prune_fraction,
+                               resume=args.resume)
+        print(f"IMP best epoch {res['best_epoch']} "
+              f"score {100*res['best_score']:.3f}; history: {res['history']}")
+    elif mode == "sft":
+        best = runner.sft(args.mask_file, resume=args.resume)
+        print(f"SFT best validation score: {100*best:.3f}")
 
 
 def cmd_eval(args):
@@ -199,10 +212,15 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="clg_vqa_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("train")
-    C.add_common_args(sp)
-    C.add_train_args(sp)
-    sp.set_defaults(fn=cmd_train)
+    for mode in ("train", "prune", "sft"):
+        sp = sub.add_parser(mode)
+        C.add_common_args(sp)
+        C.add_train_args(sp)
+        if mode == "prune":
+            sp.add_argument("--prune_fraction", type=float, default=0.1)
+        if mode == "sft":
+            sp.add_argument("--mask_file", required=True)
+        sp.set_defaults(fn=lambda a, m=mode: _train_like(a, m))
 
     sp = sub.add_parser("eval")
     C.add_common_args(sp)

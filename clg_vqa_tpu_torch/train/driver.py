@@ -1,16 +1,21 @@
-"""The fine-tuning driver (port of clg_vqa_tpu/train/driver.py:33-449): the
-GQA ``finetune`` recipe of the reference (train_task.py:141-389), for UC2 or
-M3P (``model_name``, which names the ``.bin`` export's format), over the
-train step of train/loop.py — per-epoch and mid-epoch validation with
-best-params saves, resume checkpoints, SIGTERM/SIGINT preemption with a
-step-granular resume, and the fused-attention choice.
-
-The IMP and SFT recipes (``imp_prune``, ``sft``) are ROADMAP.md §A slice 5;
-the JAX driver's per-layer layout helpers and runtime masks exist for XLA
-only and have no counterpart here.
+"""The fine-tuning driver (port of clg_vqa_tpu/train/driver.py): the three
+recipes of the reference (train_task.py:141-389, train_task_prunning.py:548-877,
+train_task_sft.py:331-612), for UC2 or M3P (``model_name``, which names the
+``.bin`` export's format), over the train step of train/loop.py:
+  finetune()  -- the GQA fine-tune: per-epoch and mid-epoch validation with
+                 best-params saves;
+  imp_prune() -- per round: train under the mask -> global L1 prune of 10%
+                 of the survivors -> rewind to theta_0 -> evaluate the
+                 rewound theta_0 * mask -> save the round's mask;
+  sft()       -- load mask_best, zero the masked weights, train with masked
+                 gradients, export the best weights.
+All three take resume checkpoints and stop on SIGTERM/SIGINT with a
+step-granular resume. The JAX driver's per-layer layout helpers and runtime
+masks exist for XLA only and have no counterpart here.
 """
 from __future__ import annotations
 
+import json
 import os
 import signal
 import sys
@@ -23,6 +28,7 @@ from ..config import OptimConfig, TaskConfig
 from ..models.layers import fold_seed
 from ..utils.logging import MetricsLogger
 from . import checkpoints as ckpt
+from . import pruning as pr
 from .loop import TrainState, make_eval_step, make_train_step, resolve_fused
 from .optim import (make_optimizer, warmup_constant_schedule,
                     warmup_linear_schedule)
@@ -121,6 +127,13 @@ class FinetuneRunner:
         # preemption (absent in the reference, SURVEY.md §5): on SIGTERM or
         # SIGINT finish the current step, checkpoint, then exit
         self._preempted = False
+        # recipe context merged into the mid-epoch preemption save
+        # (imp_prune stores its round/history cursor here, so a resumed
+        # prune re-enters the exact round and step)
+        self._preempt_extra: dict | None = None
+        # theta_0, the weights the IMP and SFT recipes rewind to: a device
+        # copy of the model's state taken when the first of them starts
+        self._theta0: dict | None = None
         # test seam: called with the absolute step index after each step
         self._step_callback = None
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -176,12 +189,12 @@ class FinetuneRunner:
             return float(self.task_cfg.lr)
         return float(t[min(step, len(t) - 1)])
 
-    def _make_step(self, opt):
+    def _make_step(self, opt, grad_mask=None):
         return make_train_step(
             opt, self.D, semantic_lambda=self.task_cfg.semantic_lambda,
             top_k=self.task_cfg.semantic_top_k,
             compute_dtype=self.compute_dtype, fused_attn=self.train_fused,
-            criterion=self.task_cfg.loss)
+            grad_mask=grad_mask, criterion=self.task_cfg.loss)
 
     def _val_batches(self):
         """Validation batches on the device, assembled once and reused by
@@ -282,7 +295,8 @@ class FinetuneRunner:
                     ckpt.save_state(self.out, state, epoch=epoch,
                                     best_score=best,
                                     extra={"logger": self.logger.state_dict(),
-                                           "mid_epoch_step": i + 1},
+                                           "mid_epoch_step": i + 1,
+                                           **(self._preempt_extra or {})},
                                     log=self.save_log)
                     raise SystemExit(
                         f"preempted at epoch {epoch} step {i + 1}: "
@@ -341,7 +355,7 @@ class FinetuneRunner:
         if self._saver is not None:
             self._saver.wait()
 
-    # -- the recipe -------------------------------------------------------
+    # -- recipes ----------------------------------------------------------
 
     def _resume_meta(self, state):
         """(state, start_epoch, start_step, best) from the latest checkpoint.
@@ -359,12 +373,26 @@ class FinetuneRunner:
             return state, meta["epoch"], meta["mid_epoch_step"], best
         return state, meta["epoch"] + 1, 0, best
 
+    def _fresh_state(self, opt) -> TrainState:
+        """The model with fresh optimizer moments at step 0."""
+        return TrainState(self.model,
+                          opt.init(dict(self.model.named_parameters())), 0)
+
+    def _fresh_theta0(self) -> None:
+        """Rewind: copy theta_0 into the model's parameters in place. The
+        snapshot is taken once, when the first IMP or SFT recipe of this
+        runner starts and before any resume load, so every round of every
+        recipe rewinds to the same weights."""
+        if self._theta0 is None:
+            self._theta0 = {k: v.detach().clone()
+                            for k, v in self.model.state_dict().items()}
+        self.model.load_state_dict(self._theta0)
+
     def finetune(self, *, resume: bool = False) -> float:
-        """The recipe; returns the best val score."""
+        """The fine-tune recipe; returns the best val score."""
         opt = self._build_opt()
         step_fn = self._make_step(opt)
-        state = TrainState(self.model,
-                           opt.init(dict(self.model.named_parameters())), 0)
+        state = self._fresh_state(opt)
         start_epoch, start_step, best = 0, 0, -1.0
         if resume:
             try:
@@ -381,6 +409,150 @@ class FinetuneRunner:
             if score > best:
                 best = score
                 self._save_params("params_best", state.model)
+            self._save_epoch_state(state, epoch, best)
+        self.flush_saves()
+        return best
+
+    # -- prune-resume plumbing ---------------------------------------------
+    # Two levels, as in the JAX driver (clg_vqa_tpu/train/driver.py:451-522):
+    # prune_meta.json records every completed ROUND (no train state: the
+    # next round rewinds to theta_0, and the round's mask is on disk as
+    # mask_lt{r}.npz), while a mid-round SIGTERM rides the step-granular
+    # state checkpoint with the prune cursor merged in (_preempt_extra), so
+    # a resume is bit-exact.
+
+    def _prune_meta_path(self) -> str:
+        return os.path.join(self.out, "prune_meta.json")
+
+    def _write_prune_meta(self, next_round: int, history: list,
+                          best: float, best_epoch: int) -> None:
+        tmp = self._prune_meta_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"next_round": next_round, "history": history,
+                       "best_score": best, "best_epoch": best_epoch,
+                       "logger": self.logger.state_dict()}, f)
+        os.replace(tmp, self._prune_meta_path())
+
+    def _round_input_mask(self, rnd: int):
+        """The mask prune round ``rnd`` trains under: round rnd-1's output
+        (mask_lt{rnd-1}.npz), or the all-ones init for round 0."""
+        if rnd <= 0:
+            return pr.init_mask(self.model, self.model_name)
+        return pr.load_mask(os.path.join(self.out, f"mask_lt{rnd - 1}.npz"),
+                            self.model, self.model_name)
+
+    def _resume_prune(self, opt):
+        """(mask, start_round, start_step, mid_state, history, best,
+        best_epoch) from the prune artifacts on disk; defaults if none."""
+        mask = pr.init_mask(self.model, self.model_name)
+        start_round, start_step, mid_state = 0, 0, None
+        history, best, best_epoch = [], -1.0, -1
+        if os.path.exists(self._prune_meta_path()):
+            with open(self._prune_meta_path()) as f:
+                pmeta = json.load(f)
+            start_round = pmeta["next_round"]
+            history = pmeta["history"]
+            best, best_epoch = pmeta["best_score"], pmeta["best_epoch"]
+            self.logger.load_state_dict(pmeta.get("logger", {}))
+            mask = self._round_input_mask(start_round)
+        # a mid-round state supersedes the round record only if its round
+        # is not already complete (prune_meta is written after each round,
+        # so a state checkpoint from an earlier round is stale)
+        meta_path = os.path.join(self.out, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                smeta = json.load(f)
+            pcur = smeta.get("prune")
+            if (pcur is not None and smeta.get("mid_epoch_step")
+                    and pcur["round"] >= start_round):
+                mid_state, smeta = ckpt.resume_state(self.out,
+                                                     self._fresh_state(opt))
+                self.logger.load_state_dict(smeta.get("logger", {}))
+                start_round = pcur["round"]
+                start_step = smeta["mid_epoch_step"]
+                history = pcur["history"]
+                best, best_epoch = pcur["best_score"], pcur["best_epoch"]
+                mask = self._round_input_mask(start_round)
+        return mask, start_round, start_step, mid_state, history, best, \
+            best_epoch
+
+    def imp_prune(self, *, fraction: float = 0.1,
+                  resume: bool = False) -> dict:
+        """IMP: ``task_cfg.num_epoch`` rounds. Each trains one epoch from
+        theta_0 * mask under the mask with a fresh optimizer and schedule
+        (train_task_prunning.py:791-866), prunes ``fraction`` of the
+        survivors, rewinds to theta_0 and evaluates the rewound theta_0 *
+        mask, which picks mask_best (the reference's order, :791-877).
+        Writes mask_lt{r}.npz, mask_best.npz and prune_meta.json; returns
+        {best_score, best_epoch, history}."""
+        self._fresh_theta0()
+        opt = self._build_opt()
+        mask = pr.init_mask(self.model, self.model_name)
+        start_round, start_step, mid_state = 0, 0, None
+        history, best, best_epoch = [], -1.0, -1
+        if resume:
+            (mask, start_round, start_step, mid_state, history, best,
+             best_epoch) = self._resume_prune(opt)
+        for epoch in range(start_round, self.task_cfg.num_epoch):
+            self._preempt_extra = {"prune": {
+                "round": epoch, "history": history,
+                "best_score": best, "best_epoch": best_epoch}}
+            if mid_state is not None and epoch == start_round:
+                state, s0 = mid_state, start_step
+            else:
+                self._fresh_theta0()
+                pr.apply_mask(self.model, mask)
+                state, s0 = self._fresh_state(opt), 0
+            state, _ = self._train_epoch(
+                state, self._make_step(opt, pr.grad_mask_tree(mask)), epoch,
+                start_step=s0)
+            mask = pr.imp_prune_step(self.model, mask, fraction)
+            sp = pr.sparsity(mask)
+            self._fresh_theta0()
+            pr.apply_mask(self.model, mask)
+            score = self.evaluate(self.model, epoch)
+            history.append({"epoch": epoch, "sparsity": sp, "score": score})
+            pr.save_mask(os.path.join(self.out, f"mask_lt{epoch}.npz"), mask)
+            if score > best:
+                best, best_epoch = score, epoch
+                pr.save_mask(os.path.join(self.out, "mask_best.npz"), mask)
+            self._write_prune_meta(epoch + 1, history, best, best_epoch)
+        self._preempt_extra = None
+        return {"best_score": best, "best_epoch": best_epoch,
+                "history": history}
+
+    def sft(self, mask_path: str, *, resume: bool = False) -> float:
+        """SFT: load the mask, rewind to theta_0 * mask, train with masked
+        gradients (the reference's CustomFromMask reparametrization); each
+        best val score saves params_best and exports model_best_sft.bin.
+        Returns the best val score."""
+        mask = pr.load_mask(mask_path, self.model, self.model_name)
+        self._fresh_theta0()
+        pr.apply_mask(self.model, mask)
+        opt = self._build_opt()
+        step_fn = self._make_step(opt, pr.grad_mask_tree(mask))
+        state = self._fresh_state(opt)
+        start_epoch, start_step, best = 0, 0, -1.0
+        if resume:
+            try:
+                state, start_epoch, start_step, best = self._resume_meta(state)
+            except FileNotFoundError:
+                pass
+
+        def save_best(s):
+            self._save_params("params_best", s.model)
+            self.export_torch("model_best_sft.bin")
+
+        for epoch in range(start_epoch, self.task_cfg.num_epoch):
+            state, best = self._train_epoch(
+                state, step_fn, epoch, best=best,
+                start_step=start_step if epoch == start_epoch else 0,
+                on_best=save_best,
+                lr_step_base=epoch * self.pipe.steps_per_epoch())
+            score = self.evaluate(state.model, epoch)
+            if score > best:
+                best = score
+                save_best(state)
             self._save_epoch_state(state, epoch, best)
         self.flush_saves()
         return best

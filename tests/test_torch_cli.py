@@ -1,7 +1,8 @@
 """The port's CLI (python -m clg_vqa_tpu_torch.cli) on the CPU, on the
 miniature on-disk world of tests/test_cli.py (target pkls, answer vocab,
-task YAML, CFS store): train -> eval -> score -> convert with
-``--device cpu --fp32``, and one exported ``.bin`` evaluated by both CLIs.
+task YAML, CFS store): train -> eval -> score -> convert and prune -> sft
+with ``--device cpu --fp32``, and one exported ``.bin`` evaluated by both
+CLIs.
 
 Tolerance: the two CLIs' test_result.json files must be identical (argmax
 answers of the same fp32 weights on the same questions)."""
@@ -169,6 +170,51 @@ def test_cli_train_eval_score_convert(cli_world, capsys):
     main(["eval", *_common(tmp, "ev2"), "--from_pretrained",
           str(tmp / "conv" / "p"), "--split", "test"])
     assert json.load(open(tmp / "ev2" / "test_result.json")) == preds
+
+
+def test_cli_prune_then_sft(cli_world, capsys):
+    """``prune`` for 2 IMP rounds, then ``sft --mask_file <prune
+    out>/mask_best.npz``, with JAX's printed lines; the masks are JAX-format
+    files at 10% and 19%, and every weight mask_best prunes is exactly 0
+    in the exported model_best_sft.bin and in the final state."""
+    from clg_vqa_tpu.train import pruning as jpr
+    from clg_vqa_tpu_torch.train import pruning as pr
+    tmp = cli_world
+    main(["prune", *_common(tmp, "imp"), "--grad_acc_steps", "2",
+          "--num_epoch", "2"])
+    out = capsys.readouterr().out
+    assert "IMP best epoch" in out and "history: [{'epoch': 0" in out
+    pmeta = json.load(open(tmp / "imp" / "prune_meta.json"))
+    assert pmeta["next_round"] == 2
+    assert [round(h["sparsity"], 1) for h in pmeta["history"]] == [10.0, 19.0]
+    assert sorted(f for f in os.listdir(tmp / "imp") if f.endswith(".npz")) \
+        == ["mask_best.npz", "mask_lt0.npz", "mask_lt1.npz"]
+    best = str(tmp / "imp" / "mask_best.npz")
+    with np.load(best) as a, np.load(
+            tmp / "imp" / f"mask_lt{pmeta['best_epoch']}.npz") as b:
+        assert sorted(a.files) == sorted(jpr.PRUNABLE_UC2)
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
+
+    main(["sft", *_common(tmp, "sft"), "--grad_acc_steps", "2",
+          "--mask_file", best])
+    assert "SFT best validation score" in capsys.readouterr().out
+    cfg, _, _ = C.build_configs(C.add_common_args(
+        argparse.ArgumentParser()).parse_args(_common(tmp, "sft")))
+    model = C.build_model(types.SimpleNamespace(device="cpu", seed=0,
+                                                from_pretrained=""), cfg)
+    mask = pr.load_mask(best, model)
+    exported = C.load_pretrained(str(tmp / "sft" / "model_best_sft.bin"), cfg)
+    meta = json.load(open(tmp / "sft" / "meta.json"))
+    final = torch.load(tmp / "sft" / meta["state_dir"] / "state.pt",
+                       weights_only=True)["params"]
+    n = 0
+    for k, m in mask.items():
+        if m is not None:
+            pruned = m.numpy() == 0
+            assert np.all(exported[k][pruned] == 0.0), k
+            assert np.all(final[k].numpy()[pruned] == 0.0), k
+            n += int(pruned.sum())
+    assert n > 0 and meta["step"] == 3
 
 
 def test_jax_export_evaluates_identically_in_both_clis(cli_world, capsys):

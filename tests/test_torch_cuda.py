@@ -1487,6 +1487,83 @@ def test_m3p_train_step_at_s160_on_auto(cuda):
 
 
 # ---------------------------------------------------------------------------
+# IMP and SFT masks (train/pruning.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_imp_prune_step_on_cuda_gives_the_cpu_mask(cuda):
+    """Two IMP rounds of 10% on full-width UC2 weights (random, seed 0):
+    the card's masks equal the CPU's bit for bit, ties at the threshold
+    included (85.5 M fp32 magnitudes hold many), and the zero counts are
+    round(0.1 N), then that plus round(0.1 (N - first))."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    from clg_vqa_tpu_torch.train import pruning as pr
+    model = UC2(UC2Config(), device=cuda, seed=0)
+    names = pr.prunable_paths(model)
+    gpu = {k: p.detach() for k, p in model.named_parameters() if k in names}
+    cpu = {k: p.cpu() for k, p in gpu.items()}
+    n = sum(p.numel() for p in gpu.values())
+    assert n == 12 * 7077888 + 768 * 768
+    mg, mc = pr.init_mask(gpu), pr.init_mask(cpu)
+    zeros = 0
+    for _ in range(2):
+        mg, mc = pr.imp_prune_step(gpu, mg, 0.1), pr.imp_prune_step(cpu, mc, 0.1)
+        zeros += int(round(0.1 * (n - zeros)))
+        for k in names:
+            assert mg[k].device.type == "cuda"
+            assert torch.equal(mg[k].cpu(), mc[k]), k
+        assert sum(int((m == 0).sum()) for m in mg.values()) == zeros
+        assert pr.sparsity(mg) == pr.sparsity(mc)
+    assert zeros == 16249651
+
+
+@pytest.mark.cuda
+def test_masked_bf16_b1_step_keeps_pruned_weights_zero(cuda):
+    """SFT's masked step in bf16 on the auto route (B1's kernels, forward
+    and backward) with weight decay: the pruned weights stay exactly 0
+    through 3 steps and the surviving ones move."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    from clg_vqa_tpu_torch.train import pruning as pr
+    from clg_vqa_tpu_torch.train.loop import TrainState, make_train_step
+    from clg_vqa_tpu_torch.train.optim import make_optimizer
+    cfg = UC2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                    intermediate_size=256, v_feature_size=64, pooler_size=128,
+                    clf_hidden_size=64, num_labels=40)
+    model = UC2(cfg, device=cuda, seed=0)
+    mask = pr.imp_prune_step(model, pr.init_mask(model), 0.3)
+    pr.apply_mask(model, mask)
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    opt = make_optimizer(list(params), 1e-3, weight_decay=1e-2)
+    state = TrainState(model, opt.init(params), 0)
+    step = make_train_step(opt, torch.rand(40, 40, device=cuda),
+                           semantic_lambda=1.0, compute_dtype=torch.bfloat16,
+                           fused_attn="auto", grad_mask=pr.grad_mask_tree(mask))
+    r = np.random.RandomState(0)
+    batch = {"input_ids": r.randint(3, 300, (2, 8, 11)).astype(np.int32),
+             "input_mask": np.ones((2, 8, 11), np.int32),
+             "features": r.randn(2, 8, 9, 64).astype(np.float32),
+             "locs": r.rand(2, 8, 9, 7).astype(np.float32),
+             "image_mask": np.ones((2, 8, 9), np.int32),
+             "labels": r.randint(0, 40, (2, 8)).astype(np.int32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    f0 = TA.fused_attention_train_flat.launches
+    b0 = TA.fused_attention_train_flat.backward_launches
+    for i in range(3):
+        state, m = step(state, batch, seed=i)
+        assert np.isfinite(m["loss"].item())
+    assert TA.fused_attention_train_flat.launches - f0 == 3 * 2 * cfg.num_layers
+    assert TA.fused_attention_train_flat.backward_launches - b0 == 3 * 2 * cfg.num_layers
+    for k, p in params.items():
+        if mask[k] is None:
+            continue
+        assert bool((p[mask[k] == 0] == 0).all()), k
+        assert bool((p[mask[k] == 1] != before[k][mask[k] == 1]).any()), k
+
+
+# ---------------------------------------------------------------------------
 # B6: RoIPool
 # ---------------------------------------------------------------------------
 
