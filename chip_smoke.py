@@ -89,7 +89,19 @@ final line:
     from seed 0) over 8 synthetic 480 x 640 images (one B6 launch each),
     the store read back, the extractor timed warm, B6 timed on one image's
     own feature map and proposals, and a full-width UC2
-    run_eval over 64 questions on the extracted store (K1, K2).
+    run_eval over 64 questions on the extracted store (K1, K2). Then
+    `python -m clg_vqa_tpu_torch.cli extract --detector x101` in process at
+    full width and depth (X101Config(): ResNeXt-101 64x4d, FPN 512, 1000
+    proposals a level and after the merged NMS, RoIAlign 7 x 7, fc6/fc7
+    2048, 100 boxes, pad 800 x 1344, bf16, random weights from seed 0) over
+    the same 8 images (no kernel of the port on that path: convs, GEMMs,
+    RoIAlign and the fixpoint NMS are torch ops), the store read back (100
+    regions x 2048 finite features, boxes inside the image, the boxes kept
+    by the class NMS counted), ExtractorX101.extract_many timed warm at
+    device_batch 1 and 4 with its peak memory and the fixpoint NMS's host
+    reads, its records held to the CLI's (device_batch 4 to bf16 rounding
+    of other conv algorithms), and a full-width M3P run_eval (auto, bf16, 100 regions, 5 locs,
+    L2-normalized features) over 1,024 questions on that store (K1 12, K2 1).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions and equal to B1 bit for bit (bf16:
@@ -145,6 +157,8 @@ from clg_vqa_tpu_torch.eval.predictor import Predictor
 from clg_vqa_tpu_torch.eval.runner import make_predict_step, run_eval
 from clg_vqa_tpu_torch.models.detector.extractor import (
     Extractor36, ExtractorConfig, init_extractor_params)
+from clg_vqa_tpu_torch.models.detector.extractor_x101 import (
+    ExtractorX101, X101Config, init_x101_params)
 from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build
@@ -160,6 +174,7 @@ from clg_vqa_tpu_torch.ops.attention import (
     fused_attention_train_smajor_plain, keep_threshold, realized_keep_mask,
     smajor_attention_core, smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
+from clg_vqa_tpu_torch.ops.nms import batched_nms_fixpoint
 from clg_vqa_tpu_torch.ops.block_attention import (
     _core_backward_plain, fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
@@ -195,6 +210,8 @@ M3P_LONG_SEQ = 60
 # the extraction phase: 8 synthetic 480 x 640 images through the C4 detector
 # at full width (R101, pad 800 x 1344, bf16), then UC2 eval over the store
 N_EXTRACT, EXTRACT_HW, EXTRACT_QA = 8, (480, 640), 64
+# M3P eval over the X101 store: one batch of 1024 (auto takes K1 from 512)
+X101_QA, X101_BATCHES = 1024, (1, 4)
 C4_SHAPE, C4_ROIS = (50, 84, 1024), 300
 
 
@@ -2341,14 +2358,9 @@ def phase_extract(tmp: str, smi: str) -> dict:
     (images/s), and a full-width UC2 run_eval over EXTRACT_QA questions on
     the store (K1, K2). Returns the launch counts of both paths."""
     images = os.path.join(tmp, "images")
-    os.makedirs(images)
     r = np.random.RandomState(0)
+    raws = write_images(images, r)
     h, w = EXTRACT_HW
-    raws = [(r.rand(h, w, 3) * 255).astype(np.uint8) for _ in range(N_EXTRACT)]
-    for i, img in enumerate(raws):
-        np.save(os.path.join(images, f"im{i}.npy"), img)
-    with open(os.path.join(images, "readme.txt"), "w") as f:
-        f.write("not an image")
     store = os.path.join(tmp, "extracted.cfs")
     argv = ["extract", "--images", images, "--out", store, "--detector", "c4"]
     print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
@@ -2425,6 +2437,166 @@ def phase_extract(tmp: str, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"extract_c4": counts, "extract_eval": eval_counts,
             "images_per_s": N_EXTRACT / dt, "proposals": proposals}
+
+
+def write_images(directory: str, r: np.random.RandomState) -> list:
+    """N_EXTRACT synthetic EXTRACT_HW uint8 .npy images im0.. drawn from r
+    and one file that does not decode; returns the arrays."""
+    os.makedirs(directory)
+    h, w = EXTRACT_HW
+    raws = [(r.rand(h, w, 3) * 255).astype(np.uint8) for _ in range(N_EXTRACT)]
+    for i, img in enumerate(raws):
+        np.save(os.path.join(directory, f"im{i}.npy"), img)
+    with open(os.path.join(directory, "readme.txt"), "w") as f:
+        f.write("not an image")
+    return raws
+
+
+def x101_agreement(rec, cli_rec, db: int) -> tuple:
+    """How far a timed record lies from the CLI's (device_batch 1) record
+    of the same image: (share of the 100 boxes that agree, largest feature
+    difference on those over the largest |feature|). At device_batch 1 the
+    two runs are the same computation: every box agrees, features within
+    1e-3. At device_batch > 1 cuDNN convolves the batch with other
+    algorithms, which round bf16 elsewhere (in fp32 the card test holds
+    device_batch 2 to the CPU's device_batch 1 within 1e-3): the boxes the
+    class NMS kept must agree with their ids and confidences, at least 80%
+    of all boxes (JAX's own device-batch test asks as much), features
+    within 3e-2."""
+    close_boxes = np.all(np.isclose(rec.boxes, cli_rec.boxes, rtol=1e-3, atol=1e-2),
+                         axis=1)
+    scale = float(np.abs(cli_rec.features).max())
+    fdiff = float(np.abs(rec.features[close_boxes] - cli_rec.features[close_boxes])
+                  .max(initial=0.0)) / scale
+    n = int((cli_rec.obj_conf > 0).sum())
+    kept_same = (bool(close_boxes[:n].all())
+                 and np.array_equal(rec.obj_id[:n], cli_rec.obj_id[:n])
+                 and np.allclose(rec.obj_conf[:n], cli_rec.obj_conf[:n], rtol=1e-2))
+    share, tol = (1.0, 1e-3) if db == 1 else (0.8, 3e-2)
+    check(kept_same and close_boxes.mean() >= share and fdiff <= tol,
+          f"X101 {rec.image_id} at device_batch {db} against the CLI's record: "
+          f"kept boxes the same {kept_same}, boxes agreeing {close_boxes.mean():.2f} "
+          f"(>= {share}), features {fdiff:.3g} of the largest (<= {tol})")
+    return float(close_boxes.mean()), fdiff
+
+
+def phase_extract_x101(tmp: str, smi: str) -> dict:
+    """``python -m clg_vqa_tpu_torch.cli extract --detector x101`` in this
+    process at full width and depth (X101Config(), random weights from seed
+    0) over the images of the C4 phase: no kernel of the port launches. The
+    store read back; ExtractorX101.extract_many timed at device_batch 1 and
+    4 after a warm-up of each, beside its peak memory and the fixpoint
+    NMS's host reads an image; then a full-width M3P run_eval on the auto
+    rule over X101_QA questions on the store (100 regions, 5 locs,
+    L2-normalized features, bf16): K1 12 and K2 1. Returns the launch counts
+    of both paths and the throughputs."""
+    images = os.path.join(tmp, "images")
+    raws = write_images(images, np.random.RandomState(0))
+    h, w = EXTRACT_HW
+    store = os.path.join(tmp, "x101.cfs")
+    argv = ["extract", "--images", images, "--out", store, "--detector", "x101"]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"cli extract --detector x101: {N_EXTRACT} images of {h} x {w} at full "
+          f"width (X-101 64x4d, FPN 512, 1000 proposals, 100 boxes, pad 800 x 1344, "
+          f"bf16) in {dt:.2f} s with the weights' init and first-call set-up on "
+          f"{smi}; launches {counts}")
+    check(counts == only(), f"x101 extract launches {counts}, expected none")
+    reader = CfsReader(store)
+    ids = sorted(reader.keys())
+    check(ids == sorted(f"im{i}" for i in range(N_EXTRACT)),
+          f"x101 store holds {ids}")
+    n_valid = []
+    for key in ids:
+        rec = reader.get(key)
+        check(rec.features.shape == (100, 2048) and bool(np.isfinite(rec.features).all()),
+              f"x101 record {key}: features {rec.features.shape}")
+        check(rec.boxes.shape == (100, 4) and (rec.img_w, rec.img_h) == (w, h)
+              and bool(np.isfinite(rec.boxes).all()) and bool((rec.boxes >= 0).all())
+              and bool((rec.boxes[:, 0::2] <= w).all())
+              and bool((rec.boxes[:, 1::2] <= h).all()), f"x101 record {key}: boxes")
+        check(bool((rec.obj_conf >= 0).all()) and bool((rec.obj_conf <= 1).all())
+              and bool((np.diff(rec.obj_conf) <= 0).all()),
+              f"x101 record {key}: confidences not in [0, 1] descending")
+        n_valid.append(int((rec.obj_conf > 0).sum()))
+    print(f"x101 store: {len(ids)} records of [100, 2048] finite features and 100 "
+          f"boxes inside their {w} x {h} image; num_valid (boxes the class NMS "
+          f"kept) {n_valid}")
+
+    ex = ExtractorX101(init_x101_params(torch.Generator().manual_seed(0)),
+                       X101Config(), device="cuda")
+    items = [(img, f"im{i}") for i, img in enumerate(raws)]
+    timed = {}
+    for db in X101_BATCHES:
+        list(ex.extract_many(items[:db], device_batch=db))               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = batched_nms_fixpoint.host_syncs
+        t0 = time.perf_counter()
+        recs = list(ex.extract_many(items, device_batch=db))
+        dt = time.perf_counter() - t0
+        syncs = (batched_nms_fixpoint.host_syncs - syncs) / N_EXTRACT
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        agree = [x101_agreement(rec, reader.get(rec.image_id), db) for rec in recs]
+        timed[db] = dict(images_per_s=N_EXTRACT / dt, peak_gib=peak,
+                         nms_host_syncs_per_image=syncs,
+                         boxes_agreeing=min(a for a, _ in agree),
+                         feature_diff=max(f for _, f in agree))
+        print(f"ExtractorX101.extract_many, device_batch {db}: {N_EXTRACT} images "
+              f"in {dt:.3f} s -> {N_EXTRACT / dt:.3f} images/s (warm), peak "
+              f"{peak:.2f} GiB allocated, fixpoint NMS host reads {syncs:.1f} an "
+              f"image, on {smi}; against the CLI's records: boxes agreeing >= "
+              f"{timed[db]['boxes_agreeing']:.2f}, features of those within "
+              f"{timed[db]['feature_diff']:.3g} of the largest")
+    del ex
+    torch.cuda.empty_cache()
+
+    cfg = M3PConfig()
+    model = M3P(cfg, device="cuda", seed=0)
+    r = np.random.RandomState(1)
+    words = [f"word{i}" for i in range(3000)]
+    entries = [Entry(question_id=i, image_id=f"im{i % N_EXTRACT}",
+                     question=" ".join(r.choice(words, r.randint(4, 12))),
+                     labels=[int(r.randint(cfg.num_labels))], scores=[1.0])
+               for i in range(X101_QA)]
+    ds = GQADataset(entries, reader, HashTokenizer(cfg.vocab_size), max_seq_length=40,
+                    max_region_num=100, num_locs=cfg.num_locs,
+                    num_labels=cfg.num_labels, norm_embeddings=True)
+    bank = DeviceFeatureBank(reader, max_regions=100, num_locs=cfg.num_locs,
+                             norm_embeddings=True, device="cuda")
+    # a box at (0, 0, 0, 0) has all-zero locs, which the L2 normalization
+    # (data/features.py, as the JAX package's, no epsilon) turns into NaN
+    zero_boxes = sum(int((np.abs(reader.get(k).boxes).sum(1) == 0).sum()) for k in ids)
+    nan_rows = int(torch.isnan(bank.locs).any(-1).sum())
+    print(f"x101 store: {zero_boxes} of {100 * len(ids)} boxes at (0, 0, 0, 0); "
+          f"{nan_rows} bank rows with NaN locs after the L2 normalization")
+    label2ans = [f"a{i}" for i in range(cfg.num_labels)]
+    kw = dict(batch_size=EVAL_BS, device_bank=bank)
+    run_eval(model, ds, label2ans, **kw)                                # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_eval(model, ds, label2ans, out_path=os.path.join(tmp, "x101_result.json"),
+                   **kw)
+    dt = time.perf_counter() - t0
+    eval_counts = read_counts()
+    n_batches = math.ceil(X101_QA / EVAL_BS)
+    check(res["n"] == X101_QA and eval_counts == only(
+        flat_attention=cfg.num_layers * n_batches, rows_gather=n_batches),
+        f"M3P eval over the x101 store: {res['n']} QA, launches {eval_counts}")
+    print(f"run_eval M3P full width over the x101 store: {res['n']} questions in "
+          f"{dt:.3f} s -> {res['n'] / dt:.1f} QA/s (bs {EVAL_BS}, bf16, auto: K1, "
+          f"bank on, {n_batches} batch) on {smi}; launches {eval_counts}")
+    del model, bank
+    torch.cuda.empty_cache()
+    return {"extract_x101": counts, "extract_x101_eval": eval_counts,
+            "timed": timed, "n_valid": n_valid, "zero_boxes": zero_boxes}
 
 
 def time_roi_pool_on_proposals(ex, item) -> dict:
@@ -2639,6 +2811,10 @@ def main() -> int:
         extract = phase_extract(tmp, smi)
     kern["roi_pool"]["extract_proposals"] = extract["proposals"]
     print(f"detector phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        x101 = phase_extract_x101(tmp, smi)
+    print(f"X101 phase {time.perf_counter() - t_phase:.1f} s")
     cfg = UC2Config()
     model = UC2(cfg, device="cuda", seed=0)
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
@@ -2671,7 +2847,9 @@ def main() -> int:
                    prune=prune_sft["launches"]["prune"],
                    sft=prune_sft["launches"]["sft"],
                    **m3p["launches"], extract_c4=extract["extract_c4"],
-                   extract_eval=extract["extract_eval"])
+                   extract_eval=extract["extract_eval"],
+                   extract_x101=x101["extract_x101"],
+                   extract_x101_eval=x101["extract_x101_eval"])
     for name in ("fwd", "bwd"):
         kern[f"flat_attention_train_{name}/{torch.bfloat16}"].update(
             long_s={k: v for k, v in long_s.items() if k.endswith(name)},

@@ -6,9 +6,9 @@ plus ``--device`` (default ``cuda``; ``cpu`` for the tests). It mirrors the
 reference entry points train_task.py, train_task_prunning.py (``prune``,
 IMP rounds), train_task_sft.py (``sft``, from a ``--mask_file``),
 eval_task.py, scripts/GQA_score.py, conversions/ and features_extraction/
-(``extract``, the R101-C4 36-box detector; ``--detector x101`` is
-ROADMAP.md §A slice 10b). The convert-store command is not ported yet
-(slice 11b).
+(``extract``: ``--detector c4``, the R101-C4 36-box detector behind UC2's
+features, or ``--detector x101``, the X101-FPN 100-box detector behind
+M3P's). The convert-store command is not ported yet (slice 11b).
 """
 from __future__ import annotations
 
@@ -129,16 +129,22 @@ def cmd_convert(args):
     print(f"saved {args.output_dir}/{args.name}")
 
 
-def _load_detector_weights(path: str) -> dict:
-    """The R101-C4 extractor's parameters from a params directory of this
-    package (a detectron2-named state dict saved by
-    ``train/checkpoints.save_params``), a caffe ``.pkl`` (the VG release) or a
-    torch ``.pth``/``.bin`` state dict; returned as the port's tree."""
+def _load_detector_weights(path: str, kind: str) -> dict:
+    """A detector's parameters as the port's tree, from a params directory
+    of this package (a state dict saved by ``train/checkpoints.save_params``),
+    a caffe ``.pkl`` (the VG R101-C4 release; ``kind`` "c4" only) or a torch
+    ``.pth``/``.bin`` state dict (detectron2 names for "c4",
+    vqa-maskrcnn-benchmark's for "x101")."""
     from ..train import checkpoints as ckpt
-    from ..utils.convert_detector import detectron2_c4_to_pytree, load_c4_params
+    from ..utils.convert_detector import (detectron2_c4_to_pytree, load_c4_params,
+                                          maskrcnn_x101_to_pytree)
     if os.path.isdir(path):
         sd = ckpt.load_params(os.path.dirname(path) or ".", os.path.basename(path))
     elif path.endswith(".pkl"):
+        if kind != "c4":
+            raise ValueError(
+                "caffe .pkl checkpoints are the VG R101-C4 format; "
+                "--detector x101 loads the vqa-maskrcnn-benchmark .pth file")
         import pickle
         with open(path, "rb") as f:
             raw = pickle.load(f, encoding="latin1")
@@ -147,30 +153,35 @@ def _load_detector_weights(path: str) -> dict:
         raw = torch.load(path, map_location="cpu", weights_only=True)
         sd = raw.get("model", raw) if isinstance(raw, dict) else raw
     sd = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in sd.items()}
-    return load_c4_params(detectron2_c4_to_pytree(sd))
+    to_tree = detectron2_c4_to_pytree if kind == "c4" else maskrcnn_x101_to_pytree
+    return load_c4_params(to_tree(sd))
 
 
 def cmd_extract(args):
     """Offline region-feature extraction (the features_extraction/ stage):
-    a directory of images -> a CFS store, through the R101-C4 36-box
-    pipeline."""
+    a directory of images -> a CFS store, through the R101-C4 36-box or the
+    X101-FPN 100-box pipeline."""
     import glob as _glob
 
     from ..data.cfs import CfsWriter
-    from ..models.detector.extractor import (Extractor36, ExtractorConfig,
-                                             init_extractor_params)
 
-    if args.detector == "x101":
-        raise NotImplementedError(
-            "--detector x101 (the X101-FPN extractor) is not ported yet: "
-            "ROADMAP.md §A, slice 10b")
     kw = {f: getattr(args, f) for f in ("short", "max_size", "pad_h", "pad_w",
                                         "num_boxes", "pre_nms_topk",
                                         "post_nms_topk") if getattr(args, f)}
-    params = (_load_detector_weights(args.weights) if args.weights
-              else init_extractor_params(torch.Generator().manual_seed(0)))
-    ex = Extractor36(params, ExtractorConfig(**kw) if kw else None,
-                     device=args.device)
+    if args.detector == "c4":
+        from ..models.detector.extractor import (Extractor36, ExtractorConfig,
+                                                 init_extractor_params)
+        params = (_load_detector_weights(args.weights, "c4") if args.weights
+                  else init_extractor_params(torch.Generator().manual_seed(0)))
+        ex = Extractor36(params, ExtractorConfig(**kw) if kw else None,
+                         device=args.device)
+    else:
+        from ..models.detector.extractor_x101 import (ExtractorX101, X101Config,
+                                                      init_x101_params)
+        cfg = X101Config(**kw) if kw else None
+        params = (_load_detector_weights(args.weights, "x101") if args.weights
+                  else init_x101_params(torch.Generator().manual_seed(0), cfg))
+        ex = ExtractorX101(params, cfg, device=args.device)
     paths = sorted(_glob.glob(os.path.join(args.images, "*")))
 
     def gen():

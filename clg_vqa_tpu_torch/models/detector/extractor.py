@@ -160,6 +160,22 @@ def _placed(params: dict, device: torch.device, dtype=torch.float32) -> dict:
     return tree_map(put, params)
 
 
+def resize_linear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """[H, W, 3] float -> [nh, nw, 3] as ``jax.image.resize(..., "linear")``
+    resizes: bilinear on pixel centres, antialiased when shrinking."""
+    return F.interpolate(img.permute(2, 0, 1)[None], size=(nh, nw),
+                         mode="bilinear", align_corners=False,
+                         antialias=True)[0].permute(1, 2, 0)
+
+
+def pad_to(img: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """img [h, w, 3] at the top left of zeros [pad_h, pad_w, 3], cut to fit."""
+    pad = torch.zeros(pad_h, pad_w, 3, device=img.device)
+    h, w = min(img.shape[0], pad_h), min(img.shape[1], pad_w)
+    pad[:h, :w] = img[:h, :w]
+    return pad
+
+
 @torch.no_grad()
 def preprocess(raw_bgr: np.ndarray, cfg: ExtractorConfig, device):
     """Resize, mean-subtract and pad one raw_bgr [H, W, 3] (uint8 or float,
@@ -168,14 +184,9 @@ def preprocess(raw_bgr: np.ndarray, cfg: ExtractorConfig, device):
     rh, rw = raw_bgr.shape[:2]
     nh, nw = resize_shortest_edge(rh, rw, cfg.short, cfg.max_size)
     raw = torch.from_numpy(np.ascontiguousarray(raw_bgr)).to(device)
-    img = F.interpolate(raw.float().permute(2, 0, 1)[None], size=(nh, nw),
-                        mode="bilinear", align_corners=False,
-                        antialias=True)[0].permute(1, 2, 0)
-    img = img - torch.tensor(PIXEL_MEAN_BGR, device=device)
-    pad = torch.zeros(cfg.pad_h, cfg.pad_w, 3, device=device)
-    h, w = min(nh, cfg.pad_h), min(nw, cfg.pad_w)
-    pad[:h, :w] = img[:h, :w]
-    return pad, (nh, nw), (rh, rw)
+    img = resize_linear(raw.float(), nh, nw) - torch.tensor(PIXEL_MEAN_BGR,
+                                                            device=device)
+    return pad_to(img, cfg.pad_h, cfg.pad_w), (nh, nw), (rh, rw)
 
 
 class PipelinedExtractor:
@@ -212,6 +223,11 @@ class PipelinedExtractor:
 
         for recs in fetch_pipelined(dispatch(), self._finish_group, depth):
             yield from recs
+
+    def extract(self, raw_bgr: np.ndarray, image_id: str) -> RegionRecord:
+        """One image's record (``extract_many`` of one, inline)."""
+        return next(iter(self.extract_many([(raw_bgr, image_id)],
+                                           prefetch_workers=0)))
 
     def _finish_group(self, n_real, group, out):
         host = {k: v.cpu().numpy() for k, v in out.items()}
@@ -323,9 +339,6 @@ class Extractor36(PipelinedExtractor):
             obj_id=host["obj_id"], obj_conf=host["obj_conf"],
             attr_id=host["attr_id"], attr_conf=host["attr_conf"])
 
-    def extract(self, raw_bgr: np.ndarray, image_id: str) -> RegionRecord:
-        return next(iter(self.extract_many([(raw_bgr, image_id)],
-                                           prefetch_workers=0)))
 
 
 class GivenBoxExtractor:

@@ -1,5 +1,5 @@
-"""Caffe-style ResNet for the region-feature detector (port of
-clg_vqa_tpu/models/detector/resnet.py:30-190, the C4 half).
+"""Caffe-style ResNet and ResNeXt for the region-feature detectors (port of
+clg_vqa_tpu/models/detector/resnet.py).
 
 Functions on NHWC tensors, as the JAX package's: each conv views its NHWC
 input as a channels-last NCHW tensor (a permute, no copy), runs
@@ -11,7 +11,9 @@ per-channel scale and bias.
 
 Quirks kept: stride_in_1x1 (the stride on each first block's 1x1 conv1),
 the caffe max pool (3x3/2, no padding, ceil mode), and RES5HALVE=False for
-the VG head (res5 at stride 1 with dilation 2).
+the VG head (res5 at stride 1 with dilation 2). The X101 detector runs
+grouped 3x3 convs (ResNeXt; grouped OIHW weights are [cout, cin/groups, k,
+k]), the stride in the 3x3 and torch's max pool (3x3/2, padding 1).
 """
 from __future__ import annotations
 
@@ -27,12 +29,13 @@ STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 def conv(x: torch.Tensor, p: Params, *, stride: int = 1,
-         dilation: int = 1) -> torch.Tensor:
-    """NHWC conv with OIHW weights and torch's padding ((k-1)*dilation)//2."""
+         dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """NHWC conv with OIHW weights and torch's padding ((k-1)*dilation)//2;
+    groups > 1 is ResNeXt's grouped conv."""
     k = p["w"].shape[-1]
     pad = ((k - 1) * dilation) // 2
     y = F.conv2d(x.permute(0, 3, 1, 2), p["w"], p.get("b"), stride=stride,
-                 padding=pad, dilation=dilation)
+                 padding=pad, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -48,11 +51,12 @@ def caffe_maxpool(x: torch.Tensor) -> torch.Tensor:
 
 
 def bottleneck(x: torch.Tensor, p: Params, *, stride: int = 1,
-               dilation: int = 1, stride_in_1x1: bool = True) -> torch.Tensor:
+               dilation: int = 1, stride_in_1x1: bool = True,
+               groups: int = 1) -> torch.Tensor:
     s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
     out = F.relu(frozen_bn(conv(x, p["conv1"], stride=s1), p["bn1"]))
-    out = F.relu(frozen_bn(conv(out, p["conv2"], stride=s3, dilation=dilation),
-                           p["bn2"]))
+    out = F.relu(frozen_bn(conv(out, p["conv2"], stride=s3, dilation=dilation,
+                                groups=groups), p["bn2"]))
     out = frozen_bn(conv(out, p["conv3"]), p["bn3"])
     if "shortcut" in p:
         sc = frozen_bn(conv(x, p["shortcut"], stride=stride), p["bn_sc"])
@@ -62,17 +66,35 @@ def bottleneck(x: torch.Tensor, p: Params, *, stride: int = 1,
 
 
 def stage(x: torch.Tensor, blocks: list[Params], *, stride: int,
-          dilation: int = 1, stride_in_1x1: bool = True) -> torch.Tensor:
+          dilation: int = 1, stride_in_1x1: bool = True,
+          groups: int = 1) -> torch.Tensor:
     for i, bp in enumerate(blocks):
         x = bottleneck(x, bp, stride=stride if i == 0 else 1,
-                       dilation=dilation, stride_in_1x1=stride_in_1x1)
+                       dilation=dilation, stride_in_1x1=stride_in_1x1,
+                       groups=groups)
     return x
 
 
-def stem(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """conv1 7x7/2 + BN + ReLU + the caffe max pool."""
-    return caffe_maxpool(F.relu(frozen_bn(conv(x, p["conv1"], stride=2),
-                                          p["bn1"])))
+def stem(x: torch.Tensor, p: Params, *, caffe_pool: bool = True) -> torch.Tensor:
+    """conv1 7x7/2 + BN + ReLU + the caffe max pool, or with
+    caffe_pool=False torch's 3x3/2 max pool with padding 1 (-inf padding)."""
+    x = F.relu(frozen_bn(conv(x, p["conv1"], stride=2), p["bn1"]))
+    if caffe_pool:
+        return caffe_maxpool(x)
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def backbone_stages(x: torch.Tensor, params: Params, *,
+                    stride_in_1x1: bool = True, caffe_pool: bool = True,
+                    groups: int = 1) -> tuple:
+    """Stem + res2..res5 -> (C2, C3, C4, C5), the FPN's inputs.
+    x: [N, H, W, 3]."""
+    x = stem(x, params["stem"], caffe_pool=caffe_pool)
+    kw = dict(stride_in_1x1=stride_in_1x1, groups=groups)
+    c2 = stage(x, params["res2"], stride=1, **kw)
+    c3 = stage(c2, params["res3"], stride=2, **kw)
+    c4 = stage(c3, params["res4"], stride=2, **kw)
+    return c2, c3, c4, stage(c4, params["res5"], stride=2, **kw)
 
 
 def backbone_c4(x: torch.Tensor, params: Params, *,
@@ -113,9 +135,10 @@ def _init_bn(c: int) -> Params:
     return {"scale": torch.ones(c), "bias": torch.zeros(c)}
 
 
-def _init_bottleneck(gen, cin: int, cmid: int, cout: int, shortcut: bool) -> Params:
+def _init_bottleneck(gen, cin: int, cmid: int, cout: int, shortcut: bool,
+                     groups: int = 1) -> Params:
     p = {"conv1": _init_conv(gen, 1, cin, cmid), "bn1": _init_bn(cmid),
-         "conv2": _init_conv(gen, 3, cmid, cmid), "bn2": _init_bn(cmid),
+         "conv2": _init_conv(gen, 3, cmid // groups, cmid), "bn2": _init_bn(cmid),
          "conv3": _init_conv(gen, 1, cmid, cout), "bn3": _init_bn(cout)}
     if shortcut:
         p["shortcut"] = _init_conv(gen, 1, cin, cout)
@@ -140,3 +163,21 @@ def init_res5(gen: torch.Generator, *, depth: int = 101) -> Params:
     n5 = STAGE_BLOCKS[depth][3]
     return {"res5": [_init_bottleneck(gen, 1024 if i == 0 else 2048, 512, 2048,
                                       shortcut=(i == 0)) for i in range(n5)]}
+
+
+def init_backbone_x(gen: torch.Generator, *, depth: int = 101, groups: int = 32,
+                    width_per_group: int = 8) -> Params:
+    """ResNeXt stem and res2..res5 (X-101 64x4d for the X101 extractor)."""
+    n2, n3, n4, n5 = STAGE_BLOCKS[depth]
+    w = groups * width_per_group          # 256 for 64x4d and 32x8d alike
+
+    def make_stage(n, cin, cmid, cout):
+        return [_init_bottleneck(gen, cin if i == 0 else cout, cmid, cout,
+                                 shortcut=(i == 0), groups=groups)
+                for i in range(n)]
+
+    return {"stem": {"conv1": _init_conv(gen, 7, 3, 64), "bn1": _init_bn(64)},
+            "res2": make_stage(n2, 64, w, 256),
+            "res3": make_stage(n3, 256, w * 2, 512),
+            "res4": make_stage(n4, 512, w * 4, 1024),
+            "res5": make_stage(n5, 1024, w * 8, 2048)}

@@ -1,6 +1,5 @@
 """Region Proposal Network, fixed shapes (port of
-clg_vqa_tpu/models/detector/rpn.py:28-187, the detectron2 half; the legacy
-maskrcnn-benchmark decode and the caffe anchors belong to the X101 slice).
+clg_vqa_tpu/models/detector/rpn.py:28-187).
 
 3x3 conv (1024 -> 512) + ReLU -> 1x1 objectness [A] and deltas [4A];
 detectron2 anchors (sizes x ratios at stride 16, area-preserving, zero
@@ -9,6 +8,10 @@ clip; top 6000 -> NMS 0.7 -> top 300 with a validity mask. ``jax.lax.top_k``
 keeps the lower index among equal scores and orders fp32 totally (-0.0
 below +0.0), so the top-k here is a stable descending sort of total-order
 keys (``torch.topk`` on CUDA promises no order among ties).
+
+The X101 detector uses maskrcnn-benchmark's legacy conventions instead:
+caffe anchors (``generate_anchors_caffe``) and the TO_REMOVE=1 box widths
+in the decode and the clip (``decode_boxes_legacy``, ``clip_boxes_legacy``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,17 @@ from .resnet import conv
 Params = dict[str, Any]
 
 
+def _on_grid(cell: np.ndarray, feat_h: int, feat_w: int, stride: int) -> np.ndarray:
+    """The cell's anchors [A, 4] shifted to every grid point at stride * i:
+    [H*W*A, 4] xyxy, cell-major then anchor."""
+    sx = np.arange(feat_w, dtype=np.float32) * stride
+    sy = np.arange(feat_h, dtype=np.float32) * stride
+    shift_x, shift_y = np.meshgrid(sx, sy)
+    shifts = np.stack([shift_x.ravel(), shift_y.ravel(),
+                       shift_x.ravel(), shift_y.ravel()], 1)
+    return (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
+
+
 def generate_anchors(feat_h: int, feat_w: int, *, stride: int = 16,
                      sizes=(64, 128, 256, 512),
                      ratios=(0.5, 1.0, 2.0)) -> np.ndarray:
@@ -38,12 +52,41 @@ def generate_anchors(feat_h: int, feat_w: int, *, stride: int = 16,
             h = w * r
             cell.append([-w / 2.0, -h / 2.0, w / 2.0, h / 2.0])
     cell = np.asarray(cell, np.float32)
-    sx = np.arange(feat_w, dtype=np.float32) * stride
-    sy = np.arange(feat_h, dtype=np.float32) * stride
-    shift_x, shift_y = np.meshgrid(sx, sy)
-    shifts = np.stack([shift_x.ravel(), shift_y.ravel(),
-                       shift_x.ravel(), shift_y.ravel()], 1)
-    return (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
+    return _on_grid(cell, feat_h, feat_w, stride)
+
+
+def generate_anchors_caffe(feat_h: int, feat_w: int, *, stride: int,
+                           sizes=(32,), ratios=(0.5, 1.0, 2.0)) -> np.ndarray:
+    """Legacy Detectron/caffe anchors, what vqa-maskrcnn-benchmark's
+    AnchorGenerator uses (anchor_generator.py:183-232): a base (0, 0,
+    stride-1, stride-1) window, rounded w/h in the aspect-ratio enumeration,
+    centre (stride-1)/2; grid shifts at stride*i; ratio-major cell order.
+    [H*W*A, 4] xyxy, A fastest. numpy, as in the JAX package, so the
+    anchors are the same bits."""
+    base = np.array([0.0, 0.0, stride - 1.0, stride - 1.0])
+
+    def whctrs(a):
+        w = a[2] - a[0] + 1.0
+        h = a[3] - a[1] + 1.0
+        return w, h, a[0] + 0.5 * (w - 1.0), a[1] + 0.5 * (h - 1.0)
+
+    def mk(ws, hs, xc, yc):
+        ws, hs = np.asarray(ws, np.float64), np.asarray(hs, np.float64)
+        return np.stack([xc - 0.5 * (ws - 1.0), yc - 0.5 * (hs - 1.0),
+                         xc + 0.5 * (ws - 1.0), yc + 0.5 * (hs - 1.0)], 1)
+
+    w, h, xc, yc = whctrs(base)
+    size = w * h
+    ws = np.round(np.sqrt(size / np.asarray(ratios)))
+    hs = np.round(ws * np.asarray(ratios))
+    ratio_anchors = mk(ws, hs, xc, yc)
+    cells = []
+    scales = np.asarray(sizes, np.float64) / stride
+    for i in range(ratio_anchors.shape[0]):
+        w, h, xc, yc = whctrs(ratio_anchors[i])
+        cells.append(mk(w * scales, h * scales, xc, yc))
+    cell = np.vstack(cells).astype(np.float32)            # [R*S, 4]
+    return _on_grid(cell, feat_h, feat_w, stride)
 
 
 def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
@@ -78,11 +121,44 @@ def clip_boxes(boxes: torch.Tensor, h, w) -> torch.Tensor:
                         torch.clamp(x2, zero, w), torch.clamp(y2, zero, h)], -1)
 
 
+def decode_boxes_legacy(anchors: torch.Tensor, deltas: torch.Tensor,
+                        clamp: float = math.log(1000.0 / 16)) -> torch.Tensor:
+    """maskrcnn-benchmark BoxCoder.decode (box_coder.py:52-96) on [..., 4]
+    rows: widths x2 - x1 + 1 and x2 = ctr + 0.5 w - 1, the convention the
+    released X-101 checkpoint's deltas assume."""
+    widths = anchors[..., 2] - anchors[..., 0] + 1.0
+    heights = anchors[..., 3] - anchors[..., 1] + 1.0
+    ctr_x = anchors[..., 0] + 0.5 * widths
+    ctr_y = anchors[..., 1] + 0.5 * heights
+    dw = deltas[..., 2].clamp(max=clamp)
+    dh = deltas[..., 3].clamp(max=clamp)
+    pcx = deltas[..., 0] * widths + ctr_x
+    pcy = deltas[..., 1] * heights + ctr_y
+    pw = torch.exp(dw) * widths
+    ph = torch.exp(dh) * heights
+    return torch.stack([pcx - 0.5 * pw, pcy - 0.5 * ph,
+                        pcx + 0.5 * pw - 1.0, pcy + 0.5 * ph - 1.0], dim=-1)
+
+
+def clip_boxes_legacy(boxes: torch.Tensor, h, w) -> torch.Tensor:
+    """BoxList.clip_to_image with TO_REMOVE=1 (bounding_box.py:203-208):
+    clamp to [0, size - 1]; h and w as in :func:`clip_boxes`."""
+    return clip_boxes(boxes, torch.as_tensor(h) - 1, torch.as_tensor(w) - 1)
+
+
 def total_order_key(x: torch.Tensor) -> torch.Tensor:
     """int32 keys that order fp32 values as XLA's sort and top_k do: a
     total order in which -0.0 < +0.0 (IEEE comparison calls them equal)."""
     bits = x.float().contiguous().view(torch.int32)
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest values along the last axis in
+    ``jax.lax.top_k``'s order: descending, ties to the lower index, -0.0
+    below +0.0 (a stable sort of total-order keys)."""
+    return torch.sort(total_order_key(x), dim=-1, descending=True,
+                      stable=True).indices[..., :k]
 
 
 def rpn_head(feat: torch.Tensor, params: Params):
@@ -110,8 +186,7 @@ def propose(obj: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tensor,
     if valid_mask is not None:
         logits = torch.where(valid_mask.reshape(n, -1), logits, float("-inf"))
     k = min(pre_nms_topk, logits.shape[1])
-    top_idx = torch.sort(total_order_key(logits), dim=1, descending=True,
-                         stable=True).indices[:, :k]
+    top_idx = top_k_indices(logits, k)
     top_scores = logits.gather(1, top_idx)
     top_boxes = decode_boxes(anchors[top_idx],
                              deltas.reshape(n, -1, 4).gather(

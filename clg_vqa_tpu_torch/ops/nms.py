@@ -10,7 +10,8 @@ batch (classes, images, thresholds) run through one loop together.
 
 ``batched_nms_fixpoint`` is the exact greedy per-class NMS over shared boxes
 as a parallel fixpoint; it checks convergence on the host once per
-iteration. Outputs follow torchvision: kept indices in descending-score
+iteration and counts those reads in ``batched_nms_fixpoint.host_syncs``.
+Outputs follow torchvision: kept indices in descending-score
 order, padded (keep False) past the survivors.
 """
 from __future__ import annotations
@@ -26,17 +27,18 @@ def _areas(boxes: torch.Tensor, t: float) -> torch.Tensor:
 
 
 def iou_matrix(boxes: torch.Tensor, *, legacy: bool = False) -> torch.Tensor:
-    """Pairwise IoU of boxes [N, 4] xyxy. legacy=False: torchvision widths
-    x2 - x1; legacy=True: the Detectron/caffe x2 - x1 + 1."""
+    """Pairwise IoU of boxes [..., N, 4] xyxy -> [..., N, N]. legacy=False:
+    torchvision widths x2 - x1; legacy=True: the Detectron/caffe
+    x2 - x1 + 1."""
     t = 1.0 if legacy else 0.0
     x1, y1, x2, y2 = boxes.unbind(-1)
     area = _areas(boxes, t)
-    lt_x = torch.maximum(x1[:, None], x1[None, :])
-    lt_y = torch.maximum(y1[:, None], y1[None, :])
-    rb_x = torch.minimum(x2[:, None], x2[None, :])
-    rb_y = torch.minimum(y2[:, None], y2[None, :])
+    lt_x = torch.maximum(x1[..., :, None], x1[..., None, :])
+    lt_y = torch.maximum(y1[..., :, None], y1[..., None, :])
+    rb_x = torch.minimum(x2[..., :, None], x2[..., None, :])
+    rb_y = torch.minimum(y2[..., :, None], y2[..., None, :])
     inter = (rb_x - lt_x + t).clamp(min=0) * (rb_y - lt_y + t).clamp(min=0)
-    union = area[:, None] + area[None, :] - inter
+    union = area[..., :, None] + area[..., None, :] - inter
     return torch.where(union > 0, inter / union, 0.0)
 
 
@@ -127,11 +129,8 @@ def batched_nms_fixpoint(boxes: torch.Tensor, scores: torch.Tensor,
     Returns keep [C, N] bool."""
     C, N = scores.shape
     dev = scores.device
-    if boxes.dim() == 3:
-        over = torch.stack([iou_matrix(b, legacy=legacy) for b in boxes]) > iou_threshold
-    else:
-        over = (iou_matrix(boxes, legacy=legacy) > iou_threshold)[None]
-    over = over & ~torch.eye(N, dtype=torch.bool, device=dev)
+    over = iou_matrix(boxes, legacy=legacy) > iou_threshold
+    over = over.reshape(-1, N, N) & ~torch.eye(N, dtype=torch.bool, device=dev)
     v = (torch.ones(C, N, dtype=torch.bool, device=dev) if valid is None
          else valid.expand(C, N))
     pri = torch.where(v, _tie_broken(scores), NEG)
@@ -145,7 +144,16 @@ def batched_nms_fixpoint(boxes: torch.Tensor, scores: torch.Tensor,
             return v_c & (cand.amax(1) < p_c)
 
         K, prev, it = f(v_c), v_c, 0
-        while it < N and not torch.equal(K, prev):
+        while it < N and not _converged(K, prev):
             K, prev, it = f(K), K, it + 1
         keep.append(K)
     return torch.cat(keep)
+
+
+def _converged(K: torch.Tensor, prev: torch.Tensor) -> bool:
+    """The fixpoint's convergence test: one read back to the host."""
+    batched_nms_fixpoint.host_syncs += 1
+    return torch.equal(K, prev)
+
+
+batched_nms_fixpoint.host_syncs = 0

@@ -1,6 +1,6 @@
-"""Detector checkpoint ingest for the R101-C4 extractor (own copy of the C4
-half of clg_vqa_tpu/utils/convert_detector.py:27-232), plus the loader of
-that numpy pytree into the port.
+"""Detector checkpoint ingest for the R101-C4 and X101-FPN extractors (own
+copy of clg_vqa_tpu/utils/convert_detector.py), plus the loader of either
+numpy pytree into the port.
 
 The reference's 36-box extractor loads ``faster_rcnn_from_caffe_attr.pkl``
 through detectron2's caffe2 loader, which renames caffe2 keys
@@ -8,9 +8,11 @@ through detectron2's caffe2 loader, which renames caffe2 keys
 ...). ``detectron2_c4_to_pytree`` takes the detectron2 names (or the raw
 caffe2 ones) and returns the JAX package's pytree: numpy, conv weights
 HWIO, linear weights [in, out], BatchNorm folded (scale = gamma /
-sqrt(var + eps), bias = beta - mean * scale). ``load_c4_params`` turns that
-pytree (or the JAX ``init_extractor_params`` tree as numpy) into the port's
-tree: torch tensors, conv weights OIHW; ``c4_params_to_pytree`` inverts it.
+sqrt(var + eps), bias = beta - mean * scale). ``maskrcnn_x101_to_pytree``
+does the same for vqa-maskrcnn-benchmark's X101 ``detectron_model.pth``.
+``load_c4_params`` turns either pytree (or the JAX package's random trees
+as numpy) into the port's tree: torch tensors, conv weights OIHW (grouped
+ones [cout, cin/groups, k, k]); ``c4_params_to_pytree`` inverts it.
 """
 from __future__ import annotations
 
@@ -165,6 +167,78 @@ def detectron2_c4_to_pytree(sd: Mapping[str, np.ndarray], *, depth: int = 101,
     return params
 
 
+#: state-dict keys that carry no learnable weights (the RPN's anchors are
+#: regenerated from the config; BufferList registers them,
+#: anchor_generator.py:49-58)
+_X101_IGNORED = re.compile(r"(^|\.)anchor_generator\.|cell_anchors")
+
+
+def maskrcnn_x101_to_pytree(sd: Mapping[str, np.ndarray]) -> dict:
+    """vqa-maskrcnn-benchmark ``detectron_model.pth`` (GeneralizedRCNN,
+    X-101-64x4d FPN-512) -> the X101 extractor's numpy pytree (JAX layout).
+
+    Key names: backbone.body.stem.{conv1,bn1}; backbone.body.layer{1..4}.{i}
+    .{conv,bn}{1,2,3} and .downsample.{0,1}; backbone.fpn.fpn_inner{1..4} /
+    fpn_layer{1..4}; rpn.head.{conv,cls_logits,bbox_pred};
+    roi_heads.box.feature_extractor.{fc6,fc7};
+    roi_heads.box.predictor.{cls_score,bbox_pred}; a DataParallel
+    ``module.`` prefix is dropped. fc6 reads the crop flattened
+    channel-first, as torch's .view does. Raises KeyError listing the
+    leftovers if a key outside ``_X101_IGNORED`` goes unused."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    used: set[str] = set()
+
+    class _Track(dict):
+        def __getitem__(self, k):
+            used.add(k)
+            return dict.__getitem__(self, k)
+
+    t = _Track(sd)
+
+    def blocks(stage_idx: int, n: int):
+        base = f"backbone.body.layer{stage_idx}"
+        out = []
+        for i in range(n):
+            p = {"conv1": _conv(t, f"{base}.{i}.conv1"),
+                 "bn1": _fold_bn(t, f"{base}.{i}.bn1"),
+                 "conv2": _conv(t, f"{base}.{i}.conv2"),
+                 "bn2": _fold_bn(t, f"{base}.{i}.bn2"),
+                 "conv3": _conv(t, f"{base}.{i}.conv3"),
+                 "bn3": _fold_bn(t, f"{base}.{i}.bn3")}
+            if f"{base}.{i}.downsample.0.weight" in sd:
+                p["shortcut"] = _conv(t, f"{base}.{i}.downsample.0")
+                p["bn_sc"] = _fold_bn(t, f"{base}.{i}.downsample.1")
+            out.append(p)
+        return out
+
+    n2, n3, n4, n5 = STAGE_BLOCKS[101]
+    params = {
+        "backbone": {
+            "stem": {"conv1": _conv(t, "backbone.body.stem.conv1"),
+                     "bn1": _fold_bn(t, "backbone.body.stem.bn1")},
+            "res2": blocks(1, n2), "res3": blocks(2, n3),
+            "res4": blocks(3, n4), "res5": blocks(4, n5),
+        },
+        "fpn": {
+            "lateral": [_conv(t, f"backbone.fpn.fpn_inner{i}") for i in (1, 2, 3, 4)],
+            "output": [_conv(t, f"backbone.fpn.fpn_layer{i}") for i in (1, 2, 3, 4)],
+        },
+        "rpn": {"conv": _conv(t, "rpn.head.conv"),
+                "objectness": _conv(t, "rpn.head.cls_logits"),
+                "deltas": _conv(t, "rpn.head.bbox_pred")},
+        "box_head": {"fc6": _lin(t, "roi_heads.box.feature_extractor.fc6"),
+                     "fc7": _lin(t, "roi_heads.box.feature_extractor.fc7")},
+        "predictor": {"cls_score": _lin(t, "roi_heads.box.predictor.cls_score"),
+                      "bbox_pred": _lin(t, "roi_heads.box.predictor.bbox_pred")},
+    }
+    leftovers = [k for k in sd if k not in used and not _X101_IGNORED.search(k)]
+    if leftovers:
+        raise KeyError(f"unmapped checkpoint keys: {sorted(leftovers)[:10]}"
+                       f" (+{max(len(leftovers) - 10, 0)} more)")
+    return params
+
+
 def pytree_to_detectron2_c4(params: dict) -> dict[str, np.ndarray]:
     """Inverse of ``detectron2_c4_to_pytree`` (folded-BN affine form)."""
     sd: dict[str, np.ndarray] = {}
@@ -219,10 +293,10 @@ def _walk(tree, fn, path=()):
 
 
 def load_c4_params(tree: dict) -> dict:
-    """The extractor's numpy pytree in the JAX layout (from
-    ``detectron2_c4_to_pytree``, or JAX's ``init_extractor_params`` as numpy)
-    -> the port's tree of fp32 CPU tensors: conv weights HWIO -> OIHW, every
-    other leaf as it is."""
+    """Either extractor's numpy pytree in the JAX layout (from
+    ``detectron2_c4_to_pytree`` or ``maskrcnn_x101_to_pytree``, or JAX's
+    random trees as numpy) -> the port's tree of fp32 CPU tensors: conv
+    weights HWIO -> OIHW, every other leaf as it is."""
     def leaf(path, x):
         x = torch.from_numpy(np.array(x, np.float32))      # a copy
         is_conv = path[-1] == "w" and x.dim() == 4

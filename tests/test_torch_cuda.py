@@ -1680,3 +1680,65 @@ def test_roi_pool_kernel_refuses_what_it_does_not_take(cuda):
         RP.roi_pool_nhwc(torch.zeros(10, 12, 3, device=cuda), rois, **kw)
     with pytest.raises(ValueError, match="fp32/bf16"):
         RP.roi_pool_nhwc(torch.zeros(10, 12, 8, device=cuda, dtype=torch.float64), rois, **kw)
+
+
+def _narrow_x101(seed: int = 0):
+    """The X101 extractor's narrow config of tests/test_torch_x101.py in
+    fp32, and random weights from a seed with the BN scales damped so the
+    softmax spreads."""
+    from clg_vqa_tpu_torch.models.detector import extractor_x101 as X
+    cfg = X.X101Config(groups=4, width_per_group=4, fpn_channels=32, num_boxes=10,
+                       pre_nms_topk=64, post_nms_topk=64, pad_h=128, pad_w=128,
+                       short=96, max_size=128, bf16=False)
+    params = X.init_x101_params(torch.Generator().manual_seed(seed), cfg)
+
+    def damp(tree):
+        if isinstance(tree, dict):
+            return {k: v * 0.35 if k == "scale" else damp(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [damp(v) for v in tree]
+        return tree
+
+    return X, cfg, damp(params)
+
+
+@pytest.mark.cuda
+def test_x101_extractor_on_the_card_gives_the_cpu_records(cuda):
+    """The small X101 in fp32 (TF32 off) on the card against the port's CPU
+    path from the same weights: object ids and box order equal; features,
+    boxes and confidences within rtol 1e-3 and 1e-3 of the largest |value|.
+    Two images at device_batch 2, so the RPN's NMS folds both images."""
+    X, cfg, params = _narrow_x101()
+    r = np.random.RandomState(0)
+    items = [((r.rand(h, w, 3) * 255).astype(np.uint8), f"x{i}")
+             for i, (h, w) in enumerate([(90, 110), (128, 70)])]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = list(X.ExtractorX101(params, cfg, device="cuda").extract_many(
+            items, device_batch=2))
+    want = list(X.ExtractorX101(params, cfg, device="cpu").extract_many(items))
+    for g, w in zip(got, want):
+        assert g.image_id == w.image_id
+        np.testing.assert_array_equal(g.obj_id, w.obj_id)
+        for f in ("features", "boxes", "obj_conf"):
+            y = getattr(w, f)
+            np.testing.assert_allclose(getattr(g, f), y, rtol=1e-3,
+                                       atol=1e-3 * np.abs(y).max(), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_x101_roi_align_on_the_card_matches_the_cpu(cuda):
+    """RoIAlign on a bf16 pyramid on the card against the same op on the
+    CPU (fp32 accumulation both): within rtol 1e-5; box chunks bit for bit."""
+    from clg_vqa_tpu_torch.models.detector import fpn as F
+    g = torch.Generator().manual_seed(1)
+    maps = [torch.randn(1, s, s, 64, generator=g).bfloat16() for s in (64, 32, 16, 8)]
+    lo = torch.rand(300, 2, generator=g) * 200
+    rois = torch.cat([lo, lo + 1 + torch.rand(300, 2, generator=g) * 300], 1)
+    want = F.multilevel_roi_align_flat(maps, rois, legacy_levels=True)
+    dmaps, drois = [m.to(cuda) for m in maps], rois.to(cuda)
+    got = F.multilevel_roi_align_flat(dmaps, drois, legacy_levels=True)
+    chunked = F.multilevel_roi_align_flat(dmaps, drois, legacy_levels=True, box_chunk=64)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(chunked, got)

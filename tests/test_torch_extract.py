@@ -1,7 +1,7 @@
 """The port's extraction front and back end against the JAX package:
 preprocessing (resize, mean, pad), the C4 checkpoint converter and its
 loader into the port, and ``cli extract --device cpu`` against the JAX
-CLI on the same images and weights.
+CLI on the same images and weights, for ``--detector c4`` and ``x101``.
 
 Tolerances: preprocessed pixels within 2e-3 (0-255 scale; both resize with
 a triangle filter on pixel centres, antialiased when shrinking, and sum in
@@ -9,7 +9,9 @@ other orders); converter trees exact (rtol 1e-6 after BN folding); the CLI
 stores, both CLIs in fp32: the same image ids, sizes, object and attribute
 ids, and features, boxes and confidences within rtol 1e-3 and 1e-3 of the
 largest value (convs summed in other orders). The port's CLI also runs its
-default bf16 config (``--limit``, ``--device_batch``).
+default bf16 config (``--limit``, ``--device_batch``). The X101 stores: the
+same at a narrow X101Config (the widths of ``test_torch_x101.py``), the
+object ids and the box order equal.
 """
 import functools
 import re
@@ -24,11 +26,14 @@ import jax.numpy as jnp
 from clg_vqa_tpu.cli.__main__ import main as jax_cli
 from clg_vqa_tpu.data.cfs import CfsReader as JaxCfsReader
 from clg_vqa_tpu.models.detector import extractor as JE
+from clg_vqa_tpu.models.detector import extractor_x101 as JX
 from clg_vqa_tpu.utils import convert_detector as JC
 from clg_vqa_tpu_torch.cli.__main__ import main as cli
 from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.models.detector import extractor as E
+from clg_vqa_tpu_torch.models.detector import extractor_x101 as X
 from clg_vqa_tpu_torch.utils import convert_detector as CD
+from test_torch_x101 import NARROW, damped, x101_state_dict
 
 torch.set_num_threads(1)
 
@@ -161,6 +166,25 @@ def images(tmp_path_factory, jax_params):
     return d, imgs, weights
 
 
+def assert_stores_agree(got, want, n_boxes: int, attrs: bool = False) -> None:
+    """The records of both stores: the same ids, sizes and object (and
+    attribute) ids, values within rtol 1e-3 and 1e-3 of the largest."""
+    assert sorted(got.keys()) == sorted(want.keys()) == ["i0", "i1", "i2"]
+    for key in want.keys():
+        a, b = want.get(key), got.get(key)
+        assert (b.img_w, b.img_h) == (a.img_w, a.img_h)
+        assert b.features.shape == (n_boxes, 2048) and np.isfinite(b.features).all()
+        np.testing.assert_array_equal(b.obj_id, a.obj_id)
+        if attrs:
+            np.testing.assert_array_equal(b.attr_id, a.attr_id)
+        for f in ("features", "boxes", "obj_conf") + (("attr_conf",) if attrs else ()):
+            x, y = getattr(b, f), getattr(a, f)
+            np.testing.assert_allclose(x, y, rtol=1e-3,
+                                       atol=1e-3 * max(np.abs(y).max(), 1e-6),
+                                       err_msg=f)
+        assert (b.boxes[:, 2] <= b.img_w).all() and (b.boxes[:, 3] <= b.img_h).all()
+
+
 def test_cli_extract_writes_the_jax_clis_records(images, monkeypatch):
     """Both CLIs in fp32 (their config class patched to bf16=False: in bf16
     the frameworks round elementwise steps at other places, which can flip a
@@ -174,29 +198,53 @@ def test_cli_extract_writes_the_jax_clis_records(images, monkeypatch):
             str(weights), *TINY]
     jax_cli(args + ["--out", str(d / "jax.cfs")])
     cli(args + ["--out", str(d / "port.cfs"), "--device", "cpu"])
-    want, got = JaxCfsReader(str(d / "jax.cfs")), CfsReader(str(d / "port.cfs"))
-    assert sorted(got.keys()) == sorted(want.keys()) == ["i0", "i1", "i2"]
-    for key in want.keys():
-        a, b = want.get(key), got.get(key)
-        assert (b.img_w, b.img_h) == (a.img_w, a.img_h)
-        assert b.features.shape == (6, 2048) and np.isfinite(b.features).all()
-        np.testing.assert_array_equal(b.obj_id, a.obj_id)
-        np.testing.assert_array_equal(b.attr_id, a.attr_id)
-        for f in ("features", "boxes", "obj_conf", "attr_conf"):
-            x, y = getattr(b, f), getattr(a, f)
-            np.testing.assert_allclose(x, y, rtol=1e-3,
-                                       atol=1e-3 * max(np.abs(y).max(), 1e-6),
-                                       err_msg=f)
-        assert (b.boxes[:, 2] <= b.img_w).all() and (b.boxes[:, 3] <= b.img_h).all()
+    assert_stores_agree(CfsReader(str(d / "port.cfs")), JaxCfsReader(str(d / "jax.cfs")),
+                        6, attrs=True)
 
 
-def test_cli_extract_limit_device_batch_and_x101(images):
+def test_cli_extract_limit_device_batch_and_x101(images, monkeypatch):
+    """``--limit`` and ``--device_batch`` on the C4 path; then
+    ``--detector x101`` writes the JAX CLI's records for the same images:
+    JAX's narrow X101 weights as a vqa-maskrcnn-benchmark ``.pth``, both
+    CLIs in fp32 at the narrow widths (their X101Config patched), the size
+    overrides on the command line, the port at device_batch 2."""
     d, imgs, weights = images
     out = d / "lim.cfs"
     cli(["extract", "--images", str(imgs), "--out", str(out), "--limit", "2",
          "--device_batch", "2", "--device", "cpu", "--weights", str(weights),
          *TINY])
     assert sorted(CfsReader(str(out)).keys()) == ["i0", "i1"]
-    with pytest.raises(NotImplementedError, match="10b"):
-        cli(["extract", "--images", str(imgs), "--out", str(out),
-             "--detector", "x101", "--device", "cpu"])
+
+    widths = {k: NARROW[k] for k in ("groups", "width_per_group", "fpn_channels")}
+    monkeypatch.setattr(JX, "X101Config",
+                        functools.partial(JX.X101Config, bf16=False, **widths))
+    monkeypatch.setattr(X, "X101Config",
+                        functools.partial(X.X101Config, bf16=False, **widths))
+    jp = jax.tree.map(np.asarray, damped(JX.init_x101_params(
+        jax.random.key(0), JX.X101Config())))
+    pth = d / "x101.pth"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in x101_state_dict(jp).items()}, pth)
+    args = ["extract", "--images", str(imgs), "--detector", "x101", "--weights",
+            str(pth), "--short", "96", "--max_size", "128", "--pad_h", "128",
+            "--pad_w", "128", "--num_boxes", "10", "--pre_nms_topk", "64",
+            "--post_nms_topk", "64"]
+    jax_cli(args + ["--out", str(d / "jax_x101.cfs")])
+    cli(args + ["--out", str(d / "port_x101.cfs"), "--device", "cpu",
+                "--device_batch", "2"])
+    assert_stores_agree(CfsReader(str(d / "port_x101.cfs")),
+                        JaxCfsReader(str(d / "jax_x101.cfs")), 10)
+
+
+def test_cli_extract_x101_refuses_a_caffe_pkl_as_jax_does(images, tmp_path):
+    _, imgs, _ = images
+    pkl = tmp_path / "w.pkl"
+    pkl.write_bytes(b"not read")
+    args = ["extract", "--images", str(imgs), "--out", str(tmp_path / "o.cfs"),
+            "--detector", "x101", "--weights", str(pkl)]
+    with pytest.raises(ValueError) as want:
+        jax_cli(args)
+    with pytest.raises(ValueError) as got:
+        cli(args + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert not (tmp_path / "o.cfs").exists()
