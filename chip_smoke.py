@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (clg_vqa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card
+    python3 chip_smoke.py --cards 4  # phase 12 across four cards over NCCL
 
 Phases; any failure raises and the script exits non-zero without the
 final line:
@@ -102,6 +103,28 @@ final line:
     reads, its records held to the CLI's (device_batch 4 to bf16 rounding
     of other conv algorithms), and a full-width M3P run_eval (auto, bf16, 100 regions, 5 locs,
     L2-normalized features) over 1,024 questions on that store (K1 12, K2 1).
+12. multi-GPU (parallel/, shard_train_step, shard_predict_step): first K1
+    and B1 (forward and backward, rate 0.1, mp rank 1's offset seed)
+    against their plain versions at the heads an mp rank runs, H 6 and 3,
+    on the sharded paths' shapes ([1024, S, H*64] and [64, S, H*64], S 76
+    and 140, fp32 and bf16, phase 3's tolerances, B1's keep mask the
+    offset seed's); then three worlds on the one card: (dp 1, mp 1) over
+    NCCL in this process, where
+    the sharded train step (UC2 at full width, bf16, dropout 0.1, "flat",
+    acc 2 x mbs 64, device bank) equals make_train_step bit for bit over 2
+    steps and shard_predict_step("flat") make_predict_step over 1,024
+    questions; then (dp 2, mp 1) and (dp 1, mp 2) as two processes each
+    over gloo with CUDA tensors (NCCL puts no two ranks on one device):
+    fp32 logits within 1e-4 and predictions equal to one device's on the
+    same weights, the bf16 argmax agreement (gate 95%), two fp32 steps
+    without dropout against one device on the same global batch (the first
+    step's reassembled gradients, grad_norm and both losses within 1e-4
+    relative), bf16 steps with dropout on B1 at 12/mp heads (24 + 24 a
+    step; ms a step and peak memory, staged through the host by gloo: no
+    measure of multi-GPU speed), the parameters' bits across the ranks,
+    and under mp 2 M3P at full width (S = 140, -inf keys) for one step and
+    one predict batch. Each rank has a time limit, is killed in a finally,
+    and its output goes into the failure message.
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions and equal to B1 bit for bit (bf16:
@@ -125,6 +148,7 @@ kernels, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -154,7 +178,8 @@ from clg_vqa_tpu_torch.data.synthetic import (REGIONS as R, eval_world,
                                               train_dataset, write_store)
 from clg_vqa_tpu_torch.data.tokenizer import HashTokenizer
 from clg_vqa_tpu_torch.eval.predictor import Predictor
-from clg_vqa_tpu_torch.eval.runner import make_predict_step, run_eval
+from clg_vqa_tpu_torch.eval.runner import (make_predict_step, run_eval,
+                                           shard_predict_step)
 from clg_vqa_tpu_torch.models.detector.extractor import (
     Extractor36, ExtractorConfig, init_extractor_params)
 from clg_vqa_tpu_torch.models.detector.extractor_x101 import (
@@ -172,20 +197,23 @@ from clg_vqa_tpu_torch.ops.attention import (
     fused_attention_train_hm, fused_attention_train_hm_plain,
     fused_attention_train_smajor,
     fused_attention_train_smajor_plain, keep_threshold, realized_keep_mask,
-    smajor_attention_core, smajor_attention_core_plain)
+    shard_seed, smajor_attention_core, smajor_attention_core_plain)
 from clg_vqa_tpu_torch.ops.bank_gather import rows_gather, rows_gather_plain
 from clg_vqa_tpu_torch.ops.nms import batched_nms_fixpoint
 from clg_vqa_tpu_torch.ops.block_attention import (
     _core_backward_plain, fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
 from clg_vqa_tpu_torch.ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
+from clg_vqa_tpu_torch.parallel.distributed import initialize
+from clg_vqa_tpu_torch.parallel.mesh import (local_batch, make_mesh, pspec,
+                                             shard_model, unshard)
 from clg_vqa_tpu_torch.tools.measure import bound_ms, c4_rois, time_ms
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train import pruning as pr
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
-                                          make_train_step)
+                                          make_train_step, shard_train_step)
 from clg_vqa_tpu_torch.train.optim import (make_optimizer,
                                            warmup_constant_schedule,
                                            warmup_linear_schedule)
@@ -213,6 +241,16 @@ N_EXTRACT, EXTRACT_HW, EXTRACT_QA = 8, (480, 640), 64
 # M3P eval over the X101 store: one batch of 1024 (auto takes K1 from 512)
 X101_QA, X101_BATCHES = 1024, (1, 4)
 C4_SHAPE, C4_ROIS = (50, 84, 1024), 300
+# the multi-GPU phase: UC2 at full width, acc 2 x mbs 64 (global), PAR_STEPS
+# steps at a constant lr, predictions over PAR_QA questions; the gloo worlds
+# of two ranks on the one card, each rank killed after PAR_TIMEOUT seconds;
+# PAR_RTOL is PERF.md section 2's fp32 gate
+PAR_ACC, PAR_MBS, PAR_STEPS, PAR_QA, PAR_LR = 2, 64, 2, 1024, 4e-5
+# world -> (dp, mp, backend): two ranks on the one card over gloo; with
+# --cards 4, ranks on cards of their own over NCCL
+PAR_WORLDS = {"dp2": (2, 1, "gloo"), "mp2": (1, 2, "gloo")}
+PAR_CARD_WORLDS = {"dp2mp2": (2, 2, "nccl"), "mp4": (1, 4, "nccl")}
+PAR_TIMEOUT, PAR_RTOL = 480, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -371,22 +409,22 @@ def phase_rows_gather(gen) -> dict:
                 bound_ms=ev["bound_ms"], bound_by=ev["bound_by"], calls=calls)
 
 
-def train_attention(q, k, v, bias, do, *, plain=False, **kw):
+def train_attention(q, k, v, bias, do, *, plain=False, H=12, **kw):
     """B1 (or its plain version) forward and backward: (out, dq, dk, dv, db)."""
     fn = fused_attention_train_flat_plain if plain else fused_attention_train_flat
     ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
-    out = fn(*ins, 12, **kw)
+    out = fn(*ins, H, **kw)
     return (out.detach(), *torch.autograd.grad(out, ins, do))
 
 
-def check_train_attention(q, k, v, bias, do, what: str, **kw) -> dict:
+def check_train_attention(q, k, v, bias, do, what: str, H=12, **kw) -> dict:
     """B1 against autograd of its plain version on the same inputs and seed.
     Tolerances: forward atol 1e-5 (fp32) or one bf16 ulp of the largest
     output; dq/dk/dv 2e-4 * max|grad| (fp32) or two bf16 ulps of the
     largest grad; dbias 1e-4 * max|dbias|. Both sides compute in fp32 and
     differ in summation order only. Returns the largest errors."""
-    got = train_attention(q, k, v, bias, do, **kw)
-    want = train_attention(q, k, v, bias, do, plain=True, **kw)
+    got = train_attention(q, k, v, bias, do, H=H, **kw)
+    want = train_attention(q, k, v, bias, do, plain=True, H=H, **kw)
     torch.cuda.synchronize()
     errs = {}
     for i, name in enumerate(("out", "dq", "dk", "dv", "dbias")):
@@ -2789,6 +2827,508 @@ def phase_recipe_parity() -> None:
         signal.signal(sig, handler)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-GPU (parallel/, shard_train_step, shard_predict_step)
+# ---------------------------------------------------------------------------
+
+class AllReduceBytes:
+    """Counts the bytes this process hands torch.distributed.all_reduce
+    while it is entered (every collective of the port's sums goes through
+    it: the Megatron layers, the dp gradient average, the sharded norm)."""
+
+    def __enter__(self):
+        self.nbytes, self._orig = 0, torch.distributed.all_reduce
+
+        def counting(t, *args, **kw):
+            self.nbytes += t.numel() * t.element_size()
+            return self._orig(t, *args, **kw)
+
+        torch.distributed.all_reduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_reduce = self._orig
+
+
+def nonzero(counts: dict) -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _capturing(opt, store: dict):
+    """``opt`` whose update also keeps a copy of the first gradients it is
+    given (after the dp average and the mask, before the clip)."""
+    def update(grads, state, params, **kw):
+        if not store:
+            store.update({k: g.detach().clone() for k, g in grads.items()})
+        return opt.update(grads, state, params, **kw)
+
+    return opt._replace(update=update)
+
+
+def par_batches(w, cfg, n_steps: int, device) -> list:
+    """n_steps global training batches of PAR_ACC x PAR_MBS over ``w``'s
+    store (store_idx, on ``device``), from TrainPipeline's seed-0 order."""
+    ds = train_dataset(w, n_steps * PAR_ACC * PAR_MBS)
+    pipe = TrainPipeline(ds, micro_batch_size=PAR_MBS, grad_acc_steps=PAR_ACC,
+                         seed=0, device=device, with_features=False)
+    it = pipe.epoch(0)
+    out = [next(it) for _ in range(n_steps)]
+    it.close()
+    return out
+
+
+def par_eval_batch(w, n: int, device) -> dict:
+    """The first n eval questions of ``w`` as one global batch (store_idx)."""
+    b = w.dataset.make_batch(list(range(n)), with_features=False)
+    return {k: torch.from_numpy(b[k]).to(device)
+            for k in ("input_ids", "input_mask", "store_idx")}
+
+
+def par_features(batch: dict, bank) -> dict:
+    b = dict(batch)
+    f, l, m = DeviceFeatureBank.gather_from(bank, b.pop("store_idx"))
+    b.update(features=f, locs=l, image_mask=m)
+    return b
+
+
+def par_models(cfg, mesh, device, seed: int = 0):
+    """(one-device model, sharded model) with the same seed-``seed`` weights."""
+    cls = M3P if isinstance(cfg, M3PConfig) else UC2
+    return (cls(cfg, device=device, seed=seed),
+            shard_model(cls(cfg, device=device, seed=seed), mesh))
+
+
+def par_steps(model, mesh, D, dtype, store=None):
+    """(step, state) of ``model`` on the flat training kernels in ``dtype``
+    ("fp32" or "bf16"): make_train_step, through shard_train_step when
+    ``mesh`` is given; ``store`` keeps the first gradients."""
+    opt = make_optimizer([n for n, _ in model.named_parameters()], PAR_LR)
+    if store is not None:
+        opt = _capturing(opt, store)
+    step = make_train_step(opt, D, semantic_lambda=LAMBDA,
+                           compute_dtype=torch.bfloat16 if dtype == "bf16"
+                           else None, fused_attn="flat")
+    if mesh is not None:
+        step = shard_train_step(step, mesh)
+    return step, TrainState(model, opt.init(dict(model.named_parameters())), 0)
+
+
+def par_world_of_one(cfg, w, device, tmp: str) -> dict:
+    """(dp 1, mp 1) over NCCL in this process: shard_train_step (bf16,
+    dropout, "flat") bit-equal to make_train_step over PAR_STEPS steps,
+    params and metrics, and shard_predict_step("flat") bit-equal to
+    make_predict_step over PAR_QA questions, with the launch counts of the
+    sharded calls (an all-reduce over one rank is a copy)."""
+    initialize(f"file://{tmp}/nccl_rendezvous", 1, 0, device=device)
+    try:
+        mesh = make_mesh()
+        check(torch.distributed.get_backend() == "nccl", "not on NCCL")
+        ref, shd = par_models(cfg, mesh, device)
+        bank = w.bank.tensors()
+        D = torch.from_numpy(uc2_distance_matrix(cfg)).to(device)
+        ref_step, ref_state = par_steps(ref, None, D, "bf16")
+        shd_step, shd_state = par_steps(shd, mesh, D, "bf16")
+        counts = []
+        for i, b in enumerate(par_batches(w, cfg, PAR_STEPS, device)):
+            t0 = time.perf_counter()
+            ref_state, mr = ref_step(ref_state, b, seed=i, bank=bank)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_counts()
+            with AllReduceBytes() as ar:
+                shd_state, ms = shd_step(shd_state, local_batch(
+                    b, mesh, microbatched=True), seed=i, bank=bank)
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts.append(read_counts())
+            same = all(torch.equal(ms[k], mr[k]) for k in mr) and all(
+                torch.equal(p, q) for p, q in zip(ref.parameters(),
+                                                  shd.parameters()))
+            print(f"parallel (dp 1, mp 1) NCCL step {i}: loss "
+                  f"{ms['loss'].item():.6f} vs one device "
+                  f"{mr['loss'].item():.6f}, grad_norm "
+                  f"{ms['grad_norm'].item():.6f}; params and metrics bit-equal: "
+                  f"{same}; {(t2 - t1) * 1e3:.1f} ms (one device "
+                  f"{(t1 - t0) * 1e3:.1f} ms), all-reduced "
+                  f"{ar.nbytes / 1e6:.1f} MB; "
+                  f"launches {nonzero(counts[-1])}")
+            check(same, "shard_train_step at (1, 1) differs from make_train_step")
+            n = cfg.num_layers * PAR_ACC
+            check(counts[-1] == only(flat_attention_train_fwd=n,
+                                     flat_attention_train_bwd=n,
+                                     rows_gather=PAR_ACC), "(1, 1) step launches")
+        batch = par_eval_batch(w, PAR_QA, device)
+        want = make_predict_step(ref, device_bank=w.bank, fused_attn="flat")(batch)
+        reset_counts()
+        got = shard_predict_step(shd, mesh, device_bank=w.bank,
+                                 fused_attn="flat")(batch)
+        torch.cuda.synchronize()
+        pcounts = read_counts()
+        print(f"parallel (dp 1, mp 1) NCCL predict over {PAR_QA}: bit-equal "
+              f"{torch.equal(got, want)}; launches {nonzero(pcounts)}")
+        check(torch.equal(got, want), "shard_predict_step at (1, 1) differs")
+        check(pcounts == only(flat_attention=cfg.num_layers, rows_gather=1),
+              "(1, 1) predict launches")
+        return {"train": counts[-1], "predict": pcounts}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def par_local_heads(gen) -> dict:
+    """K1 and B1 at the heads one mp rank runs (UC2's and M3P's 12 heads
+    over mp 2 and 4: H 6 and 3 of hd 64), on the sharded paths' own shapes:
+    K1 on a dp-1 rank's predict batch [PAR_QA, S, H*64], B1 forward and
+    backward on its microbatch [PAR_MBS, S, H*64] at RATE with mp rank 1's
+    seed (ops/attention.shard_seed), at S 76 (UC2, -10000 keys) and 140
+    (M3P, -inf keys), fp32 and bf16; each against its plain version with
+    phase 3's tolerances. B1's keep mask, read back through the forward in
+    each dtype, is the plain mask of the offset seed and not rank 0's.
+    Returns the largest errors."""
+    base = 11
+    seed, t = shard_seed(base, 1), keep_threshold(RATE)
+    out = {}
+    for H in (12 // 2, 12 // 4):
+        for S in (76, 140):
+            for dtype in (torch.float32, torch.bfloat16):
+                make = attention_inputs if S == 76 else neg_inf_inputs
+                q, k, v, bias = make(PAR_QA, S, H, 64, dtype, gen)
+                got = fused_attention_flat(q, k, v, bias, H).float()
+                ref = fused_attention_flat_plain(q, k, v, bias, H).float()
+                err = (got - ref).abs().max().item()
+                tol = (1e-5 if dtype == torch.float32
+                       else bf16_ulp(ref.abs().max().item()))
+                what = f"H={H} S={S} {dtype}"
+                check(err <= tol, f"K1 {what} [{PAR_QA}, {S}, {H * 64}] "
+                      f"disagrees: {err} > {tol}")
+                q, k, v, bias = (x[:PAR_MBS] for x in (q, k, v, bias))
+                do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+                errs = check_train_attention(
+                    q, k, v, bias, do, f"{what} [{PAR_MBS}, {S}, {H * 64}] "
+                    f"rate {RATE} seed shard_seed({base}, 1)", H=H,
+                    dropout_rate=RATE, seed=seed)
+                mask = realized_keep_mask(seed, 4, H, S, 64, RATE, "cuda",
+                                          dtype=dtype)
+                check(torch.equal(mask, dropout_keep_mask(seed, 4, H, S, t,
+                                                          "cuda")),
+                      f"B1 {what}: keep mask is not the offset seed's")
+                check(not torch.equal(mask, dropout_keep_mask(base, 4, H, S, t,
+                                                              "cuda")),
+                      f"B1 {what}: mp rank 1 draws rank 0's keep mask")
+                print(f"K1 {what} [{PAR_QA}, {S}, {H * 64}]: max abs err "
+                      f"{err:.3g} (tol {tol:.3g}); B1 keep mask = plain mask "
+                      f"of shard_seed({base}, 1), not of {base}")
+                out[what] = {"k1": err, **errs}
+    return out
+
+
+def same_across(model, group, src: int, names) -> list:
+    """The parameters among ``names`` that differ from rank ``src``'s
+    (one broadcast of their concatenation over ``group``)."""
+    names = list(names)
+    params = dict(model.named_parameters())
+    mine = torch.cat([params[k].detach().reshape(-1) for k in names])
+    theirs = mine.clone()
+    torch.distributed.broadcast(theirs, src, group=group)
+    out, i = [], 0
+    for k in names:
+        n = params[k].numel()
+        if not torch.equal(mine[i:i + n], theirs[i:i + n]):
+            out.append(k)
+        i += n
+    return out
+
+
+def par_gates(cfg, mesh, w, device, label: str) -> dict:
+    """One rank of a gloo world over CUDA tensors (dp 2 x mp 1 or dp 1 x
+    mp 2) at ``cfg``'s width: fp32 logits and predictions against the
+    one-device model on the same seed-0 weights, the bf16 argmax agreement,
+    two fp32 steps without dropout against one device (the first step's
+    reassembled gradients, grad_norm and both losses within PAR_RTOL), then
+    bf16 steps with dropout (launch counts, ms per step, peak memory) and
+    the replicated parameters' bits across the group. Returns numbers for
+    the parent."""
+    res = {}
+    bank = w.bank.tensors()
+    D = torch.from_numpy(uc2_distance_matrix(cfg)).to(device)
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0,
+                               clf_dropout_prob=0.0)
+    ref, shd = par_models(cfg0, mesh, device)
+    batch = par_eval_batch(w, PAR_QA, device)
+    b = PAR_QA // mesh.n_dp
+    rows = slice(mesh.dp_rank * b, (mesh.dp_rank + 1) * b)
+    with torch.inference_mode():
+        feats = par_features(batch, bank)
+        want = ref(feats, compute_dtype=None, fused_attn="flat")
+        got = shd(local_batch(feats, mesh), compute_dtype=None, fused_attn="flat")
+        res["logits_err"] = (got - want[rows]).abs().max().item()
+        p1 = make_predict_step(ref, device_bank=w.bank, compute_dtype=None,
+                               fused_attn="flat")(batch)
+        p2 = shard_predict_step(shd, mesh, device_bank=w.bank, compute_dtype=None,
+                                fused_attn="flat")(batch)
+        res["fp32_pred_equal"] = int((p1 == p2).sum())
+        p1 = make_predict_step(ref, device_bank=w.bank, fused_attn="flat")(batch)
+        reset_counts()
+        p2 = shard_predict_step(shd, mesh, device_bank=w.bank,
+                                fused_attn="flat")(batch)
+        torch.cuda.synchronize()
+        res["predict_launches"] = read_counts()
+        res["bf16_agreement"] = (p1 == p2).float().mean().item()
+    print(f"{label}: fp32 logits vs one device over {PAR_QA} questions: max "
+          f"abs diff {res['logits_err']:.3g} (tol 1e-4); fp32 predictions "
+          f"equal {res['fp32_pred_equal']} of {PAR_QA}; bf16 argmax agreement "
+          f"{res['bf16_agreement'] * 100:.2f}% (gate 95%); predict launches "
+          f"{nonzero(res['predict_launches'])}")
+    check(res["logits_err"] <= 1e-4, f"{label}: fp32 logits differ")
+    check(res["fp32_pred_equal"] == PAR_QA, f"{label}: fp32 predictions differ")
+    check(res["bf16_agreement"] >= 0.95, f"{label}: bf16 argmax agreement")
+    check(res["predict_launches"] == only(flat_attention=cfg.num_layers,
+                                          rows_gather=1),
+          f"{label}: predict launches")
+
+    g_ref, g_shd = {}, {}
+    ref_step, ref_state = par_steps(ref, None, D, "fp32", g_ref)
+    shd_step, shd_state = par_steps(shd, mesh, D, "fp32", g_shd)
+    for i, gb in enumerate(par_batches(w, cfg, PAR_STEPS, device)):
+        # seed 0: B1 at rate 0 (the config drops nothing)
+        ref_state, mr = ref_step(ref_state, gb, seed=0, bank=bank)
+        shd_state, ms = shd_step(shd_state, local_batch(gb, mesh, microbatched=True),
+                                 seed=0, bank=bank)
+        for k in ("loss", "grad_norm"):
+            rel = abs(ms[k].item() - mr[k].item()) / abs(mr[k].item())
+            res[f"{k}{i}_rel"] = rel
+            check(rel <= PAR_RTOL, f"{label}: fp32 step {i} {k} rel diff {rel}")
+    # per tensor, max |diff| over max |g|; a tensor whose gradient is 0 in
+    # exact arithmetic (attention's key biases: softmax ignores a shift
+    # common to every key) holds rounding noise only, so the scale is at
+    # least 1e-3 of the model's largest gradient
+    full = unshard(g_shd, mesh)
+    top = max(g.abs().max().item() for g in g_ref.values())
+    rels = {k: (full[k] - g).abs().max().item()
+            / max(g.abs().max().item(), 1e-3 * top) for k, g in g_ref.items()}
+    worst = max(rels, key=rels.get)
+    res["grad_rel"] = rels[worst]
+    print(f"{label}: fp32 ({PAR_STEPS} steps, no dropout, flat): loss rel diff "
+          f"{res['loss0_rel']:.3g} / {res['loss1_rel']:.3g}, grad_norm "
+          f"{res['grad_norm0_rel']:.3g} / {res['grad_norm1_rel']:.3g}, first "
+          f"step's reassembled gradients max per-tensor |diff| / max|g| "
+          f"{res['grad_rel']:.3g} ({worst}) (tol {PAR_RTOL:g})")
+    check(res["grad_rel"] <= PAR_RTOL, f"{label}: fp32 gradients differ")
+    del ref, shd, ref_state, shd_state, g_ref, g_shd, full
+    torch.cuda.empty_cache()
+
+    res.update(par_bf16_steps(cfg, mesh, w, D, device, label))
+    return res
+
+
+def par_bf16_steps(cfg, mesh, w, D, device, label: str) -> dict:
+    """bf16 steps with dropout on the sharded model (1 warm-up, PAR_STEPS
+    timed and counted), then every parameter that mp does not split
+    compared bit for bit across the ranks of the mp group, and every
+    parameter across the dp group."""
+    _, shd = par_models(cfg, mesh, device)
+    bank = w.bank.tensors()
+    step, state = par_steps(shd, mesh, D, "bf16")
+    batches = par_batches(w, cfg, 1 + PAR_STEPS, device)
+    state, _ = step(state, local_batch(batches[0], mesh, microbatched=True),
+                    seed=0, bank=bank)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with AllReduceBytes() as ar:
+        for i, gb in enumerate(batches[1:]):
+            state, m = step(state, local_batch(gb, mesh, microbatched=True),
+                            seed=1 + i, bank=bank)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+    mb = ar.nbytes / PAR_STEPS / 1e6
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = m["loss"].item()
+    n = cfg.num_layers * PAR_ACC * PAR_STEPS
+    check(counts == only(flat_attention_train_fwd=n, flat_attention_train_bwd=n,
+                         rows_gather=PAR_ACC * PAR_STEPS),
+          f"{label}: bf16 step launches {counts}")
+    check(math.isfinite(loss), f"{label}: bf16 loss not finite")
+    replicated = [k for k, _ in shd.named_parameters()
+                  if mesh.n_mp == 1 or pspec(k) is None]
+    differ = same_across(shd, mesh.mp_group, mesh.dp_rank * mesh.n_mp, replicated)
+    differ += same_across(shd, mesh.dp_group, mesh.mp_rank,
+                          [k for k, _ in shd.named_parameters()])
+    heads = shd.encoder[0].attn.num_heads
+    over = (" staged through the host by gloo (no measure of multi-GPU speed)"
+            if torch.distributed.get_backend() == "gloo" else " over NCCL")
+    print(f"{label}: bf16 {type(shd).__name__} steps (acc {PAR_ACC} x mbs "
+          f"{PAR_MBS // mesh.n_dp} a rank, dropout, flat, B1 at H = {heads}): "
+          f"{ms:.1f} ms/step{over}, {mb:.1f} MB all-reduced a step by this "
+          f"rank, peak "
+          f"{peak:.2f} GiB on this rank, loss {loss:.4f}; "
+          f"launches {nonzero(counts)}; parameters differing across ranks: {differ}")
+    check(not differ, f"{label}: parameters differ across ranks: {differ[:5]}")
+    return {"bf16_ms_per_step": ms, "peak_gib": peak, "train_launches": counts,
+            "heads": heads, "allreduce_mb_per_step": mb}
+
+
+def par_m3p(mesh, device, tmp: str, label: str) -> dict:
+    """M3P at full width (S = 140, -inf keys at padded regions) in the same
+    world: one bf16 step with dropout on B1 at this rank's heads, and one
+    predict batch of PAR_QA questions through K1."""
+    cfg = M3PConfig()
+    w = m3p_world(tmp, PAR_QA, min_regions=M3P_MIN_REGIONS,
+                  num_labels=cfg.num_labels, vocab_size=cfg.vocab_size,
+                  device=device)
+    _, shd = par_models(cfg, mesh, device)
+    bank = w.bank.tensors()
+    D = torch.from_numpy(uc2_distance_matrix(cfg)).to(device)
+    step, state = par_steps(shd, mesh, D, "bf16")
+    gb = par_batches(w, cfg, 1, device)[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, local_batch(gb, mesh, microbatched=True), seed=0,
+                    bank=bank)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    train = read_counts()
+    n = cfg.num_layers * PAR_ACC
+    check(train == only(flat_attention_train_fwd=n, flat_attention_train_bwd=n,
+                        rows_gather=PAR_ACC), f"{label}: M3P step launches {train}")
+    check(math.isfinite(m["loss"].item()), f"{label}: M3P loss not finite")
+    reset_counts()
+    pred = shard_predict_step(shd, mesh, device_bank=w.bank,
+                              fused_attn="flat")(par_eval_batch(w, PAR_QA, device))
+    torch.cuda.synchronize()
+    predict = read_counts()
+    check(predict == only(flat_attention=cfg.num_layers, rows_gather=1),
+          f"{label}: M3P predict launches {predict}")
+    check(pred.shape == (PAR_QA,)
+          and bool(((pred >= 0) & (pred < cfg.num_labels)).all()),
+          f"{label}: M3P predictions")
+    print(f"{label}: M3P full width (S = {w.regions + 40}), bf16 step with "
+          f"dropout (the first, untimed before): {ms:.1f} ms, loss "
+          f"{m['loss'].item():.4f}, launches {nonzero(train)}; predict over "
+          f"{PAR_QA}: launches {nonzero(predict)}")
+    return {"m3p_train_launches": train, "m3p_predict_launches": predict,
+            "m3p_step_ms": ms}
+
+
+def parallel_rank(world: str, rank: int, init: str) -> int:
+    """One rank of a world (run by phase 12 as ``chip_smoke.py
+    --parallel-rank WORLD RANK INIT``): on the one card over gloo, or on
+    card ``rank`` over NCCL. Prints its lines and, last, PARALLEL_RESULT
+    with its numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_dp, n_mp, backend = {**PAR_WORLDS, **PAR_CARD_WORLDS}[world]
+    device = initialize(init, n_dp * n_mp, rank, backend=backend,
+                        device="cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    try:
+        mesh = make_mesh(n_dp, n_mp)
+        label = f"parallel (dp {n_dp}, mp {n_mp}) {backend} rank {rank}"
+        cfg = UC2Config()
+        with tempfile.TemporaryDirectory() as tmp:
+            w = eval_world(tmp, PAR_QA, num_labels=cfg.num_labels,
+                           vocab_size=cfg.vocab_size, device=device)
+            res = par_gates(cfg, mesh, w, device, label)
+            del w
+            torch.cuda.empty_cache()
+            if n_mp > 1:
+                res.update(par_m3p(mesh, device, tmp, label))
+        print("PARALLEL_RESULT " + json.dumps(res), flush=True)
+        return 0
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_parallel(smi: str) -> dict:
+    """Phase 12: K1 and B1 against their plain versions at the local head
+    counts (:func:`par_local_heads`), the (dp 1, mp 1) world over NCCL in
+    this process, then the (dp 2, mp 1) and (dp 1, mp 2) worlds as two
+    processes each on the one card over gloo (NCCL does not put two ranks
+    on one device). Each spawned
+    rank is killed after PAR_TIMEOUT seconds; a rank that fails fails the
+    phase with every rank's output."""
+    cfg = UC2Config()
+    out = {"local_heads": par_local_heads(torch.Generator("cuda").manual_seed(8))}
+    with tempfile.TemporaryDirectory() as tmp:
+        w = eval_world(tmp, PAR_QA, num_labels=cfg.num_labels,
+                       vocab_size=cfg.vocab_size, device="cuda")
+        out["11"] = par_world_of_one(cfg, w, torch.device("cuda:0"), tmp)
+        del w
+    torch.cuda.empty_cache()
+    out.update(spawn_worlds(smi, PAR_WORLDS))
+    return out
+
+
+def spawn_worlds(smi: str, worlds: dict) -> dict:
+    """Run each world's ranks as processes of this script, one world after
+    another; returns each rank's PARALLEL_RESULT."""
+    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    for world, (n_dp, n_mp, backend) in worlds.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            init = f"file://{tmp}/rendezvous"
+            logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                    for r in range(n_dp * n_mp)]
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--parallel-rank", world, str(r), init],
+                stdout=f, stderr=subprocess.STDOUT, cwd=here, env=env)
+                for r, f in enumerate(logs)]
+            try:
+                deadline = time.monotonic() + PAR_TIMEOUT
+                for p in procs:
+                    try:
+                        p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                    except subprocess.TimeoutExpired:
+                        break
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            texts = []
+            for f in logs:
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+        for r, text in enumerate(texts):
+            for line in text.splitlines():
+                if not line.startswith("PARALLEL_RESULT"):
+                    print(f"  [{world} rank {r}] {line}")
+        codes = [p.returncode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"parallel world {world}: exit codes {codes} (a rank that does "
+              f"not finish in {PAR_TIMEOUT} s is killed):\n" + "\n".join(
+                  f"--- rank {r} ---\n{t[-6000:]}" for r, t in enumerate(texts)))
+        out[world] = [json.loads(next(line for line in t.splitlines()
+                                      if line.startswith("PARALLEL_RESULT"))
+                                 .split(" ", 1)[1]) for t in texts]
+        print(f"parallel world {world} (dp {n_dp}, mp {n_mp}, {backend}): "
+              f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
+def main_cards() -> int:
+    """``chip_smoke.py --cards 4``: phase 12's gates in worlds whose ranks
+    have cards of their own, over NCCL: dp 2 x mp 2 and dp 1 x mp 4 (B1 at
+    3 heads; the vocabulary and the labels split unevenly)."""
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke --cards 4: needs 4 cards", file=sys.stderr)
+        return 1
+    smi = phase_device()
+    phase_build()
+    t0 = time.perf_counter()
+    spawn_worlds(smi, PAR_CARD_WORLDS)
+    print(f"--cards 4: {time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.device_count()} x {smi}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2835,6 +3375,9 @@ def main() -> int:
     recipe = phase_recipe(smi)
     phase_recipe_parity()
     m3p = phase_m3p(smi)
+    t_phase = time.perf_counter()
+    phase_parallel(smi)
+    print(f"multi-GPU phase {time.perf_counter() - t_phase:.1f} s")
     # `launches`: the count of the kernel's own slice's main path (run_eval
     # for the eval kernels, the train step for B1, the fine-tune recipe for
     # B5, the proj train step for B4, M3P's run_eval with fused_attn=True
@@ -2911,4 +3454,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:] == ["--cards", "4"]:
+        sys.exit(main_cards())
     sys.exit(main())

@@ -1,8 +1,9 @@
-"""Zero-shot evaluation runner (port of clg_vqa_tpu/eval/runner.py:19-53,
-101-183) — the reference's eval_task.py flow (eval_task.py:96-213 +
+"""Zero-shot evaluation runner (port of clg_vqa_tpu/eval/runner.py:19-183)
+— the reference's eval_task.py flow (eval_task.py:96-213 +
 task_utils.py:716-841, VL-classifier-GQA branch): batched forward, argmax
 over the answer space, ``{split}_result.json`` records
-{"questionId", "prediction"}.
+{"questionId", "prediction"}; on one device, or as one rank of a (dp, mp)
+mesh (:func:`shard_predict_step`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from typing import Callable
 import torch
 
 from ..data.device_bank import DeviceFeatureBank
-from ..models.layers import check_fused
+from ..models.layers import all_reduce, check_fused
+from ..parallel.mesh import local_batch
 
 
 def make_predict_step(model, *, device_bank=None,
@@ -39,6 +41,41 @@ def make_predict_step(model, *, device_bank=None,
         logits = model(batch, deterministic=True, compute_dtype=compute_dtype,
                        fused_attn=fused_attn)
         return torch.argmax(logits, dim=-1)
+
+    return step
+
+
+def shard_predict_step(model, mesh, *, device_bank=None,
+                       compute_dtype=torch.bfloat16,
+                       fused_attn=False) -> Callable:
+    """:func:`make_predict_step` as one rank of a (dp, mp) mesh (port of
+    clg_vqa_tpu/eval/runner.py:56-98): ``model`` went through
+    parallel/mesh.shard_model; the step takes the whole batch, runs this
+    rank's dp slice (mp ranks share it) and returns every rank's
+    predictions in batch order, on every rank. The bank is replicated.
+
+    fused_attn: False or "flat" (the flat eval kernel on this rank's heads);
+    the head-blocked, "proj" and "sm" routes are single-chip opt-ins and
+    raise ValueError, as in JAX."""
+    if fused_attn and fused_attn != "flat":
+        raise ValueError(
+            "shard_predict_step supports fused_attn='flat' (this rank's "
+            "batch slice and heads) or False; the blocked/hm/proj/sm kernels "
+            "are single-chip opt-ins")
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("shard the model over the mesh first "
+                         "(parallel/mesh.shard_model)")
+    local = make_predict_step(model, device_bank=device_bank,
+                              compute_dtype=compute_dtype,
+                              fused_attn=fused_attn)
+
+    @torch.inference_mode()
+    def step(batch: dict) -> torch.Tensor:
+        pred = local(local_batch(batch, mesh))
+        out = pred.new_zeros(pred.shape[0] * mesh.n_dp)
+        b = pred.shape[0]
+        out[mesh.dp_rank * b:(mesh.dp_rank + 1) * b] = pred
+        return all_reduce(out, mesh.dp_group)
 
     return step
 

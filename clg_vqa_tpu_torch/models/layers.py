@@ -15,6 +15,16 @@ JAX package (and through it from the reference):
   :61-92).
 - Dropout: u8 threshold ``t = round((1-p)*256)``, rescale 256/t in the
   input's dtype (:95-116), bits from an explicit ``torch.Generator``.
+
+Megatron tensor parallelism over an ``mp`` process group
+(parallel/mesh.shard_model sets it up): a column-parallel ``linear`` holds
+a slice of the output features, a row-parallel one a slice of the input
+features. Both keep the one-cast epilogue that GSPMD gives the JAX package:
+the row-parallel forward sums the fp32 partial accumulators over the group,
+adds the bias once and casts once; the column-parallel backward sums the
+fp32 ``dx`` partials before its cast. The word embedding is split over the
+vocabulary (:func:`embed`), the classifier's last layer over the labels
+(:func:`gather_shards`).
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ from torch import nn
 
 from ..ops.attention import (fused_attention, fused_attention_flat,
                              fused_attention_train, fused_attention_train_flat,
-                             fused_attention_train_smajor)
+                             fused_attention_train_smajor, shard_seed)
 from ..ops.block_attention import fused_attention_block
 
 
@@ -56,6 +66,51 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over the ranks of ``group`` (a torch.distributed
+    process group) and return it; None is no group, and ``t`` is returned
+    as it is."""
+    if group is not None:
+        torch.distributed.all_reduce(t, group=group)
+    return t
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the input of a column-parallel
+    layer, replicated over the group, gathers the gradient of every shard."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward, identity backward: the sum of every shard's
+    partial result, whose gradient is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
 class _LowPrecisionLinear(torch.autograd.Function):
     """x2 [N, in] @ weight.T + bias with low-precision operands, and the JAX
     VJP of clg_vqa_tpu/models/layers.py:linear as its backward:
@@ -64,14 +119,23 @@ class _LowPrecisionLinear(torch.autograd.Function):
     once (the transpose of the weight cast) and returned as fp32 to the fp32
     master weight; dx = g W in fp32, cast to the compute dtype, then to
     x2's dtype. ``torch.mm(..., out_dtype=fp32)`` has no autograd formula,
-    so the products run here, outside autograd."""
+    so the products run here, outside autograd.
+
+    With a ``group`` the layer is one shard of a Megatron pair: ``row``
+    (weight split on its input features) sums the fp32 accumulators over
+    the group before the bias and the cast; column (split on its output
+    features) sums the fp32 dx partials over the group before dx's cast."""
 
     @staticmethod
-    def forward(ctx, x2, weight, bias, compute_dtype):
+    def forward(ctx, x2, weight, bias, compute_dtype, group, row):
         xc, wc = x2.to(compute_dtype), weight.to(compute_dtype)
         ctx.save_for_backward(xc, wc)
         ctx.dtypes = (x2.dtype, weight.dtype, bias.dtype, compute_dtype)
-        return (matmul_f32(xc, wc.t()) + bias).to(compute_dtype)
+        ctx.group = None if row else group
+        acc = matmul_f32(xc, wc.t())
+        if row:
+            all_reduce(acc, group)
+        return (acc + bias).to(compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -80,25 +144,62 @@ class _LowPrecisionLinear(torch.autograd.Function):
         g = g.to(cd)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = matmul_f32(g, wc).to(cd).to(x_dtype)
+            dx = all_reduce(matmul_f32(g, wc), ctx.group).to(cd).to(x_dtype)
         if ctx.needs_input_grad[1]:
             dw = matmul_f32(g.t(), xc).to(cd).to(w_dtype)
         if ctx.needs_input_grad[2]:
             db = g.float().sum(0).to(b_dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None, None
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+           compute_dtype: torch.dtype | None = None, *, group=None,
+           row: bool = False) -> torch.Tensor:
     """x @ weight.T + bias. With a compute dtype: operands in that dtype,
     fp32 accumulation, the fp32 bias added to the fp32 accumulator, and the
     result cast to the compute dtype once (clg_vqa_tpu/models/layers.py:41-55),
-    differentiated as :class:`_LowPrecisionLinear` says."""
+    differentiated as :class:`_LowPrecisionLinear` says.
+
+    ``group``: the mp process group of a Megatron shard, column-parallel
+    (``weight`` [out/mp, in], ``bias`` its slice; the output is this rank's
+    slice of the features) or ``row``-parallel (``weight`` [out, in/mp], x
+    this rank's slice of the input features, ``bias`` whole; the output is
+    the whole result on every rank)."""
     if compute_dtype is None:
-        return torch.nn.functional.linear(x, weight, bias)
+        if group is None:
+            return torch.nn.functional.linear(x, weight, bias)
+        if row:
+            return reduce_from_group(torch.nn.functional.linear(x, weight),
+                                     group) + bias
+        return torch.nn.functional.linear(copy_to_group(x, group), weight, bias)
     y = _LowPrecisionLinear.apply(x.reshape(-1, x.shape[-1]), weight, bias,
-                                  compute_dtype)
+                                  compute_dtype, group, row)
     return y.reshape(*x.shape[:-1], weight.shape[0])
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor, mesh=None,
+          n: int = 0) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table. With a ``mesh``, ``table`` is this
+    rank's shard of a vocabulary of ``n`` rows split over its mp group; ids
+    outside it give zero rows, and the sum over the group is the lookup."""
+    ids = ids.long()
+    if mesh is None:
+        return table[ids]
+    local = ids - mesh.shard_range(n)[0]
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    return reduce_from_group(torch.where(inside[..., None], rows, 0.0),
+                             mesh.mp_group)
+
+
+def gather_shards(y: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The whole last dimension (``n``) of a column-parallel output whose
+    ``y`` is this rank's slice over the mesh's mp group: the zero-padded
+    slices summed over the group in fp32 (exact: one rank holds each
+    value), in y's dtype."""
+    lo = mesh.shard_range(n)[0]
+    full = torch.nn.functional.pad(y.float(), (lo, n - lo - y.shape[-1]))
+    return reduce_from_group(full, mesh.mp_group).to(y.dtype)
 
 
 class _SoftmaxLowp(torch.autograd.Function):
@@ -188,16 +289,22 @@ def additive_mask(mask01: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """Weight [out, in] + bias, applied with :func:`linear`'s epilogue."""
+    """Weight [out, in] + bias, applied with :func:`linear`'s epilogue.
+    Under Megatron mp (parallel/mesh.shard_model sets ``mesh``) the weight
+    is this rank's shard of the output features, or with ``row`` of the
+    input features."""
 
     def __init__(self, d_in: int, d_out: int, *, device, dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device,
                                                dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype))
+        self.mesh, self.row = None, False
 
     def forward(self, x, compute_dtype=None):
-        return linear(x, self.weight, self.bias, compute_dtype)
+        group = None if self.mesh is None else self.mesh.mp_group
+        return linear(x, self.weight, self.bias, compute_dtype, group=group,
+                      row=self.row)
 
     @torch.no_grad()
     def init_normal_(self, std: float, generator: torch.Generator):
@@ -239,7 +346,8 @@ class SelfAttention(nn.Module):
 
     def __init__(self, d: int, num_heads: int, *, device, dtype=torch.float32):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads      # this rank's heads under Megatron mp
+        self.mesh = None                # set by parallel/mesh.shard_model
         self.q = Linear(d, d, device=device, dtype=dtype)
         self.k = Linear(d, d, device=device, dtype=dtype)
         self.v = Linear(d, d, device=device, dtype=dtype)
@@ -273,11 +381,22 @@ class SelfAttention(nn.Module):
         one cast) followed by the split copy that fused_attention_train
         makes, so both values run the same work.
         Without a seed "flat", "sm" and "proj" take K1, True and "hm" take
-        B2, as the JAX package routes the deterministic forward (:257-271)."""
+        B2, as the JAX package routes the deterministic forward (:257-271).
+
+        Under Megatron mp (``self.mesh``) q/k/v hold this rank's heads, o
+        sums their contributions over the group, and the attention's dropout
+        seed is offset by the mp rank (ops/attention.shard_seed), since the
+        keep mask is keyed by the head's index within the call; "proj",
+        which takes whole weights, raises."""
         check_fused(fused)
-        B, S, D = x.shape
+        B, S, _ = x.shape
         H = self.num_heads
-        hd = D // H
+        hd = self.q.weight.shape[0] // H
+        if self.mesh is not None and self.mesh.n_mp > 1:
+            if fused == "proj" and seed is not None:
+                raise ValueError("fused_attn='proj' is a single-chip route: "
+                                 "it takes whole weights, not mp shards")
+            seed = shard_seed(seed, self.mesh.mp_rank)
         if fused == "proj" and seed is not None:
             def c(t):
                 return t if compute_dtype is None else t.to(compute_dtype)
@@ -323,7 +442,7 @@ class SelfAttention(nn.Module):
             probs = torch.softmax(scores, dim=-1)
         probs = dropout(probs, dropout_rate, generator(seed, x.device))
         ctx = torch.matmul(probs.float(), heads(v))
-        return self.o(ctx.transpose(1, 2).reshape(B, S, D), compute_dtype)
+        return self.o(ctx.transpose(1, 2).reshape(B, S, H * hd), compute_dtype)
 
 
 class FeedForward(nn.Module):
@@ -348,9 +467,14 @@ class SimpleClassifier(nn.Module):
         self.fc1 = Linear(d_in, d_hidden, device=device, dtype=dtype)
         self.ln = LayerNorm(d_hidden, eps, device=device, dtype=dtype)
         self.fc2 = Linear(d_hidden, num_labels, device=device, dtype=dtype)
+        self.num_labels = num_labels
+        self.mesh = None        # set when fc2 is a label shard
 
     def forward(self, pooled, compute_dtype=None, *, dropout_rate: float = 0.0,
                 generator: torch.Generator | None = None):
         pooled = dropout(pooled, dropout_rate, generator)
         h = self.ln(gelu(self.fc1(pooled, compute_dtype)))
-        return self.fc2(h, compute_dtype)
+        logits = self.fc2(h, compute_dtype)
+        if self.mesh is not None:       # the loss's top-k needs every label
+            logits = gather_shards(logits, self.mesh, self.num_labels)
+        return logits

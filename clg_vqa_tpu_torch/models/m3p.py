@@ -45,6 +45,8 @@ class M3PEmbeddings(nn.Module):
         H, eps = cfg.hidden_size, cfg.layer_norm_eps
         kw = {"device": device, "dtype": dtype}
         self.word = nn.Parameter(torch.empty(cfg.vocab_size, H, **kw))
+        self.vocab_size = cfg.vocab_size
+        self.mesh = None    # set when ``word`` is a vocabulary shard
         self.position = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, H, **kw))
         self.ln = L.LayerNorm(H, eps, **kw)
@@ -142,7 +144,7 @@ class M3P(nn.Module):
                + e.loc(batch["locs"], compute_dtype))
         img = L.dropout(e.img_ln(img), self.cfg.dropout,
                         L.generator(L.fold_seed(seed, 10), img.device))
-        word = e.word[input_ids.long()]
+        word = L.embed(e.word, input_ids, e.mesh, e.vocab_size)
         dt = torch.promote_types(img.dtype, word.dtype)
         h = torch.cat([img.to(dt), word.to(dt)], dim=1)
         h = (h + e.position[:S][None]) * mask01[:, :, None]

@@ -45,6 +45,8 @@ class UC2Embeddings(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.pad_token_id = cfg.pad_token_id
         self.word = nn.Parameter(torch.empty(cfg.vocab_size, H, **kw))
+        self.vocab_size = cfg.vocab_size
+        self.mesh = None    # set when ``word`` is a vocabulary shard
         self.position = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, H, **kw))
         self.token_type = nn.Parameter(torch.empty(cfg.type_vocab_size, H, **kw))
@@ -65,8 +67,8 @@ class UC2Embeddings(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         pos_ids = L.create_position_ids_from_input_ids(input_ids,
                                                        self.pad_token_id)
-        t = (self.word[input_ids.long()] + self.position[pos_ids]
-             + self.token_type[token_type_ids.long()])
+        t = (L.embed(self.word, input_ids, self.mesh, self.vocab_size)
+             + self.position[pos_ids] + self.token_type[token_type_ids.long()])
         t = self.ln(t)
         img = self.image_ln(self.image(features, compute_dtype))
         loc = self.loc_ln(self.loc(locs, compute_dtype))

@@ -545,6 +545,17 @@ fused_attention_train_flat.launches = 0
 fused_attention_train_flat.backward_launches = 0
 
 
+def shard_seed(seed: int | None, rank: int) -> int | None:
+    """The dropout seed of shard ``rank``: ``seed + rank * 2^20`` mod 2^64,
+    the per-shard offset of the JAX package's flat kernels under a mesh
+    (clg_vqa_tpu/ops/attention.py:600-627). Every shard's call counts its
+    samples and heads from 0, so without it two shards would draw the same
+    masks; rank 0 keeps the single-device seed. None stays None."""
+    if seed is None:
+        return None
+    return (seed + (rank << 20)) & 0xFFFFFFFFFFFFFFFF
+
+
 @torch.no_grad()
 def realized_keep_mask(seed: int, B: int, H: int, S: int, hd: int,
                        dropout_rate: float, device, train=None,

@@ -1,5 +1,6 @@
 """Training and eval steps of the GQA fine-tuning recipe (port of
-clg_vqa_tpu/train/loop.py:32-325, single device).
+clg_vqa_tpu/train/loop.py:32-416): one device, or one rank of a (dp, mp)
+mesh (:func:`shard_train_step`).
 
 Semantics kept from the JAX package (and through it from
 volta/train_task.py:313-367 and volta/volta/task_utils.py:308-434):
@@ -26,9 +27,15 @@ from typing import Any, Callable, Mapping
 import torch
 
 from ..data.device_bank import DeviceFeatureBank
-from ..models.layers import check_fused, fold_seed
+from ..models.layers import all_reduce, check_fused, fold_seed
+from ..ops.attention import shard_seed
 from ..ops.semantic_prior import gqa_train_loss
+from ..parallel.mesh import pspec, shard_model, shard_state_dict
 from .optim import global_norm
+
+# the attention routes that take whole weights or head-major copies: one
+# device only under Megatron mp, as in the JAX package
+SINGLE_CHIP = (True, "hm", "proj", "sm")
 
 
 @dataclasses.dataclass
@@ -91,7 +98,9 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
                     criterion: str = "CrossEntropyLoss") -> Callable:
     """train_step(state, batch, seed, bank=None) -> (state, metrics).
 
-    ``batch`` values are [acc, micro_bs, ...] tensors on the model's device;
+    ``optimizer``: :func:`train.optim.make_optimizer`'s chain (under mp > 1
+    its update is given the gradients' global norm as ``norm``). ``batch``
+    values are [acc, micro_bs, ...] tensors on the model's device;
     with a device bank (``bank`` = DeviceFeatureBank.tensors()) they carry
     int32 ``store_idx`` instead of features. ``seed`` (a host int) keys the
     step's dropout: microbatch a draws from fold_seed(seed, a). ``grad_mask``
@@ -102,13 +111,31 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
     (ops/attention.fused_attention_train), "hm" (the True route, see
     models/layers.SelfAttention) or "auto". Metrics:
     ``loss``, ``score`` and ``grad_norm``, the norm of the masked gradients
-    before the clip."""
+    before the clip.
+
+    The step runs as one rank of the mesh the model is laid out over
+    (``model.mesh``, parallel/mesh.shard_model), if any: see
+    :func:`shard_train_step`."""
     loss_fn = make_loss_fn(distance_matrix, semantic_lambda=semantic_lambda,
                            top_k=top_k, compute_dtype=compute_dtype,
                            fused_attn=fused_attn, criterion=criterion)
+    masks = {}      # grad_mask cut for each mesh, on its first step there
 
     def train_step(state: TrainState, batch: Mapping, seed: int, bank=None):
         model = state.model
+        mesh = getattr(model, "mesh", None)
+        dp_rank, dp_group = (0, None) if mesh is None else (mesh.dp_rank,
+                                                            mesh.dp_group)
+        mp = mesh is not None and mesh.n_mp > 1
+        if mp and fused_attn in SINGLE_CHIP:
+            raise ValueError(f"fused_attn={fused_attn!r} is a single-chip "
+                             f"route; under mp > 1 use 'flat', 'auto' or "
+                             f"False")
+        mask = grad_mask
+        if mp and grad_mask is not None:
+            if mesh not in masks:
+                masks[mesh] = shard_state_dict(grad_mask, mesh)
+            mask = masks[mesh]
         params = dict(model.named_parameters())
         names, tensors = list(params), list(params.values())
         acc = next(iter(batch.values())).shape[0]
@@ -117,30 +144,89 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
         score_sum = torch.zeros((), device=model.device)
         for a in range(acc):
             mb = {k: v[a] for k, v in batch.items()}
-            loss, score = loss_fn(model, mb, fold_seed(seed, a), bank)
+            loss, score = loss_fn(model, mb,
+                                  shard_seed(fold_seed(seed, a), dp_rank), bank)
             gs = torch.autograd.grad(loss, tensors, allow_unused=True)
             for acc_g, g in zip(grads, gs):
                 if g is not None:
                     acc_g.add_(g / acc)
             loss_sum = loss_sum + loss.detach() / acc
             score_sum = score_sum + score / acc
+        if dp_group is not None:
+            grads = _dp_mean(grads, dp_group, mesh.n_dp)
+            loss_sum, score_sum = _dp_mean([loss_sum, score_sum], dp_group,
+                                           mesh.n_dp)
         grads = dict(zip(names, grads))
-        if grad_mask is not None:
-            grads = {k: g if grad_mask.get(k) is None else g * grad_mask[k]
+        if mask is not None:
+            grads = {k: g if mask.get(k) is None else g * mask[k]
                      for k, g in grads.items()}
+        # under mp the clip is given the whole model's norm (each rank's
+        # own gradients hold only its shards)
+        norm = global_norm(grads.values(),
+                           group=mesh.mp_group if mp else None,
+                           sharded=[pspec(k) is not None for k in grads])
         with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  params)
+            updates, opt_state = optimizer.update(
+                grads, state.opt_state, params, **({"norm": norm} if mp else {}))
             for k, p in params.items():
                 u = updates[k]
-                if grad_mask is not None and grad_mask.get(k) is not None:
-                    u = u * grad_mask[k]
+                if mask is not None and mask.get(k) is not None:
+                    u = u * mask[k]
                 p.add_(u)
-        metrics = {"loss": loss_sum, "score": score_sum,
-                   "grad_norm": global_norm(grads.values())}
+        metrics = {"loss": loss_sum, "score": score_sum, "grad_norm": norm}
         return TrainState(model, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def _dp_mean(tensors: list, group, n_dp: int) -> list:
+    """The mean over the dp group of each fp32 tensor, summed in one flat
+    buffer (apex's delay_allreduce: once a step, after accumulation)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce(flat, group).div_(n_dp)
+    return [f.view_as(t) for f, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def shard_train_step(train_step: Callable, mesh) -> Callable:
+    """``train_step`` (from :func:`make_train_step`) as one rank of a
+    (dp, mp) mesh (port of clg_vqa_tpu/train/loop.py:332-416).
+
+    The returned step takes this rank's state, whose model went through
+    parallel/mesh.shard_model (or :func:`shard_train_state`), and this
+    rank's [acc, micro_bs / dp, ...] slice of the batch
+    (parallel/mesh.local_batch, or a TrainPipeline with host_id = dp rank
+    and num_hosts = dp); the bank is replicated, ``store_idx`` comes with
+    the batch. Each rank's dropout seeds are offset by its dp rank (and the
+    attention's by its mp rank). The fp32 gradients are averaged over dp
+    once a step, after accumulation and before the mask and the clip; the
+    clip and ``grad_norm`` see the whole model's norm; ``loss`` and
+    ``score`` are dp means. The grad mask is sliced like its parameters.
+    As JAX's step runs over GSPMD-sharded inputs, the step is the same
+    function: it reads the layout from ``model.mesh``, and the wrapper
+    checks that the model is laid out over ``mesh``.
+
+    Under mp > 1 only the flat kernels and the plain path run: True, "hm",
+    "proj" and "sm" raise, as in JAX (:341-345)."""
+    def step(state: TrainState, batch: Mapping, seed: int, bank=None):
+        if getattr(state.model, "mesh", None) is not mesh:
+            raise ValueError(f"the model is laid out for "
+                             f"{getattr(state.model, 'mesh', None)}, the "
+                             f"step for {mesh} (parallel/mesh.shard_model)")
+        return train_step(state, batch, seed, bank)
+
+    return step
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """A whole TrainState laid out for this rank: the model through
+    parallel/mesh.shard_model, the AdamW or RAdam moments sliced like their
+    parameters."""
+    shard_model(state.model, mesh)
+    opt = state.opt_state
+    return TrainState(state.model, opt._replace(
+        mu=shard_state_dict(opt.mu, mesh), nu=shard_state_dict(opt.nu, mesh)),
+        state.step)
 
 
 def make_eval_step(*, compute_dtype=torch.bfloat16, fused_attn=False) -> Callable:

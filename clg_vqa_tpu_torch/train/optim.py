@@ -22,10 +22,16 @@ from typing import Callable, Iterable, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from ..models.layers import all_reduce
+
 Tensors = Mapping[str, torch.Tensor]
 
 
 class Optimizer(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state, params) -> (updates,
+    state)``. A chain that a train step runs under Megatron mp > 1 must also
+    take ``norm=``, the gradients' global norm over the whole model
+    (:func:`make_optimizer`'s does): no rank can compute it alone."""
     init: Callable
     update: Callable
 
@@ -195,17 +201,35 @@ def freeze_mask(params: Tensors, fixed_layers: list[str]) -> dict | None:
                 else None) for k, p in params.items()}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, on the device."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors: Iterable[torch.Tensor], *, group=None,
+                sharded: Iterable[bool] | None = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, on the device.
+
+    Under Megatron mp (``group``, the mp process group) the tensors flagged
+    in ``sharded`` are this rank's shards: their sums of squares are summed
+    over the group, and every other tensor, replicated over it, counts
+    once, so every rank gets the whole model's norm (what GSPMD gives the
+    JAX package). The per-tensor sums are added in the tensors' order
+    either way."""
+    sq = [(t.float() * t.float()).sum() for t in tensors]
+    idx = [i for i, s in enumerate(sharded or ()) if s]
+    if group is not None and idx:
+        shards = all_reduce(torch.stack([sq[i] for i in idx]), group)
+        for j, i in enumerate(idx):
+            sq[i] = shards[j]
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> dict:
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm: torch.Tensor | None = None) -> dict:
     """optax's clip_by_global_norm: ``g / ||g|| * max_norm`` when
     ``||g|| >= max_norm``, else g unchanged. Unlike
     ``torch.nn.utils.clip_grad_norm_`` no epsilon joins the norm. Decided
-    on the device, without a host synchronisation."""
-    norm = global_norm(grads.values())
+    on the device, without a host synchronisation. ``norm``: ||g|| when the
+    caller has it (a sharded step's :func:`global_norm` over the mp
+    group)."""
+    if norm is None:
+        norm = global_norm(grads.values())
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm) * max_norm)
             for k, g in grads.items()}
@@ -216,12 +240,14 @@ def make_optimizer(names: Iterable[str], schedule, *, b1=0.9, b2=0.999,
                    clip_norm: float = 1.0) -> Optimizer:
     """The reference chain (optim.py:132-146): clip_by_global_norm(1.0),
     then AdamW with pytorch_transformers semantics and no decay on biases
-    and LayerNorms."""
+    and LayerNorms. Its ``update`` takes the gradients' global norm as
+    ``norm`` where the caller has computed it (train/loop.py does)."""
     adam = adamw_pt(schedule, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                     correct_bias=correct_bias, decay_mask=no_decay_mask(names))
 
-    def update(grads, state, params):
-        return adam.update(clip_by_global_norm(grads, clip_norm), state, params)
+    def update(grads, state, params, norm=None):
+        return adam.update(clip_by_global_norm(grads, clip_norm, norm), state,
+                           params)
 
     return Optimizer(adam.init, update)
 

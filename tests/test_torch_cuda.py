@@ -1742,3 +1742,95 @@ def test_x101_roi_align_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
     assert torch.equal(chunked, got)
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the flat kernels at mp-local head counts, a world of one on NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [76, 140])
+@pytest.mark.parametrize("H", [6, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernels_at_mp_local_head_counts(cuda, H, S, dtype):
+    """UC2's 12 heads over mp 2 and 4 ([B, S, 384], [B, S, 192]) at UC2's
+    and M3P's S: K1, and B1 forward and backward at rate 0.1 with mp rank
+    1's seed (ops/attention.shard_seed), against their plain versions with
+    test_flat_train_kernels_match_plain's tolerances; the realized keep
+    mask is the plain mask of the offset seed, and not rank 0's."""
+    q, k, v, bias = _attention_inputs(cuda, 8, S, H, 64, dtype)
+    got = TA.fused_attention_flat(q, k, v, bias, H)
+    want = TA.fused_attention_flat_plain(q, k, v, bias, H)
+    scale = want.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(scale)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    seed = TA.shard_seed(1234, 1)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    kw = dict(dropout_rate=0.1, seed=seed)
+    got = _train_grads(TA.fused_attention_train_flat, q, k, v, bias, w, H=H, **kw)
+    want = _train_grads(TA.fused_attention_train_flat_plain, q, k, v, bias, w,
+                        H=H, **kw)
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        scale = want[i].float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5 if i == 0 else 2e-4 * scale
+        else:
+            tol = _bf16_ulp(scale) * (1 if i == 0 else 2)
+        assert (got[i].float() - want[i].float()).abs().max().item() <= tol, name
+    assert (got[4] - want[4]).abs().max().item() <= 1e-4 * want[4].abs().max().item()
+    t = TA.keep_threshold(0.1)
+    mask = TA.realized_keep_mask(seed, 4, H, S, 64, 0.1, cuda, dtype=dtype)
+    assert torch.equal(mask, TA.dropout_keep_mask(seed, 4, H, S, t, cuda))
+    assert not torch.equal(mask, TA.dropout_keep_mask(1234, 4, H, S, t, cuda))
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_is_one_device_bit_for_bit(cuda, tmp_path):
+    """A (dp 1, mp 1) world over NCCL: shard_train_step (bf16, dropout 0.1,
+    the flat kernels, hd 64) gives make_train_step's parameters and metrics
+    bit for bit over two steps, and shard_predict_step("flat")
+    make_predict_step's predictions."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.eval import runner
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    from clg_vqa_tpu_torch.parallel import distributed, mesh as pm
+    from clg_vqa_tpu_torch.train import loop, optim
+    cfg = UC2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                    intermediate_size=256, v_feature_size=64, num_locs=7,
+                    pooler_size=128, clf_hidden_size=64, num_labels=40)
+    r = np.random.RandomState(3)
+    batch = {"input_ids": r.randint(3, 300, (2, 8, 11)).astype(np.int32),
+             "input_mask": np.ones((2, 8, 11), np.int32),
+             "features": r.randn(2, 8, 9, 64).astype(np.float32),
+             "locs": r.rand(2, 8, 9, 7).astype(np.float32),
+             "image_mask": np.ones((2, 8, 9), np.int32),
+             "labels": r.randint(0, 40, (2, 8)).astype(np.int32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    D = torch.rand(40, 40, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    distributed.initialize(f"file://{tmp_path}/rendezvous", 1, 0, device="cuda:0")
+    try:
+        mesh = pm.make_mesh()
+        assert torch.distributed.get_backend() == "nccl"
+        runs = []
+        for sharded in (False, True):
+            model = UC2(cfg, device=cuda, seed=1)
+            opt = optim.make_optimizer([n for n, _ in model.named_parameters()], 1e-3)
+            step = loop.make_train_step(opt, D, semantic_lambda=10.0, top_k=4,
+                                        fused_attn="flat")
+            if sharded:
+                pm.shard_model(model, mesh)
+                step = loop.shard_train_step(step, mesh)
+            state = loop.TrainState(model, opt.init(dict(model.named_parameters())), 0)
+            metrics = []
+            for i in range(2):
+                state, m = step(state, batch, i)
+                metrics.append(m)
+            predict = (runner.shard_predict_step(model, mesh, fused_attn="flat")
+                       if sharded else runner.make_predict_step(model, fused_attn="flat"))
+            runs.append((model, metrics, predict({k: v[0] for k, v in batch.items()})))
+        (m1, ms1, p1), (m2, ms2, p2) = runs
+        assert all(torch.equal(a, b) for a, b in zip(m1.parameters(), m2.parameters()))
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(ms1, ms2) for k in a)
+        assert torch.equal(p1, p2)
+    finally:
+        torch.distributed.destroy_process_group()

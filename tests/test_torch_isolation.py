@@ -25,7 +25,8 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "uc2.py", "attention.py", "bank_gather.py",
             "runner.py", "predictor.py", "loop.py", "optim.py", "pipeline.py",
-            "semantic_prior.py", "profile_train.py"} <= names
+            "semantic_prior.py", "profile_train.py", "mesh.py",
+            "distributed.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
