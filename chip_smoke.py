@@ -125,6 +125,20 @@ final line:
     and under mp 2 M3P at full width (S = 140, -inf keys) for one step and
     one predict batch. Each rank has a time limit, is killed in a finally,
     and its output goes into the failure message.
+13. the pretraining objective and the gated zoo (run after 10, before 12):
+    every LOSS_MAP entry, auxiliary loss, visual criterion, masked_lm_loss
+    and itm_loss on CUDA tensors against the CPU (1e-5 relative); UC2's
+    pretraining heads and objective at full width with all seven visual
+    targets, 3 AdamW steps in bf16 (ms a step, peak memory; every loss
+    finite, the total falls), fp32 losses of a 2-layer copy against the CPU
+    (1e-4 relative); the five gated families (VisualBERT, UNITER and
+    VL-BERT on uc2_base.json's wiring; ViLBERT and LXMERT on a dual-stream
+    wiring of 12 text and 6 vision layers written here) at BERT-base widths:
+    run_eval over 1,024 questions in bf16 with the device bank (one K2
+    launch, no attention kernel), QA/s and peak memory, fp32 logits of a
+    2-sublayer copy against the CPU (rtol 2e-4, atol 5e-5), and
+    `python -m clg_vqa_tpu_torch.cli train` on ViLBERT for 3 steps of
+    2 x 32 in process (finite loss, moved parameters, K2 only).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions and equal to B1 bit for bit (bf16:
@@ -184,9 +198,11 @@ from clg_vqa_tpu_torch.models.detector.extractor import (
     Extractor36, ExtractorConfig, init_extractor_params)
 from clg_vqa_tpu_torch.models.detector.extractor_x101 import (
     ExtractorX101, X101Config, init_x101_params)
+from clg_vqa_tpu_torch.models.gated import Gated, GatedConfig
 from clg_vqa_tpu_torch.models.m3p import M3P
+from clg_vqa_tpu_torch.models.pretrain import PretrainHeads, pretrain_loss
 from clg_vqa_tpu_torch.models.uc2 import UC2
-from clg_vqa_tpu_torch.ops import _build
+from clg_vqa_tpu_torch.ops import _build, aux_losses
 from clg_vqa_tpu_torch.ops.attention import (
     _FLAT, _HM, _SM, _bias2, _launch_eval, _launch_train_bwd,
     _launch_train_fwd, _train_buffers,
@@ -204,6 +220,10 @@ from clg_vqa_tpu_torch.ops.block_attention import (
     _core_backward_plain, fused_attention_block, fused_attention_block_plain,
     realized_block_keep_mask)
 from clg_vqa_tpu_torch.ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
+from clg_vqa_tpu_torch.ops.pretrain_losses import (
+    PRE_VIS_CRITERIONS, PRE_VIS_TARGETS, itm_loss, masked_lm_loss,
+    nce_negative_indices)
+from clg_vqa_tpu_torch.ops.semantic_prior import vqa_train_loss
 from clg_vqa_tpu_torch.parallel.distributed import initialize
 from clg_vqa_tpu_torch.parallel.mesh import (local_batch, make_mesh, pspec,
                                              shard_model, unshard)
@@ -387,13 +407,15 @@ def gather_case(bank, idx, label: str) -> dict:
 def phase_rows_gather(gen) -> dict:
     """K2, the bank row gather (csrc/rows_gather.cu), at the main
     paths' calls: UC2 eval (bank [400, 36, 2048] fp32 x 1024 indices; the
-    kernel line's numbers), the train step's (x 128), serving's (x 8) and
-    M3P eval's rows ([400, 100, 2048] x 1024); then the eval call's plain
-    version alone."""
+    kernel line's numbers), the train step's (x 128), serving's (x 8), the
+    gated zoo's train step (x ZOO_MBS) and its CLI validation batch
+    (x ZOO_CLI_VAL), and M3P eval's rows ([400, 100, 2048] x 1024); then
+    the eval call's plain version alone."""
     N, C = N_IMAGES, 2048
     bank = torch.randn(N, R, C, device="cuda", generator=gen)
     calls, idxs = {}, {}
-    for label, B in (("eval", EVAL_BS), ("train", MBS), ("serving", 8)):
+    for label, B in (("eval", EVAL_BS), ("train", MBS), ("serving", 8),
+                     ("zoo_train", ZOO_MBS), ("zoo_cli_val", ZOO_CLI_VAL)):
         idxs[label] = torch.randint(0, N, (B,), device="cuda", generator=gen,
                                     dtype=torch.int32)
         calls[label] = gather_case(bank, idxs[label], label)
@@ -1692,18 +1714,18 @@ def phase_train_ab(cfg: UC2Config, model: UC2, world, smi: str) -> dict:
     return out
 
 
-def write_cli_task(root: str, world) -> str:
+def write_cli_task(root: str, world, batch_size: int = ACC * MBS) -> str:
     """The CLI's inputs over ``world``'s CFS store, under ``root``: its
-    questions as train (CLI_STEPS steps) and val (CLI_VAL) annotation
-    pickles, the answer vocabulary, and a TASK15 YAML. Returns the YAML's
-    path."""
+    questions as train (CLI_STEPS steps of ``batch_size``) and val (up to
+    CLI_VAL) annotation pickles, the answer vocabulary, and a TASK15 YAML.
+    Returns the YAML's path."""
     data = os.path.join(root, "annotations")
     os.makedirs(data)
     with open(os.path.join(data, "trainval_ans2label.pkl"), "wb") as f:
         pickle.dump({a: i for i, a in enumerate(world.label2ans)}, f)
     with open(os.path.join(data, "trainval_label2ans.pkl"), "wb") as f:
         pickle.dump(world.label2ans, f)
-    n_train = CLI_STEPS * ACC * MBS
+    n_train = CLI_STEPS * batch_size
     for split, es in (("train", world.entries[:n_train]),
                       ("val", world.entries[n_train:n_train + CLI_VAL])):
         with open(os.path.join(data, f"{split}_target.pkl"), "wb") as f:
@@ -1718,7 +1740,7 @@ def write_cli_task(root: str, world) -> str:
                 f"  loss: CrossEntropyLoss\n  dataroot: {data}\n"
                 f"  features_h5path1: {store}\n  features_h5path2: {store}\n"
                 f"  max_seq_length: 40\n  max_region_num: {world.regions}\n"
-                f"  batch_size: {ACC * MBS}\n  eval_batch_size: {EVAL_BS}\n"
+                f"  batch_size: {batch_size}\n  eval_batch_size: {EVAL_BS}\n"
                 f"  train_split: train\n  val_split: val\n  lr: 4.0e-5\n"
                 f"  num_epoch: 1\n  semantic_lambda: {LAMBDA}\n"
                 f"  semantic_dict_path: ''\n")
@@ -2041,30 +2063,46 @@ def phase_train_parity() -> None:
           and perr <= 1e-4, "full-width train step: kernel vs plain route")
 
 
-def m3p_eval_step_counts(model, w, smi: str, fused, label: str) -> dict:
-    """run_eval of the M3P world with ``fused`` (None = the auto rule):
-    one warm-up run, then the counted and timed run. Returns its counts."""
-    step = (None if fused is None else
-            make_predict_step(model, device_bank=w.bank, fused_attn=fused))
+def timed_run_eval(model, w, smi: str, expected: dict, label: str,
+                   step=None) -> dict:
+    """run_eval over the world ``w`` (bs EVAL_BS, bf16, the device bank,
+    ``step`` if given): one warm-up run, then the counted and timed run,
+    which must score every question and launch exactly ``expected``.
+    Returns its launch counts, QA/s and peak memory in GiB."""
     kw = dict(batch_size=EVAL_BS, device_bank=w.bank, step=step)
     run_eval(model, w.dataset, w.label2ans, **kw)                     # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     res = run_eval(model, w.dataset, w.label2ans, **kw)
     dt = time.perf_counter() - t0
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(w.dataset)
+    print(f"run_eval {label}: {res['n']} QA in {dt:.3f} s -> "
+          f"{res['n'] / dt:.1f} QA/s (bs {EVAL_BS}, bf16, bank on, "
+          f"{math.ceil(n / EVAL_BS)} batches), peak memory {peak:.2f} GiB on "
+          f"{smi}; launches {counts}")
+    check(res["n"] == n, f"run_eval {label} scored {res['n']} of {n}")
+    check(counts == only(**expected),
+          f"run_eval {label} launches {counts}, expected {expected} and "
+          f"nothing else")
+    return {"launches": counts, "qa_per_s": res["n"] / dt, "peak_gib": peak}
+
+
+def m3p_eval_step_counts(model, w, smi: str, fused, label: str):
+    """run_eval of the M3P world with ``fused`` (None = the auto rule: K1;
+    True: B2), 12 attention launches and one K2 launch a batch. Returns its
+    counts and QA/s."""
+    step = (None if fused is None else
+            make_predict_step(model, device_bank=w.bank, fused_attn=fused))
     n_batches = math.ceil(N_QA / EVAL_BS)
     kern = "flat_attention" if fused is None else "blocked_attention"
-    print(f"run_eval M3P ({label}): {res['n']} QA in {dt:.3f} s -> "
-          f"{res['n'] / dt:.1f} QA/s (bs {EVAL_BS}, bf16, bank on, "
-          f"{n_batches} batches) on {smi}; launches {counts}")
-    check(res["n"] == N_QA, f"M3P run_eval scored {res['n']} of {N_QA}")
-    check(counts == only(rows_gather=n_batches,
-                         **{kern: 12 * n_batches}),
-          f"M3P run_eval ({label}) launches {counts}, expected 12 x "
-          f"{n_batches} {kern} and {n_batches} rows_gather")
-    return counts, res["n"] / dt
+    ev = timed_run_eval(model, w, smi, {"rows_gather": n_batches,
+                                        kern: 12 * n_batches},
+                        f"M3P ({label})", step)
+    return ev["launches"], ev["qa_per_s"]
 
 
 def phase_m3p_eval(cfg, model, w, smi: str) -> dict:
@@ -3313,6 +3351,438 @@ def spawn_worlds(smi: str, worlds: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. the pretraining objective and the gated zoo
+# ---------------------------------------------------------------------------
+
+SUBLAYER_LISTS = ("tt_attn_sublayers", "tv_attn_sublayers",
+                  "vt_attn_sublayers", "vv_attn_sublayers", "t_ff_sublayers",
+                  "v_ff_sublayers", "shared_sublayers", "single_ln_sublayers")
+
+
+def single_stream_wiring(kind: str) -> dict:
+    """configs/uc2_base.json's 24-sublayer wiring (all four gates, shared,
+    single-LN) with the zoo family's embeddings. VL-BERT's objects take
+    token type 2, so its table gets VL-BERT's 3 rows (uc2_base has 2), and
+    its object projection reads 2 x v_feature_size inputs, features and
+    4 x 2 x dim box embeddings, so dim is v_feature_size / 8."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "uc2_base.json")) as f:
+        raw = json.load(f)
+    raw["image_embeddings"] = kind
+    if kind == "vl-bert":
+        raw.update(type_vocab_size=3,
+                   v_coordinate_embeddings_dim=raw["v_feature_size"] // 8)
+    return raw
+
+
+def dual_wiring(kind: str) -> dict:
+    """ViLBERT / LXMERT at BERT-base widths on a dual-stream wiring written
+    here (no published config is in the repo): 6 text-only layers
+    (sublayers 0-11: tt attention, text FF), then 6 blocks of 4 sublayers,
+    self-attention in both streams (tt + vv), FF in both, co-attention
+    (tv + vt), FF in both: 12 text and 6 vision self-attention layers with 6
+    co-attention sublayers, 36 sublayers. ViLBERT fuses the pooled streams
+    by product, LXMERT by sum."""
+    blocks = [12 + 4 * j for j in range(6)]
+    ff_both = [b + 1 for b in blocks] + [b + 3 for b in blocks]
+    return dict(
+        image_embeddings=kind, model="bert", vocab_size=30522, pad_token_id=0,
+        hidden_size=768, num_attention_heads=12, intermediate_size=3072,
+        v_feature_size=2048, v_hidden_size=768, v_num_attention_heads=12,
+        v_intermediate_size=3072, num_locs=5, max_position_embeddings=512,
+        type_vocab_size=2, layer_norm_eps=1e-12, pooler_size=768,
+        v_pooler_size=768, clf_hidden_size=1536,
+        fusion_method="mul" if kind == "vilbert" else "sum",
+        tt_attn_sublayers=[2 * i for i in range(6)] + blocks,
+        t_ff_sublayers=[2 * i + 1 for i in range(6)] + ff_both,
+        vv_attn_sublayers=blocks, v_ff_sublayers=ff_both,
+        tv_attn_sublayers=[b + 2 for b in blocks],
+        vt_attn_sublayers=[b + 2 for b in blocks],
+        shared_sublayers=[], single_ln_sublayers=[])
+
+
+ZOO = {"visualbert": single_stream_wiring, "uniter": single_stream_wiring,
+       "vl-bert": single_stream_wiring, "vilbert": dual_wiring,
+       "lxmert": dual_wiring}
+# the sublayers a family's 2-deep parity copy keeps: an attention and an FF
+# sublayer (the dual wiring's co-attention and its FF)
+ZOO_PARITY_KEEP = {"single": (0, 1), "dual": (14, 15)}
+ZOO_QA, ZOO_MBS, ZOO_PARITY_QA, ZOO_TRAIN_STEPS = 1024, 32, 64, 3
+# the ViLBERT `cli train` validates on what its CLI_STEPS steps leave: one
+# partial eval batch, which K2 gathers whole
+ZOO_CLI_VAL = min(CLI_VAL, ZOO_QA - CLI_STEPS * 2 * ZOO_MBS)
+ZOO_RTOL, ZOO_ATOL = 2e-4, 5e-5      # tests/test_gated_parity.py's, logits
+PRE_B, PRE_T, PRE_MASK, PRE_STEPS, PRE_LR = 16, 20, 0.15, 3, 1e-4
+PRE_RTOL, LOSS_RTOL = 1e-4, 1e-5
+ALL_VIS_TARGETS = {ix: 1.0 for ix in sorted(PRE_VIS_TARGETS)}
+
+
+def cut_depth(raw: dict, keep) -> dict:
+    """``raw`` with only the sublayers ``keep``, renumbered from 0."""
+    new = {n: i for i, n in enumerate(keep)}
+    return {**raw, **{k: [new[n] for n in raw.get(k, []) if n in new]
+                      for k in SUBLAYER_LISTS}}
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def pretrain_batch(r: np.random.RandomState, vocab: int, B: int, T: int,
+                   R: int, feat: int, num_locs: int) -> dict:
+    """A synthetic pretraining batch on the host: ``lm_labels`` the true
+    token at PRE_MASK of the text positions (-1 elsewhere), ``image_label``
+    1 at PRE_MASK of the regions, a 1601-way soft class target, object and
+    attribute labels with confidences."""
+    ids = r.randint(3, vocab, (B, T))
+    cls_ = r.rand(B, R, 1601).astype(np.float32)
+    cls_ /= cls_.sum(-1, keepdims=True)
+    return {"input_ids": ids.astype(np.int64),
+            "input_mask": np.ones((B, T), np.int64),
+            "features": r.randn(B, R, feat).astype(np.float32),
+            "locs": r.rand(B, R, num_locs).astype(np.float32),
+            "image_mask": np.ones((B, R), np.int64),
+            "lm_labels": np.where(r.rand(B, T) < PRE_MASK, ids, -1),
+            "is_match": r.randint(0, 2, (B,)),
+            "image_label": (r.rand(B, R) < PRE_MASK).astype(np.int64),
+            "image_cls": cls_,
+            "obj_labels": r.randint(0, 1600, (B, R)),
+            "obj_confs": r.rand(B, R).astype(np.float32),
+            "attr_labels": r.randint(0, 400, (B, R)),
+            "attr_confs": r.rand(B, R).astype(np.float32)}
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def phase_loss_zoo() -> None:
+    """Every LOSS_MAP entry, the other auxiliary losses at their switched-on
+    epochs, vqa_train_loss, the seven visual criterions (nce_2048 on one
+    draw of negatives), masked_lm_loss and itm_loss on CUDA tensors against
+    the same functions on the CPU, at the GQA head's [256, 1842] and the
+    pretraining batch's shapes; relative error within LOSS_RTOL."""
+    r = np.random.RandomState(13)
+    B, K = 256, 1842
+    logits = (r.randn(B, K) * 3).astype(np.float32)
+    teacher = (r.randn(B, K) * 2).astype(np.float32)
+    labels = r.randint(0, K, (B,))
+    onehot = np.eye(K, dtype=np.float32)[labels]
+    soft = r.rand(B, K).astype(np.float32)
+    cases = {
+        "LOSS_MAP.BCEWithLogitLoss": (aux_losses.LOSS_MAP["BCEWithLogitLoss"],
+                                      (logits, soft)),
+        "LOSS_MAP.CrossEntropyLoss": (aux_losses.LOSS_MAP["CrossEntropyLoss"],
+                                      (logits, labels)),
+        "LOSS_MAP.TripletLoss": (aux_losses.LOSS_MAP["TripletLoss"],
+                                 (logits[:, :5],)),
+        "pskd_cross_entropy": (aux_losses.pskd_cross_entropy,
+                               (logits, soft / soft.sum(-1, keepdims=True))),
+        "kd_regularization_loss": (aux_losses.kd_regularization_loss,
+                                   (logits, onehot, soft)),
+        "cosine_rep_loss": (aux_losses.cosine_rep_loss,
+                            (logits, onehot, teacher, 5)),
+        "kd_self_loss": (aux_losses.kd_self_loss, (logits, onehot, teacher, 1)),
+        "mse_teacher_loss": (aux_losses.mse_teacher_loss,
+                             (logits, onehot, teacher, 1)),
+        "cosine_teacher_loss": (aux_losses.cosine_teacher_loss,
+                                (logits, onehot, teacher, 1)),
+        "logit_norm_loss": (aux_losses.logit_norm_loss, (logits, labels)),
+        "vqa_train_loss": (vqa_train_loss, (logits, soft)),
+    }
+    Bp = PRE_B
+    pb = pretrain_batch(r, 250002, Bp, PRE_T, R, 2048, 7)
+    neg = nce_negative_indices(Bp, R, generator=torch.Generator().manual_seed(0))
+    kw = {k: pb[k] for k in ("image_cls", "obj_labels", "obj_confs",
+                             "attr_labels", "attr_confs")}
+    kw.update(image_feat=pb["features"], neg_idx=neg.numpy())
+    for ix, crit in PRE_VIS_CRITERIONS.items():
+        pred = r.randn(Bp, R, PRE_VIS_TARGETS[ix]).astype(np.float32)
+        cases[f"vis_{ix} ({crit.__name__})"] = (
+            lambda p, lab, _c=crit, **k: _c(p, lab, **k),
+            (pred, pb["image_label"]), kw)
+    cases["masked_lm_loss"] = (masked_lm_loss, (
+        r.randn(Bp, PRE_T, 250002).astype(np.float32), pb["lm_labels"]))
+    cases["itm_loss"] = (itm_loss, (r.randn(Bp, 2).astype(np.float32),
+                                    pb["is_match"]))
+    worst = 0.0
+    for name, (fn, args, *rest) in cases.items():
+        kwargs = rest[0] if rest else {}
+
+        def run(dev):
+            conv = (lambda a: torch.as_tensor(a).to(dev)
+                    if isinstance(a, np.ndarray) else a)
+            with torch.no_grad():
+                return fn(*map(conv, args),
+                          **{k: conv(v) for k, v in kwargs.items()}).item()
+
+        cpu, gpu = run("cpu"), run("cuda")
+        err = rel_err(gpu, cpu)
+        worst = max(worst, err)
+        check(math.isfinite(gpu) and err <= LOSS_RTOL,
+              f"loss {name}: cuda {gpu!r} vs cpu {cpu!r} (rel {err:.3g})")
+    print(f"loss zoo: {len(cases)} losses on CUDA tensors = the CPU's within "
+          f"{LOSS_RTOL:g} relative (worst {worst:.3g})")
+
+
+def pretrain_losses_on(model, heads, batch: dict, neg, seed=None,
+                       compute_dtype=None) -> dict:
+    return pretrain_loss(model, heads, batch,
+                         visual_target_weights=ALL_VIS_TARGETS, seed=seed,
+                         compute_dtype=compute_dtype, neg_idx=neg)
+
+
+def phase_pretrain(smi: str) -> dict:
+    """The pretraining objective at UC2's full width (12 x 768, vocab
+    250002, v_feature 2048) with all seven visual targets at weight 1:
+    PRE_STEPS AdamW steps (the port's optimizer chain, lr PRE_LR, clip 1.0)
+    over encoder and heads in bf16 with dropout, on one synthetic batch
+    (B PRE_B, T PRE_T, R 36, 15% masked); every loss finite, the
+    deterministic total lower after the steps; then fp32 losses of a
+    2-layer full-width copy on the card against the same weights on the
+    CPU, within PRE_RTOL relative."""
+    cfg = UC2Config()
+    model = UC2(cfg, device="cuda", seed=0)
+    heads = PretrainHeads(cfg, visual_target_weights=ALL_VIS_TARGETS,
+                          device="cuda", seed=1)
+    host = pretrain_batch(np.random.RandomState(14), cfg.vocab_size, PRE_B,
+                          PRE_T, R, cfg.v_feature_size, cfg.num_locs)
+    batch = to_device(host, "cuda")
+    neg = nce_negative_indices(PRE_B, R,
+                               generator=torch.Generator().manual_seed(0))
+    params = {**{f"encoder.{k}": p for k, p in model.named_parameters()
+                 if not k.startswith("classifier.")},
+              **{f"heads.{k}": p for k, p in heads.named_parameters()}}
+    opt = make_optimizer(list(params), warmup_constant_schedule(PRE_LR, 0))
+    opt_state = opt.init(params)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        before = pretrain_losses_on(model, heads, batch, neg.cuda(),
+                                    compute_dtype=bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, step_losses = [], []
+    for s in range(PRE_STEPS):
+        t0 = time.perf_counter()
+        losses = pretrain_losses_on(model, heads, batch, neg.cuda(), seed=s,
+                                    compute_dtype=bf16)
+        grads = torch.autograd.grad(losses["total"], list(params.values()))
+        updates, opt_state = opt.update(dict(zip(params, grads)), opt_state,
+                                        params)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.add_(updates[k])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append({k: v.item() for k, v in losses.items()})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        after = pretrain_losses_on(model, heads, batch, neg.cuda(),
+                                   compute_dtype=bf16)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"pretrain UC2 {cfg.num_layers}x{cfg.hidden_size} (vocab "
+          f"{cfg.vocab_size}) + heads (all 7 visual targets), "
+          f"{n_params / 1e6:.1f} M params: {PRE_STEPS} AdamW steps of B "
+          f"{PRE_B} x (T {PRE_T} + R {R}), bf16, dropout 0.1: ms a "
+          f"step {[round(x, 2) for x in ms]} (median of the last two "
+          f"{statistics.median(ms[1:]):.2f} ms), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB on {smi}; launches {counts}")
+    print(f"pretrain losses, step by step: "
+          f"{[{k: round(v, 4) for k, v in x.items()} for x in step_losses]}")
+    print(f"pretrain deterministic total {before['total'].item():.4f} -> "
+          f"{after['total'].item():.4f} ({ {k: round(v.item(), 4) for k, v in after.items()} })")
+    check(all(math.isfinite(v) for x in step_losses for v in x.values())
+          and all(bool(torch.isfinite(v)) for v in after.values()),
+          "a pretraining loss is not finite")
+    check(after["total"].item() < before["total"].item(),
+          "the pretraining total did not fall on the fixed batch")
+    check(counts == only(), f"pretrain launches {counts}, expected none "
+          f"(plain attention, features in the batch)")
+    del model, heads, params, opt_state, grads, updates, losses
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    cpu_model = UC2(cfg2, device="cpu", seed=0)
+    cpu_heads = PretrainHeads(cfg2, visual_target_weights=ALL_VIS_TARGETS,
+                              device="cpu", seed=1)
+    gpu_model = UC2(cfg2, device="cuda", seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_heads = PretrainHeads(cfg2, visual_target_weights=ALL_VIS_TARGETS,
+                              device="cuda", seed=1)
+    gpu_heads.load_state_dict(cpu_heads.state_dict())
+    with torch.no_grad():
+        want = pretrain_losses_on(cpu_model, cpu_heads, to_device(host, "cpu"),
+                                  neg)
+        got = pretrain_losses_on(gpu_model, gpu_heads, batch, neg.cuda())
+    errs = {k: rel_err(got[k].item(), want[k].item()) for k in want}
+    print(f"pretrain fp32 step-0 losses, 2-layer full-width copy, card vs "
+          f"CPU: relative errors { {k: f'{v:.2e}' for k, v in errs.items()} } "
+          f"(gate {PRE_RTOL:g})")
+    check(max(errs.values()) <= PRE_RTOL,
+          f"pretrain fp32 card vs CPU {errs}")
+    del cpu_model, gpu_model, cpu_heads, gpu_heads
+    torch.cuda.empty_cache()
+    return {"launches": counts, "ms_per_step": statistics.median(ms[1:]),
+            "peak_gib": peak / 2 ** 30}
+
+
+def zoo_parity(kind: str, raw: dict, ds) -> float:
+    """fp32 logits of a 2-sublayer copy of the family (ZOO_PARITY_KEEP) at
+    full width on the card against the same weights on the CPU, on
+    ZOO_PARITY_QA questions with their features; returns the worst
+    |got - want| - (atol + rtol |want|)."""
+    keep = ZOO_PARITY_KEEP["dual" if kind in ("vilbert", "lxmert") else "single"]
+    cfg = GatedConfig.from_dict({**cut_depth(raw, keep), "num_labels": 1842})
+    cpu = Gated(cfg, device="cpu", seed=0)
+    gpu = Gated(cfg, device="cuda", seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    host = ds.make_batch(list(range(ZOO_PARITY_QA)))
+    keys = ("input_ids", "input_mask", "features", "locs", "image_mask")
+    with torch.no_grad():
+        want = cpu({k: torch.from_numpy(host[k]) for k in keys})
+        got = gpu({k: torch.from_numpy(host[k]).cuda() for k in keys}).cpu()
+    over = ((got - want).abs() - (ZOO_ATOL + ZOO_RTOL * want.abs())).max().item()
+    print(f"zoo {kind}: fp32 logits of a {cfg.depth}-sublayer full-width copy, "
+          f"card vs CPU, max |diff| {(got - want).abs().max().item():.3g} "
+          f"(rtol {ZOO_RTOL:g}, atol {ZOO_ATOL:g})")
+    check(over <= 0, f"zoo {kind} fp32 card vs CPU exceeds the tolerance by {over:.3g}")
+    return over
+
+
+def zoo_train(kind: str, model, w, smi: str) -> dict:
+    """The GQA fine-tune step of a gated family at its full width: acc 2 x
+    ZOO_MBS, bf16, dropout 0.1, lambda 10, fused_attn "auto" (ignored by the
+    gated model), the device bank; one warm-up step, then ZOO_TRAIN_STEPS
+    timed. Returns the timed steps' launch counts and ms a step."""
+    n = len(w.label2ans)
+    ds = train_dataset(w, (1 + ZOO_TRAIN_STEPS) * 2 * ZOO_MBS)
+    pipe = TrainPipeline(ds, micro_batch_size=ZOO_MBS, grad_acc_steps=2,
+                         seed=0, device="cuda", with_features=False)
+    D = torch.from_numpy(np.random.RandomState(0).rand(n, n).astype(
+        np.float32)).cuda()
+    params = dict(model.named_parameters())
+    opt = make_optimizer(list(params), warmup_linear_schedule(4e-5, 2000, 20000))
+    state = TrainState(model, opt.init(params), 0)
+    step = make_train_step(opt, D, semantic_lambda=LAMBDA,
+                           compute_dtype=torch.bfloat16, fused_attn="auto")
+    bank = w.bank.tensors()
+    batches = pipe.epoch(0)
+    state, _ = step(state, next(batches), seed=0, bank=bank)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(ZOO_TRAIN_STEPS):
+        state, m = step(state, next(batches), seed=1 + i, bank=bank)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    batches.close()
+    losses = torch.stack([m["loss"] for m in metrics]).cpu()
+    ms = dt / ZOO_TRAIN_STEPS * 1e3
+    print(f"zoo {kind}: train step of 2 x {ZOO_MBS}: {ZOO_TRAIN_STEPS} steps in "
+          f"{dt:.3f} s -> {ms:.2f} ms a step, "
+          f"{ZOO_TRAIN_STEPS * 2 * ZOO_MBS / dt:.1f} QA/s (bf16, dropout 0.1, "
+          f"lambda {LAMBDA}, bank on), peak memory {peak / 2 ** 30:.2f} GiB on "
+          f"{smi}; losses {[round(x, 2) for x in losses.tolist()]}; launches "
+          f"{counts}")
+    check(bool(torch.isfinite(losses).all()), f"zoo {kind} train loss not finite")
+    check(counts == only(rows_gather=2 * ZOO_TRAIN_STEPS),
+          f"zoo {kind} train launches {counts}, expected 2 rows_gather a step "
+          f"and no attention kernel")
+    return {"launches": counts, "ms_per_step": ms}
+
+
+def phase_zoo(tmp: str, smi: str) -> dict:
+    """The five gated families at BERT-base widths (random weights from
+    seed 0): run_eval over ZOO_QA questions of a synthetic 400-image CFS
+    store in bf16 with the device bank (K2, one launch a batch; no
+    attention kernel: the gated wiring runs plain attention), QA/s and peak
+    memory; the GQA fine-tune step of each (zoo_train); the fp32
+    card-vs-CPU parity of a 2-sublayer copy of each; then
+    `python -m clg_vqa_tpu_torch.cli train` on the ViLBERT config for
+    CLI_STEPS steps of 2 x ZOO_MBS in process (bf16, dropout, train bank, a
+    val pass), with a finite loss and moved parameters. Returns each path's
+    launch counts, QA/s and ms a step."""
+    worlds = {}
+    for name, vocab, locs in (("single", 250002, 7), ("dual", 30522, 5)):
+        os.makedirs(os.path.join(tmp, name))
+        worlds[name] = eval_world(os.path.join(tmp, name), ZOO_QA,
+                                  vocab_size=vocab, num_locs=locs,
+                                  device="cuda")
+    launches, qa_per_s, ms_per_step = {}, {}, {}
+    for kind, wiring in ZOO.items():
+        raw = wiring(kind)
+        w = worlds["dual" if kind in ("vilbert", "lxmert") else "single"]
+        cfg = GatedConfig.from_dict({**raw, "num_labels": len(w.label2ans)})
+        model = Gated(cfg, device="cuda", seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        ev = timed_run_eval(
+            model, w, smi, {"rows_gather": math.ceil(ZOO_QA / EVAL_BS)},
+            f"zoo {kind} ({cfg.depth} sublayers, {n_params / 1e6:.1f} M params)")
+        qa_per_s[kind] = ev["qa_per_s"]
+        launches[f"zoo_{kind}"] = ev["launches"]
+        train = zoo_train(kind, model, w, smi)
+        launches[f"zoo_train_{kind}"] = train["launches"]
+        ms_per_step[kind] = train["ms_per_step"]
+        del model, train
+        torch.cuda.empty_cache()
+        zoo_parity(kind, raw, w.dataset)
+
+    root = os.path.join(tmp, "cli_vilbert")
+    w = worlds["dual"]
+    task = write_cli_task(root, w, batch_size=2 * ZOO_MBS)
+    cfg_path = os.path.join(root, "vilbert.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dual_wiring("vilbert"), f)
+    out = os.path.join(root, "run")
+    argv = ["train", "--config_file", cfg_path, "--tasks_config_file", task,
+            "--output_dir", out, "--grad_acc_steps", "2"]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                         (signal.SIGINT, signal.default_int_handler)):
+        signal.signal(sig, handler)
+    n_val_batches = math.ceil(ZOO_CLI_VAL / EVAL_BS)
+    print(f"cli train (ViLBERT): {CLI_STEPS} steps of 2 x {ZOO_MBS} + val over "
+          f"{ZOO_CLI_VAL} questions + saves in {dt:.2f} s on {smi}; launches "
+          f"{counts}")
+    check(counts == only(rows_gather=CLI_STEPS * 2 + n_val_batches),
+          f"zoo cli launches {counts}, expected {CLI_STEPS * 2} train and "
+          f"{n_val_batches} val rows_gather and nothing else")
+    recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    check(len(losses) == CLI_STEPS and all(map(math.isfinite, losses)),
+          f"zoo cli train records {losses}")
+    cfg = GatedConfig.from_dict({**dual_wiring("vilbert"),
+                                 "num_labels": len(w.label2ans)})
+    start = Gated(cfg, device="cuda", seed=0).state_dict()
+    saved = torch.load(os.path.join(out, "params_best", "params.pt"),
+                       map_location="cuda", weights_only=True)
+    moved = max((saved[k].float() - v).abs().max().item()
+                for k, v in start.items())
+    print(f"cli train (ViLBERT): losses {[round(x, 4) for x in losses]}; "
+          f"params_best moved by max |change| {moved:.3g}")
+    check(moved > 0, "the ViLBERT CLI run did not move the parameters")
+    launches["zoo_cli_vilbert"] = counts
+    del start, saved
+    torch.cuda.empty_cache()
+    return {"launches": launches, "qa_per_s": qa_per_s,
+            "ms_per_step": ms_per_step}
+
+
 def main_cards() -> int:
     """``chip_smoke.py --cards 4``: phase 12's gates in worlds whose ranks
     have cards of their own, over NCCL: dp 2 x mp 2 and dp 1 x mp 4 (B1 at
@@ -3376,6 +3846,12 @@ def main() -> int:
     phase_recipe_parity()
     m3p = phase_m3p(smi)
     t_phase = time.perf_counter()
+    phase_loss_zoo()
+    pretrain = phase_pretrain(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = phase_zoo(tmp, smi)
+    print(f"pretrain and gated-zoo phase {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     phase_parallel(smi)
     print(f"multi-GPU phase {time.perf_counter() - t_phase:.1f} s")
     # `launches`: the count of the kernel's own slice's main path (run_eval
@@ -3392,7 +3868,8 @@ def main() -> int:
                    **m3p["launches"], extract_c4=extract["extract_c4"],
                    extract_eval=extract["extract_eval"],
                    extract_x101=x101["extract_x101"],
-                   extract_x101_eval=x101["extract_x101_eval"])
+                   extract_x101_eval=x101["extract_x101_eval"],
+                   pretrain=pretrain["launches"], **zoo["launches"])
     for name in ("fwd", "bwd"):
         kern[f"flat_attention_train_{name}/{torch.bfloat16}"].update(
             long_s={k: v for k, v in long_s.items() if k.endswith(name)},

@@ -1,12 +1,15 @@
-"""Shared CLI construction (port of clg_vqa_tpu/cli/common.py, the UC2 and
-M3P paths): config ingest (JSON model config + YAML task config + flag
-overrides, the reference's three-tier scheme), and model, dataset and
-feature-bank assembly on the ``--device``. ``--is_m3p`` reads the config as
-M3P's (M3PConfig.from_json) and builds an M3P.
+"""Shared CLI construction (port of clg_vqa_tpu/cli/common.py): config
+ingest (JSON model config + YAML task config + flag overrides, the
+reference's three-tier scheme), and model, dataset and feature-bank
+assembly on the ``--device``. ``--is_m3p`` reads the config as M3P's
+(M3PConfig.from_json) and builds an M3P; a config whose
+``image_embeddings`` is one of the gated zoo's (ViLBERT, LXMERT, VL-BERT,
+VisualBERT, UNITER) builds the general gated encoder (models/gated.py);
+any other builds a UC2.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-slice: gated-zoo model configs (§A slice 8) and LMDB or QA-joined td-lmdb
-feature stores (slice 11); the port reads CFS stores.
+slice: LMDB or QA-joined td-lmdb feature stores (slice 11); the port reads
+CFS stores.
 """
 from __future__ import annotations
 
@@ -19,10 +22,7 @@ import numpy as np
 import torch
 
 from ..config import M3PConfig, OptimConfig, TaskConfig, UC2Config
-
-# image_embeddings values of the gated zoo's configs (clg_vqa_tpu/models/
-# gated.py: DUAL_EMBEDDINGS + SHARED_EMBEDDINGS)
-GATED_EMBEDDINGS = ("vilbert", "lxmert", "vl-bert", "visualbert", "uniter")
+from ..models.gated import DUAL_EMBEDDINGS, SHARED_EMBEDDINGS, GatedConfig
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -128,12 +128,15 @@ def build_configs(args):
     else:
         with open(args.config_file) as f:
             raw = json.load(f)
-        if raw.get("image_embeddings", "uc2") in GATED_EMBEDDINGS:
-            raise NotImplementedError(
-                f"image_embeddings={raw['image_embeddings']!r}: the gated "
-                f"model zoo is not ported yet (ROADMAP.md §A slice 8)")
-        cfg = UC2Config.from_json(args.config_file,
-                                  num_labels=task_cfg.num_labels)
+        if raw.get("image_embeddings", "uc2") in (
+                DUAL_EMBEDDINGS + SHARED_EMBEDDINGS):
+            # the general gated wiring (models/gated.py), as
+            # clg_vqa_tpu/cli/common.py:113-124 routes these configs
+            cfg = GatedConfig.from_dict(
+                {**raw, "num_labels": task_cfg.num_labels})
+        else:
+            cfg = UC2Config.from_json(args.config_file,
+                                      num_labels=task_cfg.num_labels)
 
     optim_cfg = OptimConfig(
         lr=task_cfg.lr,
@@ -151,14 +154,16 @@ def build_configs(args):
 
 
 def model_name(cfg) -> str:
-    """"m3p" for an M3P config, else "uc2" (the FinetuneRunner's and the
-    ``.bin`` export's name)."""
+    """"m3p" for an M3P config, "gated" for a gated-zoo one, else "uc2"
+    (the FinetuneRunner's and the ``.bin`` export's name)."""
+    if isinstance(cfg, GatedConfig):
+        return "gated"
     return "m3p" if isinstance(cfg, M3PConfig) else "uc2"
 
 
 def build_model(args, cfg):
-    """A UC2 or an M3P (by the config) on ``args.device``: random from
-    ``args.seed``, then the ``--from_pretrained`` weights when given (a
+    """A UC2, an M3P or a Gated (by the config) on ``args.device``: random
+    from ``args.seed``, then the ``--from_pretrained`` weights when given (a
     checkpoint without a classifier keeps the fresh one)."""
     from ..utils.convert import load_numpy_state, model_class
     model = model_class(cfg)(cfg, device=args.device, seed=args.seed)
@@ -175,12 +180,14 @@ def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
     ``.attention.self.`` keys and renumbered through the UC2 sublayer
     collapse like conversions/convert_uc2.py); for M3P it holds VOLTA names
     or is an original microsoft/M3P checkpoint (detected by its
-    ``module.attentions.`` keys), as clg_vqa_tpu/cli/common.py:158-182
-    reads them."""
+    ``module.attentions.`` keys); for a gated config it holds VOLTA
+    BertForVLTasks names (utils/convert_gated.py), as
+    clg_vqa_tpu/cli/common.py:158-182 reads them."""
     from ..utils.convert import (hf_xlmr_to_uc2_state_dict,
                                  m3p_original_to_state_dict,
                                  normalize_volta_keys, volta_m3p_to_state_dict,
                                  volta_uc2_to_state_dict)
+    from ..utils.convert_gated import volta_gated_to_state_dict
     if os.path.isdir(path):
         from ..train import checkpoints as ckpt
         sd = ckpt.load_params(os.path.dirname(path) or ".",
@@ -188,6 +195,8 @@ def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
         return {k: v.numpy() for k, v in sd.items()}
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v.float().numpy() for k, v in sd.items()}
+    if isinstance(cfg, GatedConfig):
+        return volta_gated_to_state_dict(normalize_volta_keys(sd), cfg)
     if isinstance(cfg, M3PConfig):
         if any(k.startswith("module.attentions.") for k in sd):
             return m3p_original_to_state_dict(sd, cfg)

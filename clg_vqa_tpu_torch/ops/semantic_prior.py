@@ -79,3 +79,11 @@ def gqa_train_loss(logits: torch.Tensor, labels: torch.Tensor,
     ce = -logp.gather(-1, labels.long()[:, None]).mean()
     sem = semantic_prior_loss(logits, labels, distance_matrix, top_k)
     return num_labels * (ce + semantic_lambda * sem)
+
+
+def vqa_train_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The plain VL-classifier (VQA soft-target) branch, task_utils.py:409-411:
+    ``BCEWithLogitsLoss(mean)(logits, target) * target.size(1)``
+    (clg_vqa_tpu/ops/semantic_prior.py:100-104)."""
+    from .aux_losses import bce_with_logits_loss
+    return bce_with_logits_loss(logits, target) * target.shape[-1]

@@ -230,9 +230,11 @@ class AsyncSaver:
         snap = self._snapshot(_state_dict(params))
         self._submit(lambda: save_params(ckpt_dir, name, snap, log=self.log))
 
-    def export_torch_bin(self, path: str, params, model: str = "uc2") -> None:
+    def export_torch_bin(self, path: str, params, model: str = "uc2", *,
+                         cfg=None) -> None:
         snap = self._snapshot(_state_dict(params))
-        self._submit(lambda: export_torch_bin(path, snap, model, log=self.log))
+        self._submit(lambda: export_torch_bin(path, snap, model, cfg=cfg,
+                                              log=self.log))
 
     def wait(self) -> None:
         """Join the save in flight; re-raise its failure if it had one."""
@@ -245,20 +247,23 @@ class AsyncSaver:
 
 
 def export_torch_bin(path: str, params, model: str = "uc2",
-                     task_key: str = "TASK15", *,
+                     task_key: str = "TASK15", *, cfg=None,
                      log: list | None = None) -> dict:
-    """A torch-loadable ``.bin`` with VOLTA parameter names (UC2's ``v_``
-    aliases included), so the JAX package (cli/common.load_pretrained) and the
-    reference tooling (eval_task.py) load the port's fine-tuned weights.
-    ``params``: a UC2 or M3P model or its state dict; ``model`` ("uc2" or
-    "m3p") names its format (clg_vqa_tpu/train/checkpoints.py:223-230)."""
+    """A torch-loadable ``.bin`` with VOLTA parameter names (the ``v_``
+    aliases of shared weights included), so the JAX package
+    (cli/common.load_pretrained) and the reference tooling (eval_task.py)
+    load the port's fine-tuned weights. ``params``: a UC2, M3P or Gated
+    model or its state dict; ``model`` ("uc2", "m3p" or "gated") names its
+    format (clg_vqa_tpu/train/checkpoints.py:223-230); ``cfg``, the model's
+    config, names a gated model's keys by its wiring."""
     from ..utils.convert import (state_dict_to_volta_m3p,
                                  state_dict_to_volta_uc2)
-    to_sd = {"uc2": state_dict_to_volta_uc2,
-             "m3p": state_dict_to_volta_m3p}.get(model)
+    from ..utils.convert_gated import state_dict_to_volta_gated
+    to_sd = {"uc2": state_dict_to_volta_uc2, "m3p": state_dict_to_volta_m3p,
+             "gated": state_dict_to_volta_gated}.get(model)
     if to_sd is None:
-        raise ValueError(f"model must be 'uc2' or 'm3p', got {model!r}")
+        raise ValueError(f"model must be 'uc2', 'm3p' or 'gated', got {model!r}")
     t0 = time.perf_counter()
-    sd = to_sd(params, task_key)
+    sd = to_sd(params, cfg, task_key)
     return _write({k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in sd.items()}, path, "bin", t0, log)

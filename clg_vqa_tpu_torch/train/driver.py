@@ -1,7 +1,9 @@
 """The fine-tuning driver (port of clg_vqa_tpu/train/driver.py): the three
 recipes of the reference (train_task.py:141-389, train_task_prunning.py:548-877,
-train_task_sft.py:331-612), for UC2 or M3P (``model_name``, which names the
-``.bin`` export's format), over the train step of train/loop.py:
+train_task_sft.py:331-612), for UC2, M3P or a gated-zoo model
+(``model_name``, which names the ``.bin`` export's format; the gated zoo
+runs finetune() only, as the IMP recipe's prunable weights are UC2's and
+M3P's), over the train step of train/loop.py:
   finetune()  -- the GQA fine-tune: per-epoch and mid-epoch validation with
                  best-params saves;
   imp_prune() -- per round: train under the mask -> global L1 prune of 10%
@@ -69,9 +71,9 @@ class FinetuneRunner:
                  train_bank=None, async_ckpt: bool = True,
                  save_every: int = 1, mid_save: str = "none",
                  fused_attn: str = "auto"):
-        if model_name not in ("uc2", "m3p"):
-            raise ValueError(f"model_name must be 'uc2' or 'm3p', got "
-                             f"{model_name!r}")
+        if model_name not in ("uc2", "m3p", "gated"):
+            raise ValueError(f"model_name must be 'uc2', 'm3p' or 'gated', "
+                             f"got {model_name!r}")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -346,10 +348,11 @@ class FinetuneRunner:
         """The model as a VOLTA ``.bin`` under the output directory."""
         path = os.path.join(self.out, name)
         if self._saver is not None:
-            self._saver.export_torch_bin(path, self.model, self.model_name)
+            self._saver.export_torch_bin(path, self.model, self.model_name,
+                                         cfg=self.cfg)
         else:
             ckpt.export_torch_bin(path, self.model, self.model_name,
-                                  log=self.save_log)
+                                  cfg=self.cfg, log=self.save_log)
 
     def flush_saves(self):
         if self._saver is not None:
@@ -476,6 +479,12 @@ class FinetuneRunner:
         return mask, start_round, start_step, mid_state, history, best, \
             best_epoch
 
+    def _check_prunable(self) -> None:
+        if self.model_name == "gated":
+            raise ValueError("the IMP / SFT recipes prune UC2's and M3P's "
+                             "encoder weights (train/pruning.py); a gated-zoo "
+                             "model has none of them")
+
     def imp_prune(self, *, fraction: float = 0.1,
                   resume: bool = False) -> dict:
         """IMP: ``task_cfg.num_epoch`` rounds. Each trains one epoch from
@@ -485,6 +494,7 @@ class FinetuneRunner:
         mask, which picks mask_best (the reference's order, :791-877).
         Writes mask_lt{r}.npz, mask_best.npz and prune_meta.json; returns
         {best_score, best_epoch, history}."""
+        self._check_prunable()
         self._fresh_theta0()
         opt = self._build_opt()
         mask = pr.init_mask(self.model, self.model_name)
@@ -526,6 +536,7 @@ class FinetuneRunner:
         gradients (the reference's CustomFromMask reparametrization); each
         best val score saves params_best and exports model_best_sft.bin.
         Returns the best val score."""
+        self._check_prunable()
         mask = pr.load_mask(mask_path, self.model, self.model_name)
         self._fresh_theta0()
         pr.apply_mask(self.model, mask)

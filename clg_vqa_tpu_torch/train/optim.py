@@ -178,13 +178,14 @@ def warmup_constant_schedule(base_lr: float,
 def no_decay_mask(names: Iterable[str]) -> dict[str, bool]:
     """name -> True where weight decay applies. The JAX package's rule
     (optim.py:109-129) on the port's names: no decay for biases and for
-    everything under a LayerNorm module (``ln``, ``ln*``, ``*_ln``), whose
-    JAX ``scale``/``bias`` leaves are the port's ``weight``/``bias``."""
+    everything under a LayerNorm module (``ln``, ``ln*``, ``*_ln``, and
+    ``*_ln_*`` for VL-BERT's visual_ln_text / visual_ln_object), whose JAX
+    ``scale``/``bias`` leaves are the port's ``weight``/``bias``."""
 
     def decays(name: str) -> bool:
         *mods, leaf = name.split(".")
         in_ln = any(m == "ln" or m.endswith("_ln") or m.startswith("ln")
-                    for m in mods)
+                    or "_ln_" in m for m in mods)
         return not (leaf == "bias" or in_ln)
 
     return {n: decays(n) for n in names}

@@ -1,6 +1,7 @@
-"""Checkpoint ingest and export for the port's UC2 and M3P (port of
-clg_vqa_tpu/utils/convert.py:26-322: the UC2 half with raw HF XLM-R ingest,
-and the M3P half with the original microsoft/M3P checkpoint's loader).
+"""Checkpoint ingest and export for the port's UC2, M3P and gated zoo (port
+of clg_vqa_tpu/utils/convert.py:26-322: the UC2 half with raw HF XLM-R
+ingest, and the M3P half with the original microsoft/M3P checkpoint's
+loader; the gated zoo's VOLTA names are in utils/convert_gated.py).
 
 Three weight formats meet here, all as plain numpy mappings:
 - VOLTA state dicts (the reference's torch names, Linear weights [out, in]);
@@ -9,12 +10,14 @@ Three weight formats meet here, all as plain numpy mappings:
   names; import reads the plain names and checks the aliases, export
   writes both.
 - The JAX package's params pytree (Linear weights [in, out], per-layer
-  leaves stacked on a leading [L] axis): :func:`from_jax_params`, and a
-  whole JAX ``TrainState`` with its AdamW moments and a gradient mask:
-  :func:`from_jax_train_state`.
+  leaves stacked on a leading [L] axis; the gated model's ``sublayers`` a
+  tuple): :func:`from_jax_params`, a whole JAX ``TrainState`` with its
+  AdamW moments and a gradient mask: :func:`from_jax_train_state`, and a
+  UC2 with its pretraining heads: :func:`from_jax_pretrain`.
 - The port's own ``state_dict`` names.
 The model-level entries (:func:`from_jax_params`, :func:`from_volta`,
-:func:`from_jax_train_state`) build a UC2 or an M3P by the config's type.
+:func:`from_jax_train_state`) build a UC2, an M3P or a Gated by the
+config's type.
 """
 from __future__ import annotations
 
@@ -24,10 +27,13 @@ import numpy as np
 import torch
 
 from ..config import M3PConfig, UC2Config
+from ..models.gated import Gated, GatedConfig
 from ..models.m3p import M3P
+from ..models.pretrain import PretrainHeads
 from ..models.uc2 import UC2
 from ..train.loop import TrainState
 from ..train.optim import AdamWState
+from .convert_gated import volta_gated_to_state_dict
 
 
 def normalize_volta_keys(sd: Mapping[str, np.ndarray], *, from_hf: bool = False,
@@ -122,11 +128,12 @@ def volta_uc2_to_state_dict(sd: Mapping[str, np.ndarray], cfg: UC2Config,
     return out
 
 
-def state_dict_to_volta_uc2(model, task_key: str = "TASK15"
+def state_dict_to_volta_uc2(model, cfg=None, task_key: str = "TASK15"
                             ) -> dict[str, np.ndarray]:
     """Export for the reference stack, ``v_`` aliases included
     (clg_vqa_tpu/utils/convert.py:pytree_to_volta_uc2). ``model``: a UC2 or
-    its state dict (tensors or arrays)."""
+    its state dict (tensors or arrays); ``cfg`` is not needed, and is taken
+    for the signature the three exports share."""
     if isinstance(model, torch.nn.Module):
         model = model.state_dict()
     own = {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy())
@@ -219,11 +226,12 @@ def volta_m3p_to_state_dict(sd: Mapping[str, np.ndarray], cfg: M3PConfig,
     return out
 
 
-def state_dict_to_volta_m3p(model, task_key: str = "TASK15"
+def state_dict_to_volta_m3p(model, cfg=None, task_key: str = "TASK15"
                             ) -> dict[str, np.ndarray]:
     """Export for the reference stack (port of
     clg_vqa_tpu/utils/convert.py:pytree_to_volta_m3p). ``model``: an M3P or
-    its state dict (tensors or arrays)."""
+    its state dict (tensors or arrays); ``cfg`` as for
+    :func:`state_dict_to_volta_uc2`."""
     if isinstance(model, torch.nn.Module):
         model = model.state_dict()
     own = {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy())
@@ -255,14 +263,17 @@ def m3p_original_to_state_dict(sd: Mapping[str, np.ndarray], cfg: M3PConfig,
 
 
 def model_class(cfg):
-    """The port model of a config: M3P for an M3PConfig, else UC2."""
+    """The port model of a config: M3P for an M3PConfig, Gated for a
+    GatedConfig, else UC2."""
+    if isinstance(cfg, GatedConfig):
+        return Gated
     return M3P if isinstance(cfg, M3PConfig) else UC2
 
 
 def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
-    """(port name, array) for one leaf of a JAX UC2 or M3P pytree: [in, out]
-    Linear weights become [out, in], a stacked [L, ...] encoder leaf one
-    entry per block."""
+    """(port name, array) for one leaf of a JAX UC2, M3P, gated or
+    pretraining-heads pytree: [in, out] Linear weights become [out, in], a
+    stacked [L, ...] encoder leaf one entry per block."""
     def name(p):
         *mods, leaf = p
         return ".".join([*mods, {"w": "weight", "b": "bias", "scale": "weight",
@@ -278,17 +289,24 @@ def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
 
 
 def _walk(tree, path=()):
+    """(path, leaf) of a pytree of mappings and tuples; a tuple entry (the
+    gated model's ``sublayers``) is named by its index."""
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             yield from _walk(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (str(i),))
     else:
         yield path, tree
 
 
 def jax_params_to_state_dict(params: Mapping) -> dict[str, np.ndarray]:
-    """The JAX package's UC2 or M3P params pytree (numpy leaves) -> the port's
-    state-dict names: [in, out] Linear weights become [out, in], the
-    stacked [L, ...] encoder leaves become one entry per block."""
+    """The JAX package's UC2, M3P or gated params pytree, or a pretraining
+    heads pytree (numpy leaves) -> the port's state-dict names: [in, out]
+    Linear weights become [out, in], the stacked [L, ...] encoder leaves
+    become one entry per block, the gated ``sublayers`` tuple
+    ``sublayers.{n}``."""
     return {n: a for path, leaf in _walk(params)
             for n, a in _port_leaves(path, np.asarray(leaf, np.float32))}
 
@@ -327,19 +345,40 @@ def load_numpy_state(model: torch.nn.Module, sd: Mapping[str, np.ndarray], *,
 
 
 def from_jax_params(params: Mapping, cfg, *, device=None) -> torch.nn.Module:
-    """A port UC2 or M3P (by the config's type) carrying the weights of a
-    JAX params pytree of that model."""
+    """A port UC2, M3P or Gated (by the config's type) carrying the weights
+    of a JAX params pytree of that model."""
     return load_numpy_state(model_class(cfg)(cfg, device=device),
                             jax_params_to_state_dict(params))
 
 
+def from_jax_pretrain(params: Mapping, heads: Mapping, cfg: UC2Config, *,
+                      device=None) -> tuple[UC2, PretrainHeads]:
+    """(UC2, PretrainHeads) carrying a JAX UC2 params pytree and its
+    init_pretrain_heads pytree (clg_vqa_tpu/models/pretrain.py:31). The
+    heads' ``lm`` / ``itm`` / ``img`` leaves map by name, one decoder per
+    key of ``img.decoders``, the ITM width from ``itm.w``. The tied MLM
+    decoder has no leaf of its own in either package: its weight is JAX's
+    ``params["embeddings"]["word"]``, which becomes the UC2's
+    ``embeddings.word``; only its bias, ``heads["lm"]["bias"]``, becomes the
+    heads' ``lm.bias``."""
+    model = from_jax_params(params, cfg, device=device)
+    targets = {ix: 1.0 for ix in heads["img"]["decoders"]}
+    module = PretrainHeads(cfg, itm_dim=int(np.shape(heads["itm"]["w"])[1]),
+                           visual_target_weights=targets, device=device)
+    return model, load_numpy_state(module, jax_params_to_state_dict(heads))
+
+
 def from_volta(sd: Mapping[str, np.ndarray], cfg, *, device=None,
                task_key: str = "TASK15") -> torch.nn.Module:
-    """A port UC2 or M3P (by the config's type) from a VOLTA state dict (run
-    :func:`normalize_volta_keys` first on raw checkpoints); a missing
-    classifier keeps its fresh init."""
-    to_sd = (volta_m3p_to_state_dict if isinstance(cfg, M3PConfig)
-             else volta_uc2_to_state_dict)
+    """A port UC2, M3P or Gated (by the config's type) from a VOLTA state
+    dict (run :func:`normalize_volta_keys` first on raw checkpoints); a
+    missing classifier keeps its fresh init."""
+    if isinstance(cfg, GatedConfig):
+        to_sd = volta_gated_to_state_dict
+    elif isinstance(cfg, M3PConfig):
+        to_sd = volta_m3p_to_state_dict
+    else:
+        to_sd = volta_uc2_to_state_dict
     return load_numpy_state(model_class(cfg)(cfg, device=device),
                             to_sd(sd, cfg, task_key),
                             allow_missing=("classifier.",))

@@ -234,30 +234,31 @@ def test_jax_export_evaluates_identically_in_both_clis(cli_world, capsys):
     assert len(got) == 12 and got == want
 
 
-@pytest.mark.parametrize("case", ["m3p", "gated", "lmdb", "proj"])
-def test_cli_unported_paths_raise(cli_world, case):
-    """The gated zoo and LMDB stores raise NotImplementedError naming the
-    ROADMAP; "--fused_attn proj" (B4) and "--is_m3p" (M3P) are ported and
-    train and save."""
+@pytest.mark.parametrize("case", ["m3p", "gated", "proj"])
+def test_cli_ported_configs_train_and_save(cli_world, case):
+    """"--is_m3p" (M3P), a gated-zoo config (ViLBERT embeddings on the UC2
+    wiring) and "--fused_attn proj" (B4) train and save."""
     tmp = cli_world
-    argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2"]
+    config = {"m3p": "m3p.json", "gated": "gated.json", "proj": "model.json"}
+    argv = ["train", *_common(tmp, f"bad_{case}", config[case]),
+            "--grad_acc_steps", "2"]
     if case == "m3p":
-        argv = ["train", *_common(tmp, "bad_m3p", "m3p.json"), "--is_m3p",
-                "--grad_acc_steps", "2"]
-    elif case == "gated":
-        argv = ["train", *_common(tmp, "bad_gated", "gated.json"),
-                "--grad_acc_steps", "2"]
-    elif case == "lmdb":
-        argv += ["--features_path", str(tmp / "feats_lmdb")]
-    if case in ("m3p", "proj"):
-        if case == "proj":
-            argv += ["--fused_attn", "proj"]
-        main(argv)
-        out = tmp / f"bad_{case}"
-        meta = json.load(open(out / "meta.json"))
-        assert (out / "params_best" / "params.pt").exists()
-        assert (out / meta["state_dir"] / "state.pt").exists()
-        return
+        argv.append("--is_m3p")
+    elif case == "proj":
+        argv += ["--fused_attn", "proj"]
+    main(argv)
+    out = tmp / f"bad_{case}"
+    meta = json.load(open(out / "meta.json"))
+    assert (out / "params_best" / "params.pt").exists()
+    assert (out / meta["state_dir"] / "state.pt").exists()
+
+
+@pytest.mark.parametrize("case", ["lmdb"])
+def test_cli_unported_paths_raise(cli_world, case):
+    """LMDB stores raise NotImplementedError naming the ROADMAP."""
+    tmp = cli_world
+    argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2",
+            "--features_path", str(tmp / "feats_lmdb")]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv)
 

@@ -1834,3 +1834,116 @@ def test_nccl_world_of_one_is_one_device_bit_for_bit(cuda, tmp_path):
         assert torch.equal(p1, p2)
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the gated zoo and the pretraining objective (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+def _gated_fixture(name: str):
+    import json
+    from clg_vqa_tpu_torch.models.gated import GatedConfig
+    g = np.load(Path(__file__).parent / "fixtures" / f"gated_golden_{name}.npz")
+    cfg = GatedConfig.from_dict({**json.loads(str(g["cfg_json"])),
+                                 "num_labels": g["logits"].shape[1]})
+    sd = {k[len("sd::"):]: g[k] for k in g.files if k.startswith("sd::")}
+    batch = {k: torch.from_numpy(np.asarray(g[k])) for k in
+             ("input_ids", "input_mask", "features", "locs", "image_mask")}
+    return g, cfg, sd, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lxmert", "uniter", "vilbert", "visualbert",
+                                  "vl-bert"])
+def test_gated_forward_on_cuda_matches_cpu(cuda, name):
+    """The five golden wirings on the card: fp32 logits equal the CPU's and
+    the reference's within the golden tolerance (rtol 2e-4, atol 5e-5); bf16
+    logits finite."""
+    from clg_vqa_tpu_torch.utils.convert import from_volta
+    g, cfg, sd, batch = _gated_fixture(name)
+    cpu, gpu = from_volta(sd, cfg, device="cpu"), from_volta(sd, cfg, device=cuda)
+    with torch.no_grad():
+        want = cpu(batch)
+        got = gpu({k: v.to(cuda) for k, v in batch.items()})
+        bf16 = gpu({k: v.to(cuda) for k, v in batch.items()},
+                   compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=5e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), g["logits"], rtol=2e-4,
+                               atol=5e-5)
+    assert bool(torch.isfinite(bf16).all())
+
+
+@pytest.mark.cuda
+def test_pretrain_loss_on_cuda_matches_cpu(cuda):
+    """UC2's pretraining objective with all seven visual targets, fp32,
+    nce_2048 on one draw of negatives: every loss on the card within 1e-4
+    relative of the CPU's; its gradients reach the tied word embedding."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.pretrain import PretrainHeads, pretrain_loss
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    from clg_vqa_tpu_torch.ops.pretrain_losses import nce_negative_indices
+    cfg = UC2Config(vocab_size=300, hidden_size=64, num_layers=2, num_heads=4,
+                    intermediate_size=128, num_labels=8)
+    targets = {ix: 1.0 for ix in "0123456"}
+    r = np.random.RandomState(0)
+    B, T, R = 4, 8, 6
+    ids = r.randint(3, 300, (B, T))
+    cls_ = r.rand(B, R, 1601).astype(np.float32)
+    batch = {"input_ids": ids, "input_mask": np.ones((B, T), np.int64),
+             "features": r.randn(B, R, 2048).astype(np.float32),
+             "locs": r.rand(B, R, 7).astype(np.float32),
+             "image_mask": np.ones((B, R), np.int64),
+             "lm_labels": np.where(r.rand(B, T) < 0.3, ids, -1),
+             "is_match": r.randint(0, 2, (B,)),
+             "image_label": (r.rand(B, R) < 0.5).astype(np.int64),
+             "image_cls": cls_ / cls_.sum(-1, keepdims=True),
+             "obj_labels": r.randint(0, 1600, (B, R)),
+             "obj_confs": r.rand(B, R).astype(np.float32),
+             "attr_labels": r.randint(0, 400, (B, R)),
+             "attr_confs": r.rand(B, R).astype(np.float32)}
+    neg = nce_negative_indices(B, R, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = UC2(cfg, device="cpu", seed=0).to(dev)
+        heads = PretrainHeads(cfg, visual_target_weights=targets, device="cpu",
+                              seed=1).to(dev)
+        losses = pretrain_loss(
+            model, heads, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+            visual_target_weights=targets, neg_idx=neg.to(dev))
+        losses["total"].backward()
+        out[str(dev)] = ({k: v.item() for k, v in losses.items()},
+                         model.embeddings.word.grad.cpu())
+    (want, gw), (got, gg) = out["cpu"], out[str(cuda)]
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    assert float(gg.abs().max()) > 0
+    np.testing.assert_allclose(gg.numpy(), gw.numpy(), rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gated_run_eval_launches_the_bank_gather_only(cuda, tmp_path):
+    """run_eval of a gated model with the device bank: one K2 launch a
+    batch, no attention kernel (the gated wiring runs plain attention
+    whatever fused_attn says), predictions equal to the host-feature run."""
+    from clg_vqa_tpu_torch.data.synthetic import eval_world
+    from clg_vqa_tpu_torch.eval.runner import run_eval
+    from clg_vqa_tpu_torch.models.gated import Gated
+    _, cfg, _, _ = _gated_fixture("vilbert")
+    import dataclasses
+    cfg = dataclasses.replace(cfg, v_feature_size=2048, num_labels=16)
+    w = eval_world(str(tmp_path), 96, num_labels=16, vocab_size=cfg.vocab_size,
+                   n_images=20, num_locs=cfg.num_locs, device=cuda)
+    model = Gated(cfg, device=cuda, seed=0)
+    before = (TG.rows_gather.launches, TA.fused_attention_flat.launches,
+              TA.fused_attention.launches)
+    res = run_eval(model, w.dataset, w.label2ans, batch_size=32,
+                   device_bank=w.bank, fused_attn="flat")
+    torch.cuda.synchronize()
+    after = (TG.rows_gather.launches, TA.fused_attention_flat.launches,
+             TA.fused_attention.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 0, 0]
+    host = run_eval(model, w.dataset, w.label2ans, batch_size=32)
+    assert res["n"] == host["n"] == 96
+    assert [x["prediction"] for x in res["results"]] == \
+        [x["prediction"] for x in host["results"]]

@@ -26,7 +26,9 @@ def test_sources_found():
     assert {"chip_smoke.py", "uc2.py", "attention.py", "bank_gather.py",
             "runner.py", "predictor.py", "loop.py", "optim.py", "pipeline.py",
             "semantic_prior.py", "profile_train.py", "mesh.py",
-            "distributed.py"} <= names
+            "distributed.py", "aux_losses.py", "pretrain_losses.py",
+            "mlp.py", "pretrain.py", "embeddings_zoo.py", "gated.py",
+            "convert_gated.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
