@@ -139,6 +139,27 @@ final line:
     2-sublayer copy against the CPU (rtol 2e-4, atol 5e-5), and
     `python -m clg_vqa_tpu_torch.cli train` on ViLBERT for 3 steps of
     2 x 32 in process (finite loss, moved parameters, K2 only).
+14. M3P generation at configs/m3p_base.json's widths (12 x 768, 12 heads,
+    vocab 250002, AoA refiner 3; fp32, TF32 off; random weights, the EOS
+    bias at -1e4 so every row decodes to max_len): the reference's golden
+    fixture (tests/fixtures/m3p_gen_golden.npz) through the port's
+    converters decoded on the card token for token (greedy and beam 3), its
+    crossfwd, refined image embedding, predict heads, MLM loss, VAE and
+    latent decoder within tests/test_m3p_gen_parity.py's tolerances; then
+    64 images of up to 100 regions from the M3P device bank through K2,
+    refined into src_enc, greedy-decoded (B 64) and beam-decoded (B 16,
+    K 3) for 32 tokens: ms a decode step, sequences/s, host waits a step,
+    peak memory; every token in [0, V); the greedy tokens fed back through
+    the uncached crossfwd agree with the cached decode's argmax except under
+    a stated top-2 margin; K2 the only kernel, one launch.
+15. the host formats over that M3P world: the store written as a per-image
+    LMDB by cfs_to_lmdb, `cli eval --is_m3p` over it and over the CFS store
+    (bf16, K1 12 and K2 1 each) with equal predictions, `cli convert-store`
+    LMDB -> CFS byte-identical to the source, the native CFS gather bit for
+    bit against the Python path (µs an image each), profiling.trace around
+    one eval batch naming K1's kernel, and the td-lmdb ingest (cfs_to_tdlmdb,
+    `cli train` over it for 2 steps) where msgpack imports (else one line
+    says it was not run).
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions and equal to B1 bit for bit (bf16:
@@ -199,7 +220,9 @@ from clg_vqa_tpu_torch.models.detector.extractor import (
 from clg_vqa_tpu_torch.models.detector.extractor_x101 import (
     ExtractorX101, X101Config, init_x101_params)
 from clg_vqa_tpu_torch.models.gated import Gated, GatedConfig
+from clg_vqa_tpu_torch.models import m3p_gen
 from clg_vqa_tpu_torch.models.m3p import M3P
+from clg_vqa_tpu_torch.models.m3p_gen import M3PGen
 from clg_vqa_tpu_torch.models.pretrain import PretrainHeads, pretrain_loss
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build, aux_losses
@@ -237,7 +260,10 @@ from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
 from clg_vqa_tpu_torch.train.optim import (make_optimizer,
                                            warmup_constant_schedule,
                                            warmup_linear_schedule)
-from clg_vqa_tpu_torch.utils.convert import load_numpy_state
+from clg_vqa_tpu_torch.utils import profiling
+from clg_vqa_tpu_torch.utils.convert import (load_numpy_state,
+                                             m3p_gen_components_to_state_dict,
+                                             volta_m3p_to_state_dict)
 
 EVAL_BS = 1024
 N_IMAGES, N_QA = 400, 8192
@@ -409,8 +435,8 @@ def phase_rows_gather(gen) -> dict:
     paths' calls: UC2 eval (bank [400, 36, 2048] fp32 x 1024 indices; the
     kernel line's numbers), the train step's (x 128), serving's (x 8), the
     gated zoo's train step (x ZOO_MBS) and its CLI validation batch
-    (x ZOO_CLI_VAL), and M3P eval's rows ([400, 100, 2048] x 1024); then
-    the eval call's plain version alone."""
+    (x ZOO_CLI_VAL), M3P eval's rows ([400, 100, 2048] x 1024) and M3P
+    generation's (x GEN_B); then the eval call's plain version alone."""
     N, C = N_IMAGES, 2048
     bank = torch.randn(N, R, C, device="cuda", generator=gen)
     calls, idxs = {}, {}
@@ -424,6 +450,9 @@ def phase_rows_gather(gen) -> dict:
     m3p = torch.randn(N, 100, C, device="cuda", generator=gen)
     idx = torch.randint(0, N, (EVAL_BS,), device="cuda", generator=gen, dtype=torch.int32)
     calls["m3p_eval"] = gather_case(m3p, idx, "m3p_eval")
+    # M3P generation's source images: GEN_B distinct rows
+    idx = torch.randperm(N, device="cuda", generator=gen)[:GEN_B].to(torch.int32)
+    calls["m3p_gen"] = gather_case(m3p, idx, "m3p_gen")
     del m3p
     torch.cuda.empty_cache()
     ev = calls["eval"]
@@ -3783,6 +3812,404 @@ def phase_zoo(tmp: str, smi: str) -> dict:
             "ms_per_step": ms_per_step}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: M3P generation; phase 15: the host formats
+# ---------------------------------------------------------------------------
+
+GEN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "fixtures", "m3p_gen_golden.npz")
+# tests/test_m3p_gen_parity.py's tolerances (the obj head's atol 3e-5)
+GEN_RTOL, GEN_ATOL, GEN_OBJ_ATOL = 2e-4, 2e-5, 3e-5
+# greedy over 64 images, beam 3 over the first 16, 32 tokens
+GEN_B, GEN_BEAM_B, GEN_K, GEN_MAX_LEN, GEN_IMAGES = 64, 16, 3, 32, 128
+# cached vs uncached greedy: a position whose top-2 logit margin is under
+# this (fp32 logits, TF32 off) may take the other token
+GEN_MARGIN = 1e-3
+# the host-format phase: the td-lmdb ingest trains this many steps
+TD_STEPS = 2
+
+
+def gen_golden():
+    """The reference's golden generation world (tests/fixtures/
+    m3p_gen_golden.npz) through the port's converters on the card:
+    (fixture, M3P, M3PGen)."""
+    g = np.load(GEN_FIXTURE)
+    sd = {k[len("sd::"):]: np.asarray(g[k]) for k in g.files if k.startswith("sd::")}
+    H = sd["embeddings.weight"].shape[1]
+    cfg = M3PConfig(vocab_size=sd["embeddings.weight"].shape[0], hidden_size=H,
+                    num_layers=int(g["n_layers"]), num_heads=4,
+                    intermediate_size=4 * H, num_locs=5, pooler_size=H,
+                    clf_hidden_size=2 * H)
+    model = load_numpy_state(
+        M3P(cfg, device="cuda"),
+        volta_m3p_to_state_dict({"bert.encoder." + k: v for k, v in sd.items()},
+                                cfg), allow_missing=("classifier.",))
+    rl = int(g["refine_layers"])
+    gen = load_numpy_state(M3PGen(cfg, refine_layers=rl, device="cuda"),
+                           m3p_gen_components_to_state_dict(sd, cfg,
+                                                            refine_layers=rl))
+    return g, model, gen
+
+
+def phase_gen_golden() -> None:
+    """Gate 1: the golden fixture decoded on the card token for token
+    (greedy and beam 3), and crossfwd, the refined image embedding, the five
+    predict heads, the MLM loss, vae_encode and latent_decode within
+    GEN_RTOL / GEN_ATOL of the reference's outputs."""
+    g, model, gen = gen_golden()
+
+    def t(name):
+        return torch.from_numpy(np.asarray(g[name])).cuda()
+
+    def close(got, key, atol=GEN_ATOL) -> float:
+        want = np.asarray(g[key])
+        got = got.detach().cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=GEN_RTOL, atol=atol),
+              f"golden {key} on the card: max abs err {err}")
+        return err
+
+    errs = {}
+    with torch.no_grad():
+        x, lengths, src, src_len = t("x"), t("lengths"), t("src_enc"), t("src_len")
+        errs["t_plain"] = close(m3p_gen.crossfwd(model, gen, x, lengths,
+                                                 causal=False), "t_plain")
+        errs["t_causal"] = close(m3p_gen.crossfwd(
+            model, gen, x, lengths, causal=True, src_enc=src, src_len=src_len),
+            "t_causal")
+        ref, _ = m3p_gen.image_embed_refined(model, gen, t("feats").transpose(0, 1),
+                                             t("locs").transpose(0, 1), t("img_len"))
+        errs["img_refined"] = close(ref, "img_refined")
+        tc = t("t_causal")
+        for head, key in (("relation", "rel"), ("clcm", "clcm"), ("mrfr", "mrfr"),
+                          ("obj", "obj_scores")):
+            errs[key] = close(m3p_gen.predict(model, gen, tc, head=head), key,
+                              GEN_OBJ_ATOL if head == "obj" else GEN_ATOL)
+        scores = m3p_gen.predict(model, gen, tc, head="mlm").transpose(0, 1)
+        pm = t("pred_mask")
+        errs["mlm_scores"] = close(scores[pm], "mlm_scores")
+        y = torch.zeros(pm.shape, dtype=torch.long, device="cuda")
+        y[pm] = t("mlm_y")
+        loss = m3p_gen.mlm_loss(scores, y, pm).item()
+        check(abs(loss - float(g["mlm_loss"])) <= 2e-5 * abs(float(g["mlm_loss"])),
+              f"golden MLM loss {loss} vs {float(g['mlm_loss'])}")
+        out, kld = m3p_gen.vae_encode(gen, t("vae_x"), t("vae_c"))
+        check(kld is None, "vae_encode's eval path returned a KLD")
+        errs["vae_out"] = close(out, "vae_out")
+        errs["ld_out"] = close(m3p_gen.latent_decode(gen, t("ld_in")), "ld_out")
+    out, gen_len = m3p_gen.generate_greedy(model, gen, src, src_len, max_len=12)
+    ref = np.asarray(g["gen"])
+    check(np.array_equal(out.cpu().numpy()[:ref.shape[0]], ref)
+          and np.array_equal(gen_len.cpu().numpy(), g["gen_len"]),
+          "golden greedy decode on the card is not token-exact")
+    dec, tgt_len = m3p_gen.generate_beam(model, gen, src, src_len, beam_size=3,
+                                         length_penalty=1.0, early_stopping=False,
+                                         max_len=12, lang_id=0)
+    ref = np.asarray(g["beam"])
+    check(np.array_equal(dec.cpu().numpy()[:ref.shape[0]], ref)
+          and np.array_equal(tgt_len.cpu().numpy(), g["beam_len"]),
+          "golden beam decode on the card is not token-exact")
+    print(f"M3P generation golden fixture on the card: greedy and beam 3 "
+          f"token-exact (lengths {gen_len.tolist()} / {tgt_len.tolist()}); max abs "
+          f"errs {({k: float(f'{v:.3g}') for k, v in errs.items()})} (rtol "
+          f"{GEN_RTOL}, atol {GEN_ATOL}, obj {GEN_OBJ_ATOL}); MLM loss {loss:.6f}")
+
+
+def trace_kernels(trace_dir: str) -> dict:
+    """{kernel name: device µs summed} of the Chrome trace that
+    profiling.trace wrote to ``trace_dir``."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    return out
+
+
+def timed_decode(fn, label: str, n_seqs: int, smi: str) -> dict:
+    """One warm-up decode, then the timed one (synchronised, host clock):
+    ms a decode step, sequences/s, the stop test's host waits a step and
+    the peak memory; then one more decode under profiling.trace for its
+    kernel time a step."""
+    fn({})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    out = fn(stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_step = dt * 1e3 / stats["steps"]
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.trace(trace_dir):
+            fn({})
+            torch.cuda.synchronize()
+        kernels = trace_kernels(trace_dir)
+    device_ms = sum(kernels.values()) / 1e3 / stats["steps"]
+    print(f"{label}: {stats['steps']} steps in {dt * 1e3:.1f} ms -> "
+          f"{ms_step:.3f} ms a decode step, {n_seqs / dt:.1f} sequences/s; "
+          f"kernel time {device_ms:.3f} ms a step (a traced run: the device "
+          f"busy {device_ms / ms_step:.1%} of the untraced step); "
+          f"{stats['host_waits'] / stats['steps']:.2f} host waits a step "
+          f"(the one-step-late stop test), peak memory {peak:.2f} GiB on {smi}")
+    return {"out": out, "ms_per_step": ms_step, "seqs_per_s": n_seqs / dt,
+            "device_ms_per_step": device_ms, "steps": stats["steps"],
+            "host_waits": stats["host_waits"], "peak_gib": peak}
+
+
+def phase_generation(smi: str, model, gen, w) -> dict:
+    """M3P generation at configs/m3p_base.json's widths (12 x 768, 12 heads,
+    V 250002, refiner 3; fp32, TF32 off; random weights, pred_bias[EOS] at
+    -1e4 so that every row decodes to max_len): GEN_B images of up to 100
+    regions from the M3P device bank through K2, refined by
+    image_embed_refined into src_enc; generate_greedy (B GEN_B) and
+    generate_beam (B GEN_BEAM_B, K GEN_K, length_penalty 1.0, no early
+    stopping, lang_id 0), GEN_MAX_LEN tokens, timed. Gates: every token in
+    [0, V); the greedy tokens fed back through the uncached
+    crossfwd(causal=True, src_enc) and pred_scores give token p + 1 as the
+    argmax at every p + 1 < min(gen_len, max_len - 1) (the last slot is the
+    EOS backstop) unless that position's top-2 margin is under GEN_MARGIN;
+    K2 the only kernel launched, once. Returns the launch counts and the
+    decoders' numbers."""
+    cfg = model.cfg
+    idx = torch.arange(GEN_B, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        f, l, m = DeviceFeatureBank.gather_from(w.bank.tensors(), idx)
+        src_len = m.sum(1)
+        src, _ = m3p_gen.image_embed_refined(model, gen, f, l, src_len)
+        greedy = timed_decode(lambda s: m3p_gen.generate_greedy(
+            model, gen, src, src_len, max_len=GEN_MAX_LEN, stats=s),
+            f"generate_greedy B={GEN_B} max_len={GEN_MAX_LEN}", GEN_B, smi)
+        beam = timed_decode(lambda s: m3p_gen.generate_beam(
+            model, gen, src[:GEN_BEAM_B], src_len[:GEN_BEAM_B], beam_size=GEN_K,
+            length_penalty=1.0, early_stopping=False, max_len=GEN_MAX_LEN,
+            lang_id=0, stats=s),
+            f"generate_beam B={GEN_BEAM_B} K={GEN_K} max_len={GEN_MAX_LEN}",
+            GEN_BEAM_B, smi)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"generation path launches {counts}")
+    check(counts == only(rows_gather=1),
+          f"generation launches {counts}, expected one K2 launch and nothing else")
+    tokens, gen_len = greedy["out"]
+    dec, tgt_len = beam["out"]
+    V = cfg.vocab_size
+    for name, tok in (("greedy", tokens), ("beam", dec)):
+        check(bool(((tok >= 0) & (tok < V)).all()), f"{name} token outside [0, {V})")
+    check(bool((src_len < 100).any()), "no image with fewer than 100 regions")
+
+    # gate 2: the cached decode against the uncached path
+    with torch.no_grad():
+        x = tokens.t().contiguous()                                # [B, max_len]
+        h = m3p_gen.crossfwd(model, gen, x, gen_len, causal=True,
+                             src_enc=src, src_len=src_len)
+        top = torch.topk(m3p_gen.pred_scores(model, gen, h[:, :-1]), 2, dim=-1)
+    pred = top.indices[..., 0]
+    margin = top.values[..., 0] - top.values[..., 1]
+    p1 = torch.arange(1, GEN_MAX_LEN, device="cuda")[None, :]
+    checked = p1 < torch.clamp(gen_len[:, None], max=GEN_MAX_LEN - 1)
+    differ = checked & (pred != x[:, 1:])
+    exempt = differ & (margin < GEN_MARGIN)
+    n_checked, n_differ, n_exempt = (int(t.sum()) for t in (checked, differ, exempt))
+    print(f"cached vs uncached greedy at full width: {n_checked} positions "
+          f"checked, {n_differ} argmax differences, {n_exempt} of them under the "
+          f"top-2 margin tolerance {GEN_MARGIN} (smallest margin checked "
+          f"{margin[checked].min().item():.3g})")
+    check(n_checked > 0 and n_differ == n_exempt,
+          f"the cached greedy decode disagrees with the uncached path at "
+          f"{n_differ - n_exempt} positions above the margin tolerance")
+    print(f"greedy lengths {sorted(set(gen_len.tolist()))}, beam tgt_len "
+          f"{sorted(set(tgt_len.tolist()))}; K2 launches {counts['rows_gather']}")
+    return {"launches": counts,
+            **{f"greedy_{k}": v for k, v in greedy.items() if k != "out"},
+            **{f"beam_{k}": v for k, v in beam.items() if k != "out"}}
+
+
+def cli_eval_m3p(task: str, out: str, features: str) -> tuple[list, dict]:
+    """``python -m clg_vqa_tpu_torch.cli eval --is_m3p --split val`` in
+    process over ``features``; returns (predictions, launch counts)."""
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "m3p_base.json")
+    argv = ["eval", "--config_file", config, "--tasks_config_file", task,
+            "--output_dir", out, "--is_m3p", "--split", "val",
+            "--features_path", features]
+    print("cli: python -m clg_vqa_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_counts()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with open(os.path.join(out, "val_result.json")) as f:
+        return json.load(f), counts
+
+
+def phase_host_formats(tmp: str, smi: str, model, w) -> dict:
+    """The host formats on the card's machine over the M3P world's CFS
+    store: the store written as a per-image LMDB by cfs_to_lmdb; `cli eval
+    --is_m3p` (bf16, K1 12 and K2 1) over the LMDB and over the CFS store
+    with equal predictions; `cli convert-store` LMDB -> CFS byte-identical
+    to the source; the native gather bit for bit against the Python path
+    over the whole store, µs an image each; profiling.trace around one
+    eval batch names K1's kernel; the td-lmdb ingest (cfs_to_tdlmdb, then
+    `cli train` over it for TD_STEPS steps, B1 and K2 counted as on the M3P
+    CLI path) where msgpack imports. Returns the µs and each path's launch
+    counts under ``launches`` (``lmdb_eval``, and ``td_train`` where it
+    ran)."""
+    from clg_vqa_tpu_torch.data.convert_store import cfs_to_lmdb
+    root = os.path.join(tmp, "host_formats")
+    task = write_cli_task(root, w, batch_size=ACC * MBS)
+    store = w.reader.path
+    lmdb_path = os.path.join(root, "feats_lmdb")
+    t0 = time.perf_counter()
+    n = cfs_to_lmdb(store, lmdb_path)
+    print(f"cfs_to_lmdb: {n} images -> {lmdb_path} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    on_lmdb, lmdb_counts = cli_eval_m3p(task, os.path.join(root, "ev_lmdb"),
+                                        lmdb_path)
+    on_cfs, cfs_counts = cli_eval_m3p(task, os.path.join(root, "ev_cfs"), store)
+    expected = only(flat_attention=12 * math.ceil(CLI_VAL / EVAL_BS),
+                    rows_gather=math.ceil(CLI_VAL / EVAL_BS))
+    print(f"cli eval over the LMDB store: {len(on_lmdb)} predictions, launches "
+          f"{lmdb_counts}; over the CFS store: launches {cfs_counts}")
+    check(lmdb_counts == expected and cfs_counts == expected,
+          f"cli eval launches {lmdb_counts} / {cfs_counts}, expected {expected}")
+    check(len(on_lmdb) == CLI_VAL and on_lmdb == on_cfs,
+          "cli eval over the LMDB store predicts otherwise than over the CFS store")
+
+    back = os.path.join(root, "back.cfs")
+    cli_main(["convert-store", lmdb_path, back])
+    with open(store, "rb") as a, open(back, "rb") as b:
+        check(a.read() == b.read(), "convert-store LMDB -> CFS is not the source's bytes")
+    print("cli convert-store LMDB -> CFS: byte-identical to the source store")
+
+    rd = CfsReader(store)
+    idx = np.arange(rd.n_records)
+    kw = dict(max_regions=w.regions, num_locs=w.num_locs,
+              norm_embeddings=w.norm_embeddings)
+    us = {}
+    for native in (True, False, True, False):
+        t0 = time.perf_counter()
+        got = rd.gather(idx, native=native, **kw)
+        us.setdefault(native, []).append((time.perf_counter() - t0) * 1e6 / len(idx))
+        if native:
+            nat = got
+    for a, b in zip(nat, got):
+        check(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+              "the native CFS gather is not the Python path bit for bit")
+    print(f"native CFS gather over {len(idx)} images (100 regions, 5 locs, "
+          f"L2-normalized): bit-equal to the Python path; "
+          f"{min(us[True]):.1f} µs an image native ({os.cpu_count()} host "
+          f"threads), {min(us[False]):.1f} µs an image Python (best of 2 each)")
+
+    batch = w.dataset.make_batch(list(range(EVAL_BS)), with_features=False)
+    step = make_predict_step(model, device_bank=w.bank,
+                             compute_dtype=torch.bfloat16, fused_attn="flat")
+    dev = {k: torch.from_numpy(batch[k]).cuda() for k in
+           ("input_ids", "input_mask", "store_idx")}
+    step(dev)
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(root, "trace")
+    with profiling.trace(trace_dir):
+        step(dev)
+        torch.cuda.synchronize()
+    kernels = trace_kernels(trace_dir)
+    k1 = [n for n in kernels if "attn_eval::" in n and "fwd_kernel<" in n]
+    check(bool(k1), f"the profiling trace of an eval batch names no K1 kernel "
+                    f"among {sorted(kernels)[:20]}")
+    print(f"profiling.trace around one eval batch: {len(kernels)} kernels named, "
+          f"K1 as {k1[0][:60]}... {kernels[k1[0]] / 1e3:.3f} ms of "
+          f"{sum(kernels.values()) / 1e3:.3f} ms of kernel time")
+
+    out = {"launches": {"lmdb_eval": lmdb_counts}, "native_us": min(us[True]),
+           "python_us": min(us[False])}
+    try:
+        import msgpack  # noqa: F401
+    except ImportError as e:
+        print(f"td-lmdb part not run: msgpack does not import on this machine "
+              f"({e}); tests/test_torch_host_formats.py and "
+              f"tests/test_torch_cli.py cover it on the CPU")
+        return out
+    from clg_vqa_tpu_torch.data.tdlmdb import cfs_to_tdlmdb
+    ann = os.path.join(root, "td_target.pkl")
+    with open(ann, "wb") as f:
+        pickle.dump([{"question_id": e.question_id, "image_id": e.image_id,
+                      "question": e.question, "labels": e.labels,
+                      "scores": e.scores} for e in w.entries[:TD_STEPS * ACC * MBS]], f)
+    td = os.path.join(root, "train.td")
+    n_td = cfs_to_tdlmdb(store, ann, td)
+    run = os.path.join(root, "td_run")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "m3p_base.json")
+    torch.cuda.synchronize()
+    reset_counts()
+    cli_main(["train", "--config_file", config, "--tasks_config_file", task,
+              "--output_dir", run, "--grad_acc_steps", str(ACC), "--is_m3p",
+              "--features_path", td])
+    torch.cuda.synchronize()
+    td_counts = read_counts()
+    for sig, handler in ((signal.SIGTERM, signal.SIG_DFL),
+                         (signal.SIGINT, signal.default_int_handler)):
+        signal.signal(sig, handler)
+    with open(os.path.join(run, "meta.json")) as f:
+        meta = json.load(f)
+    recs = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    check(meta["step"] == TD_STEPS and len(losses) == TD_STEPS
+          and all(map(math.isfinite, losses))
+          and any(x.startswith("ingest_train_") for x in os.listdir(run)),
+          f"cli train over the td-lmdb: meta {meta}, losses {losses}")
+    # as on the M3P CLI path: B1 on each block of each microbatch, K2 on
+    # each microbatch, and one val pass over the CFS store through K1 and K2
+    n_val = math.ceil(CLI_VAL / EVAL_BS)
+    expected = only(flat_attention_train_fwd=12 * ACC * TD_STEPS,
+                    flat_attention_train_bwd=12 * ACC * TD_STEPS,
+                    flat_attention=12 * n_val,
+                    rows_gather=ACC * TD_STEPS + n_val)
+    check(td_counts == expected,
+          f"cli train over the td-lmdb launched {td_counts}, expected {expected}")
+    out["launches"]["td_train"] = td_counts
+    print(f"td-lmdb: {n_td} QA records written by cfs_to_tdlmdb, ingested by "
+          f"cli train and trained {TD_STEPS} steps (losses "
+          f"{[round(x, 4) for x in losses]}); launches {td_counts}")
+    return out
+
+
+def phase_gen_and_host(smi: str) -> dict:
+    """Phases 14 and 15 over one M3P at configs/m3p_base.json's widths and
+    one M3P world of GEN_IMAGES images."""
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "m3p_base.json")
+    cfg = M3PConfig.from_json(config)
+    t_phase = time.perf_counter()
+    phase_gen_golden()
+    model = M3P(cfg, device="cuda", seed=0)
+    gen = M3PGen(cfg, refine_layers=3, device="cuda", seed=1)
+    with torch.no_grad():
+        gen.pred_bias[m3p_gen.EOS] = -1e4
+    print(f"M3P + gen {cfg.num_layers}x{cfg.hidden_size}, {cfg.num_heads} heads, "
+          f"vocab {cfg.vocab_size}, refiner 3: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} + "
+          f"{sum(p.numel() for p in gen.parameters()) / 1e6:.1f} M params")
+    with tempfile.TemporaryDirectory() as tmp:
+        w = m3p_world(tmp, CLI_STEPS * ACC * MBS + CLI_VAL, n_images=GEN_IMAGES,
+                      min_regions=M3P_MIN_REGIONS, num_labels=cfg.num_labels,
+                      vocab_size=cfg.vocab_size, device="cuda")
+        gen_out = phase_generation(smi, model, gen, w)
+        print(f"generation phase (14) {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        del gen
+        torch.cuda.empty_cache()
+        host = phase_host_formats(tmp, smi, model, w)
+        print(f"host-format phase (15) {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return {"generation": gen_out, "host": host}
+
+
 def main_cards() -> int:
     """``chip_smoke.py --cards 4``: phase 12's gates in worlds whose ranks
     have cards of their own, over NCCL: dp 2 x mp 2 and dp 1 x mp 4 (B1 at
@@ -3851,6 +4278,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         zoo = phase_zoo(tmp, smi)
     print(f"pretrain and gated-zoo phase {time.perf_counter() - t_phase:.1f} s")
+    gen_host = phase_gen_and_host(smi)
     t_phase = time.perf_counter()
     phase_parallel(smi)
     print(f"multi-GPU phase {time.perf_counter() - t_phase:.1f} s")
@@ -3869,7 +4297,9 @@ def main() -> int:
                    extract_eval=extract["extract_eval"],
                    extract_x101=x101["extract_x101"],
                    extract_x101_eval=x101["extract_x101_eval"],
-                   pretrain=pretrain["launches"], **zoo["launches"])
+                   pretrain=pretrain["launches"], **zoo["launches"],
+                   m3p_gen=gen_host["generation"]["launches"],
+                   **gen_host["host"]["launches"])
     for name in ("fwd", "bwd"):
         kern[f"flat_attention_train_{name}/{torch.bfloat16}"].update(
             long_s={k: v for k, v in long_s.items() if k.endswith(name)},

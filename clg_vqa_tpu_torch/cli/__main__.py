@@ -1,5 +1,5 @@
 """CLI: python -m clg_vqa_tpu_torch.cli
-{train,prune,sft,eval,score,convert,extract} ...
+{train,prune,sft,eval,score,convert,extract,convert-store} ...
 
 The port of clg_vqa_tpu/cli/__main__.py with its flags and printed lines,
 plus ``--device`` (default ``cuda``; ``cpu`` for the tests). It mirrors the
@@ -8,7 +8,10 @@ IMP rounds), train_task_sft.py (``sft``, from a ``--mask_file``),
 eval_task.py, scripts/GQA_score.py, conversions/ and features_extraction/
 (``extract``: ``--detector c4``, the R101-C4 36-box detector behind UC2's
 features, or ``--detector x101``, the X101-FPN 100-box detector behind
-M3P's). The convert-store command is not ported yet (slice 11b).
+M3P's) and the store converters (``convert-store``: h5, per-image LMDB,
+mmf npy directories, QA-joined td-lmdb and CFS). Feature stores are CFS
+files, per-image feature LMDBs, or QA-joined td-lmdbs, which ``train`` and
+``eval`` ingest once into a CFS store under the output directory.
 """
 from __future__ import annotations
 
@@ -47,13 +50,22 @@ def _train_like(args, mode: str):
     code_mixer = C.build_code_mixer(task_cfg, args.seed)
     feat_train = args.features_path or task_cfg.features_path_train
     feat_val = task_cfg.features_path_val or feat_train
+    # the reference's primary train artifact is a QA-joined tensorpack LMDB
+    # (format: serialized_lmdb); ingest it once into the native store
+    train_items = val_items = None
+    if C.is_tdlmdb(feat_train):
+        feat_train, train_items = C.ingest_tdlmdb(feat_train, args.output_dir,
+                                                  "train")
+    if C.is_tdlmdb(feat_val):
+        feat_val, val_items = C.ingest_tdlmdb(feat_val, args.output_dir, "val")
     train_ds = C.build_dataset(
         args, cfg, task_cfg, task_cfg.train_split, feat_train,
         annotations_jsonpath=args.train_annotations_jsonpath,
-        code_mixer=code_mixer)
+        code_mixer=code_mixer, entry_items=train_items)
     val_ds = C.build_dataset(
         args, cfg, task_cfg, task_cfg.val_split, feat_val,
-        annotations_jsonpath=args.val_annotations_jsonpath)
+        annotations_jsonpath=args.val_annotations_jsonpath,
+        entry_items=val_items)
     if (task_cfg.batch_size % optim_cfg.grad_acc_steps
             or task_cfg.batch_size < optim_cfg.grad_acc_steps):
         raise SystemExit(
@@ -100,14 +112,19 @@ def cmd_eval(args):
     cfg, task_cfg, _ = C.build_configs(args)
     model = C.build_model(args, cfg)
     feat = args.features_path or task_cfg.features_path_train
+    # eval over the QA-joined td-lmdb artifact ingests it as train does
+    items = None
+    if C.is_tdlmdb(feat):
+        feat, items = C.ingest_tdlmdb(feat, args.output_dir, args.split)
     ds = C.build_dataset(args, cfg, task_cfg, args.split, feat,
-                         annotations_jsonpath=args.annotations_jsonpath)
+                         annotations_jsonpath=args.annotations_jsonpath,
+                         entry_items=items)
     _, label2ans = load_answer_vocab(task_cfg.dataroot)
     bank = C.maybe_device_bank(ds, cfg, task_cfg, device=args.device)
     out = f"{args.output_dir}/{args.split}_result.json"
     res = run_eval(model, ds, label2ans, batch_size=task_cfg.eval_batch_size,
                    compute_dtype=None if args.fp32 else torch.bfloat16,
-                   out_path=out, device_bank=bank)
+                   out_path=out, split=args.split, device_bank=bank)
     acc = (f", accuracy {100*res['accuracy']:.2f}"
            if res["accuracy"] is not None else "")
     print(f"wrote {out}: {res['n']} predictions at "
@@ -219,6 +236,43 @@ def _load_image_bgr(path):
         return None
 
 
+def cmd_convert_store(args):
+    """Feature-store conversion by the source's and the destination's kind
+    (clg_vqa_tpu/cli/__main__.py:264-290): with ``--annotations``, an h5 or
+    CFS store and a target pkl -> a QA-joined td-lmdb; else h5 <-> CFS, an
+    mmf npy directory -> CFS, a td-lmdb -> CFS + an entries pkl
+    (``--entries_out``, default ``<dst>_target.pkl``), a per-image LMDB ->
+    CFS, and CFS -> a per-image LMDB."""
+    from ..data import convert_store as cs
+    from ..data import tdlmdb as td
+    src, dst = args.src, args.dst
+    if args.annotations:      # QA-joined td-lmdb production needs the targets
+        if src.endswith(".h5"):
+            n = td.h5_to_tdlmdb(src, args.annotations, dst)
+        else:
+            n = td.cfs_to_tdlmdb(src, args.annotations, dst)
+        print(f"converted {n} QA records: {src} + {args.annotations} -> {dst}")
+        return
+    if src.endswith(".h5") and dst.endswith(".cfs"):
+        n = cs.h5_to_cfs(src, dst)
+    elif src.endswith(".cfs") and dst.endswith(".h5"):
+        n = cs.cfs_to_h5(src, dst)
+    elif dst.endswith(".cfs") and os.path.isdir(src) and \
+            any(f.endswith(".npy") for f in os.listdir(src)):
+        n = cs.npy_to_cfs(src, dst)
+    elif dst.endswith(".cfs") and C.is_tdlmdb(src):
+        entries_pkl = args.entries_out or dst[:-4] + "_target.pkl"
+        n_img, n = td.tdlmdb_to_cfs(src, dst, entries_pkl)
+        print(f"converted {n} QA records / {n_img} images: {src} -> {dst} "
+              f"(+ {entries_pkl})")
+        return
+    elif dst.endswith(".cfs"):
+        n = cs.lmdb_to_cfs(src, dst)
+    else:
+        n = cs.cfs_to_lmdb(src, dst)
+    print(f"converted {n} records: {src} -> {dst}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="clg_vqa_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -270,6 +324,16 @@ def main(argv=None):
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_extract)
+
+    sp = sub.add_parser("convert-store")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.add_argument("--annotations", default="",
+                    help="target pkl; triggers QA-joined td-lmdb output "
+                         "(h5/cfs + targets -> tdlmdb)")
+    sp.add_argument("--entries_out", default="",
+                    help="entries pkl path for tdlmdb -> cfs ingest")
+    sp.set_defaults(fn=cmd_convert_store)
 
     args = p.parse_args(argv)
     return args.fn(args)

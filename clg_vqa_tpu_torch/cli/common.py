@@ -217,14 +217,61 @@ def build_tokenizer(args, cfg):
     return HFTokenizer(args.tokenizer)
 
 
-def open_feature_store(path: str):
-    """A CFS store; LMDB and td-lmdb stores are not ported yet."""
-    if not path.endswith(".cfs"):
-        raise NotImplementedError(
-            f"feature store {path!r}: only CFS stores (.cfs) are ported; "
-            f"LMDB and td-lmdb ingest are ROADMAP.md §A slice 11")
+def open_feature_store(path: str, feat_dim: int = 2048):
+    """A CFS store (``.cfs``), else a per-image feature LMDB
+    (data/features.LmdbFeatureReader) whose records hold ``feat_dim``-wide
+    features, as clg_vqa_tpu/cli/common.py:192-197 (which reads 2048 always).
+    A QA-joined td-lmdb is ingested into a CFS store first
+    (:func:`ingest_tdlmdb`)."""
     from ..data.cfs import CfsReader
-    return CfsReader(path)
+    from ..data.features import LmdbFeatureReader
+    if path.endswith(".cfs"):
+        return CfsReader(path)
+    return LmdbFeatureReader(path, feat_dim=feat_dim)
+
+
+def is_tdlmdb(path: str) -> bool:
+    """True when ``path`` is a tensorpack-serialized (QA-joined) LMDB — the
+    reference's `format: serialized_lmdb` train artifact — as opposed to a
+    per-image feature LMDB (which carries a b'keys' index)."""
+    from ..data.lmdb_lite import Reader
+    if path.endswith(".cfs") or not os.path.exists(path):
+        return False
+    try:
+        with Reader(path) as r:
+            return r.get(b"__keys__") is not None
+    except (ValueError, OSError):
+        return False
+
+
+def ingest_tdlmdb(td_path: str, cache_dir: str, tag: str):
+    """One-time stream of a td-lmdb into the native inputs: a CFS feature
+    store + target-pkl-style entries, cached under ``cache_dir`` by a
+    signature of the source (path, size, mtime), so an ingest of another
+    td-lmdb in the same directory is never reused
+    (clg_vqa_tpu/cli/common.py:214-240). Returns (cfs path, entries)."""
+    import hashlib
+    import pickle
+    from ..data.tdlmdb import tdlmdb_to_cfs
+    os.makedirs(cache_dir, exist_ok=True)
+    target = td_path
+    if os.path.isdir(td_path):
+        cand = os.path.join(td_path, "data.mdb")
+        if os.path.exists(cand):
+            target = cand
+    st = os.stat(target)
+    sig = hashlib.sha1(
+        f"{os.path.abspath(td_path)}:{st.st_size}:{int(st.st_mtime)}"
+        .encode()).hexdigest()[:10]
+    cfs_path = os.path.join(cache_dir, f"ingest_{tag}_{sig}.cfs")
+    entries_pkl = os.path.join(cache_dir, f"ingest_{tag}_{sig}_target.pkl")
+    if not (os.path.exists(cfs_path) and os.path.exists(entries_pkl)):
+        n_img, n_q = tdlmdb_to_cfs(td_path, cfs_path, entries_pkl)
+        print(f"ingested td-lmdb {td_path}: {n_q} QA pairs / "
+              f"{n_img} images -> {cfs_path}")
+    with open(entries_pkl, "rb") as f:
+        items = pickle.load(f)
+    return cfs_path, items
 
 
 def build_distance_matrix(task_cfg, num_labels: int):
@@ -249,10 +296,18 @@ def build_code_mixer(task_cfg, seed: int):
 
 
 def build_dataset(args, cfg, task_cfg, split: str, features_path: str,
-                  annotations_jsonpath: str = "", code_mixer=None):
-    from ..data.gqa import GQADataset, load_entries
-    entries = load_entries(task_cfg.dataroot, split, annotations_jsonpath)
-    store = open_feature_store(features_path)
+                  annotations_jsonpath: str = "", code_mixer=None,
+                  entry_items: list | None = None):
+    """The GQA dataset of ``split`` over the store at ``features_path``;
+    ``entry_items`` (a td-lmdb ingest's own QA pairs) replace the split's
+    annotations."""
+    from ..data.gqa import GQADataset, _entries_from_target_items, load_entries
+    if entry_items is not None:
+        entries = _entries_from_target_items(
+            sorted(entry_items, key=lambda x: x["question_id"]))
+    else:
+        entries = load_entries(task_cfg.dataroot, split, annotations_jsonpath)
+    store = open_feature_store(features_path, cfg.v_feature_size)
     tok = build_tokenizer(args, cfg)
     return GQADataset(
         entries, store, tok, max_seq_length=task_cfg.max_seq_length,

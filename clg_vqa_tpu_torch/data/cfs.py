@@ -14,13 +14,16 @@ Layout (v2):
   index:   u64 offsets[n_records]  (each points at a record's id_len)
   (v1 records lack the flags byte; the reader handles both.)
 
-Batch assembly here is the Python path (the JAX package's ``_gather_py``);
-the native C++ host gather is not ported yet (ROADMAP.md).
+Batch assembly (``CfsReader.gather``) runs the native C++ gather
+(native/cfs_gather.cpp through ctypes, threads over the batch, the GIL
+released) by default, bit-equal to the Python path (``native=False``,
+data/features.gather_records) on every option.
 """
 from __future__ import annotations
 
 import mmap
 import struct
+import threading
 
 import numpy as np
 
@@ -94,6 +97,8 @@ class CfsReader:
         self.offsets = np.frombuffer(self._mm, "<u8", count=n,
                                      offset=index_offset)
         self._id2idx: dict[str, int] | None = None
+        self._native = None            # the native gather's own mmap handle
+        self._native_lock = threading.Lock()
 
     def _parse_header(self, off: int):
         (id_len,) = struct.unpack_from("<I", self._mm, off)
@@ -144,16 +149,36 @@ class CfsReader:
         return self.get_by_index(self.id2idx[str(image_id)])
 
     def close(self):
+        if self._native is not None:
+            from ..native import cfs_native
+            cfs_native.close_handle(self._native)
+            self._native = None
         self._mm.close()
         self._file.close()
 
     def gather(self, indices, *, max_regions: int, num_locs: int = 5,
                norm_embeddings: bool = False,
-               add_global_imgfeat: str | None = None):
+               add_global_imgfeat: str | None = None, native: bool = True):
         """Assemble a fixed-shape batch: returns
         (features [B, R', D], locs [B, R', num_locs], mask [B, R'])
-        where R' = max_regions (+1 with a global feature)."""
-        return gather_records(self.get_by_index, np.asarray(indices, np.int64),
-                              max_regions=max_regions, num_locs=num_locs,
-                              norm_embeddings=norm_embeddings,
-                              add_global_imgfeat=add_global_imgfeat)
+        where R' = max_regions (+1 with a global feature).
+
+        native=True (the default, as clg_vqa_tpu/data/cfs.py:162-185) runs
+        the C++ gather, built on first use; a failed build raises rather
+        than falling back. native=False is the Python path. Both give the
+        same bits."""
+        indices = np.asarray(indices, np.int64)
+        if not native:
+            return gather_records(self.get_by_index, indices,
+                                  max_regions=max_regions, num_locs=num_locs,
+                                  norm_embeddings=norm_embeddings,
+                                  add_global_imgfeat=add_global_imgfeat)
+        from ..native import cfs_native
+        if self._native is None:
+            with self._native_lock:     # prefetch threads race the first open
+                if self._native is None:
+                    self._native = cfs_native.open_handle(self.path)
+        return cfs_native.gather(self._native, self, indices,
+                                 max_regions=max_regions, num_locs=num_locs,
+                                 norm_embeddings=norm_embeddings,
+                                 add_global_imgfeat=add_global_imgfeat)

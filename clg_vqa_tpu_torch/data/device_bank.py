@@ -1,4 +1,4 @@
-"""Device-resident feature bank (port of clg_vqa_tpu/data/device_bank.py:19-64).
+"""Device-resident feature bank (port of clg_vqa_tpu/data/device_bank.py:19-72).
 
 The processed region store is uploaded to the device once; each batch then
 carries only token ids and int32 store indices, and its [B, R, D] features
@@ -37,6 +37,20 @@ class DeviceFeatureBank:
     def tensors(self):
         """(features, locs, image_mask)."""
         return (self.features, self.locs, self.image_mask)
+
+    def lookup(self, store_idx):
+        """(features, locs, image_mask) of the rows ``store_idx`` [B] (a
+        tensor or an array of store indices) on the bank's device."""
+        idx = torch.as_tensor(store_idx).to(self.features.device, torch.int32)
+        return self.gather_from(self.tensors(), idx)
+
+    def fill_batch(self, batch: dict) -> dict:
+        """A copy of ``batch`` with its 'store_idx' field replaced by the
+        gathered features, locs and image_mask."""
+        f, l, m = self.lookup(batch["store_idx"])
+        out = {k: v for k, v in batch.items() if k != "store_idx"}
+        out.update({"features": f, "locs": l, "image_mask": m})
+        return out
 
     @staticmethod
     def gather_from(tensors, store_idx: torch.Tensor):

@@ -95,7 +95,8 @@ def _to_host_async(t: torch.Tensor):
 
 def run_eval(model, dataset, label2ans: list, *,
              batch_size: int = 256, compute_dtype=torch.bfloat16,
-             out_path: str | None = None, device_bank=None, depth: int = 2,
+             out_path: str | None = None, split: str = "test",
+             log_every: int = 0, device_bank=None, depth: int = 2,
              step: Callable | None = None, fused_attn=None) -> dict:
     """Returns {"results": [...], "n": int, "qa_per_sec": float,
     "accuracy": float | None (if the dataset has labels), "out_path"}.
@@ -103,7 +104,10 @@ def run_eval(model, dataset, label2ans: list, *,
     Runs on the model's device. device_bank: optional
     data.device_bank.DeviceFeatureBank — batches then carry store indices
     and the features are gathered on the device. step: optional prebuilt
-    :func:`make_predict_step` result. fused_attn: None = auto, the JAX
+    :func:`make_predict_step` result. split: the split's name, taken for
+    the JAX signature (the output path carries it). log_every: print
+    "  eval n/N" whenever the count of scored questions passes a multiple
+    of it (0: never). fused_attn: None = auto, the JAX
     package's rule — the flat kernel for bf16 at batch >= 512 on the card,
     the plain path otherwise (incl. fp32 parity mode).
 
@@ -136,6 +140,8 @@ def run_eval(model, dataset, label2ans: list, *,
         results.extend(
             {"questionId": str(q), "prediction": label2ans[int(p)]}
             for q, p in zip(host_qids[keep], preds[keep]))
+        if log_every and n_total % log_every < batch_size:
+            print(f"  eval {n_total}/{len(dataset)}")
 
     t0 = time.time()
     inflight: deque = deque()

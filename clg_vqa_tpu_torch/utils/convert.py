@@ -12,8 +12,9 @@ Three weight formats meet here, all as plain numpy mappings:
 - The JAX package's params pytree (Linear weights [in, out], per-layer
   leaves stacked on a leading [L] axis; the gated model's ``sublayers`` a
   tuple): :func:`from_jax_params`, a whole JAX ``TrainState`` with its
-  AdamW moments and a gradient mask: :func:`from_jax_train_state`, and a
-  UC2 with its pretraining heads: :func:`from_jax_pretrain`.
+  AdamW moments and a gradient mask: :func:`from_jax_train_state`, a
+  UC2 with its pretraining heads: :func:`from_jax_pretrain`, and an M3P
+  with its generation parameters: :func:`from_jax_gen_params`.
 - The port's own ``state_dict`` names.
 The model-level entries (:func:`from_jax_params`, :func:`from_volta`,
 :func:`from_jax_train_state`) build a UC2, an M3P or a Gated by the
@@ -29,6 +30,7 @@ import torch
 from ..config import M3PConfig, UC2Config
 from ..models.gated import Gated, GatedConfig
 from ..models.m3p import M3P
+from ..models.m3p_gen import M3PGen
 from ..models.pretrain import PretrainHeads
 from ..models.uc2 import UC2
 from ..train.loop import TrainState
@@ -270,10 +272,16 @@ def model_class(cfg):
     return M3P if isinstance(cfg, M3PConfig) else UC2
 
 
+# the stacked [L, ...] subtrees: the encoder's, and under an M3P's ``gen``
+# the cross-attention and its LayerNorm
+_STACKED = ("encoder", "encoder_attn", "ln15")
+
+
 def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
-    """(port name, array) for one leaf of a JAX UC2, M3P, gated or
-    pretraining-heads pytree: [in, out] Linear weights become [out, in], a
-    stacked [L, ...] encoder leaf one entry per block."""
+    """(port name, array) for one leaf of a JAX UC2, M3P, gated,
+    pretraining-heads or M3P ``gen`` pytree: [in, out] Linear weights
+    become [out, in], a stacked [L, ...] leaf (:data:`_STACKED`) one entry
+    per block."""
     def name(p):
         *mods, leaf = p
         return ".".join([*mods, {"w": "weight", "b": "bias", "scale": "weight",
@@ -282,8 +290,8 @@ def _port_leaves(path: tuple[str, ...], arr: np.ndarray):
     def fix(a):
         return np.ascontiguousarray(a.T if path[-1] == "w" else a)
 
-    if path[0] == "encoder":
-        return [(name(("encoder", str(b)) + path[1:]), fix(arr[b]))
+    if path[0] in _STACKED:
+        return [(name((path[0], str(b)) + path[1:]), fix(arr[b]))
                 for b in range(arr.shape[0])]
     return [(name(path), fix(arr))]
 
@@ -349,6 +357,74 @@ def from_jax_params(params: Mapping, cfg, *, device=None) -> torch.nn.Module:
     of a JAX params pytree of that model."""
     return load_numpy_state(model_class(cfg)(cfg, device=device),
                             jax_params_to_state_dict(params))
+
+
+def from_jax_gen_params(params: Mapping, cfg: M3PConfig, *,
+                        device=None) -> tuple[M3P, M3PGen]:
+    """(M3P, M3PGen) carrying a JAX M3P params pytree that holds
+    ``params["gen"]`` (clg_vqa_tpu/models/m3p_gen.py:init_gen_params): the
+    model takes the rest, the gen module the ``gen`` subtree, its refiner
+    as deep as the tuple ``gen.refiner.layers``."""
+    params = dict(params)
+    gen = params.pop("gen")
+    model = from_jax_params(params, cfg, device=device)
+    module = M3PGen(cfg, refine_layers=len(gen["refiner"]["layers"]),
+                    device=device)
+    return model, load_numpy_state(module, jax_params_to_state_dict(gen))
+
+
+def m3p_gen_components_to_state_dict(sd: Mapping[str, np.ndarray], cfg, *,
+                                     refine_layers: int = 3
+                                     ) -> dict[str, np.ndarray]:
+    """The M3P generation components under their transformer-level names
+    (the original checkpoints' ``module.*`` inventory,
+    M3PTransformerModel.state_dict()) -> :class:`M3PGen`'s state-dict names
+    (port of clg_vqa_tpu/utils/convert.py:m3p_gen_components_to_pytree,
+    :325-407): per-layer encoder_attn and layer_norm15, the PredLayer bias
+    (its weight IS embeddings.weight, so only the bias is read), the AoA
+    refiner (no output_layer key: it is deleted under do_aoa), the
+    understanding heads and the first VaeEncoder / LatentDecoder pair
+    (latent_transforms.0 / original_transforms.0). Weights stay [out, in],
+    as the port stores them."""
+    out: dict[str, np.ndarray] = {}
+
+    def put(port, name, suffixes=("weight", "bias")):
+        for s in suffixes:
+            out[f"{port}.{s}"] = np.asarray(sd[f"{name}.{s}"], np.float32)
+
+    for i in range(cfg.num_layers):
+        for port, name in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"),
+                           ("o", "out_lin")):
+            put(f"encoder_attn.{i}.{port}", f"encoder_attn.{i}.{name}")
+        put(f"ln15.{i}", f"layer_norm15.{i}")
+    out["pred_bias"] = np.asarray(sd["pred_layer.proj.bias"], np.float32)
+    out["cross_lang"] = np.asarray(sd["cross_lang_embeddings.weight"],
+                                   np.float32)
+    for j in range(refine_layers):
+        src, dst = f"refine_embeddings.layers.{j}", f"refiner.layers.{j}"
+        for n, port in enumerate("qkv"):
+            put(f"{dst}.attn.{port}", f"{src}.self_attn.linears.{n}")
+        put(f"{dst}.aoa", f"{src}.self_attn.aoa_layer.0")
+        put(f"{dst}.ln_a", f"{src}.sublayer.0.norm")
+        put(f"{dst}.ln_b", f"{src}.sublayer.1.norm")
+        put(f"{dst}.ffn.w1", f"{src}.feed_forward.lin1")
+        put(f"{dst}.ffn.w2", f"{src}.feed_forward.lin2")
+    put("refiner.norm", "refine_embeddings.norm")
+    for port, name in (("seq_relationship", "seq_relationship"),
+                       ("pooler2", "pooled_layer2.dense"),
+                       ("seq_relationship2", "seq_relationship2"),
+                       ("mrfr", "mrfr_dense"),
+                       ("obj_transform.dense", "transformer_obj.dense"),
+                       ("obj_transform.ln", "transformer_obj.LayerNorm"),
+                       ("obj_proj", "pred_obj_layer.proj"),
+                       ("vae.x_to_mu", "latent_transforms.0.x_to_mu"),
+                       ("vae.x_to_logvar", "latent_transforms.0.x_to_logvar"),
+                       ("vae.out_dense", "latent_transforms.0.out_dense"),
+                       ("latent_decoder.dense", "original_transforms.0.dense"),
+                       ("latent_decoder.dense_mu", "original_transforms.0.dense_mu"),
+                       ("latent_decoder.ln", "original_transforms.0.LayerNorm")):
+        put(port, name)
+    return out
 
 
 def from_jax_pretrain(params: Mapping, heads: Mapping, cfg: UC2Config, *,

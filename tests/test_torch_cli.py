@@ -253,14 +253,102 @@ def test_cli_ported_configs_train_and_save(cli_world, case):
     assert (out / meta["state_dir"] / "state.pt").exists()
 
 
-@pytest.mark.parametrize("case", ["lmdb"])
-def test_cli_unported_paths_raise(cli_world, case):
-    """LMDB stores raise NotImplementedError naming the ROADMAP."""
+def test_cli_trains_over_a_feature_lmdb(cli_world):
+    """A per-image feature LMDB (written from the CFS store by
+    convert-store) trains and saves."""
     tmp = cli_world
-    argv = ["train", *_common(tmp, f"bad_{case}"), "--grad_acc_steps", "2",
-            "--features_path", str(tmp / "feats_lmdb")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv)
+    lmdb_path = str(tmp / "feats_lmdb")
+    main(["convert-store", str(tmp / "f.cfs"), lmdb_path])
+    argv = ["train", *_common(tmp, "lmdb_train"), "--grad_acc_steps", "2",
+            "--features_path", lmdb_path]
+    main(argv)
+    out = tmp / "lmdb_train"
+    meta = json.load(open(out / "meta.json"))
+    assert meta["step"] == 3
+    assert (out / "params_best" / "params.pt").exists()
+    assert (out / meta["state_dir"] / "state.pt").exists()
+
+
+def _file_bytes(path) -> bytes:
+    path = os.path.join(path, "data.mdb") if os.path.isdir(path) else path
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_cli_convert_store_lmdb_and_cfs_round_trip(cli_world):
+    """cfs -> lmdb -> cfs through convert-store gives back the CFS bytes,
+    and each file equals the JAX CLI's (the command reads 2048-wide LMDB
+    features, as the reference's stores hold)."""
+    tmp = cli_world
+    src = str(tmp / "f2048.cfs")
+    r = np.random.RandomState(1)
+    with CfsWriter(src) as w:
+        for i in range(3):
+            n = 2 + i
+            w.add(RegionRecord(f"i{i}", r.randn(n, 2048).astype(np.float32),
+                               (r.rand(n, 4) * 90).astype(np.float32), 100.0, 90.0))
+    for cli, tag in ((main, "t"), (jax_main, "j")):
+        cli(["convert-store", src, str(tmp / f"rt_{tag}_lmdb")])
+        cli(["convert-store", str(tmp / f"rt_{tag}_lmdb"), str(tmp / f"rt_{tag}.cfs")])
+    assert _file_bytes(tmp / "rt_t_lmdb") == _file_bytes(tmp / "rt_j_lmdb")
+    assert _file_bytes(tmp / "rt_t.cfs") == _file_bytes(src) == \
+        _file_bytes(tmp / "rt_j.cfs")
+
+
+def test_cli_convert_store_tdlmdb_annotations_and_entries_out(cli_world):
+    """--annotations joins a CFS store with a target pkl into a QA td-lmdb;
+    td-lmdb -> cfs writes the store and the entries pkl (--entries_out, or
+    <dst>_target.pkl); every output equals the JAX CLI's."""
+    tmp = cli_world
+    ann = str(tmp / "annotations" / "train_target.pkl")
+    for cli, tag in ((main, "t"), (jax_main, "j")):
+        cli(["convert-store", str(tmp / "f.cfs"), str(tmp / f"qa_{tag}.td"),
+             "--annotations", ann])
+        cli(["convert-store", str(tmp / f"qa_{tag}.td"), str(tmp / f"qa_{tag}.cfs"),
+             "--entries_out", str(tmp / f"qa_{tag}_entries.pkl")])
+        cli(["convert-store", str(tmp / f"qa_{tag}.td"), str(tmp / f"qa2_{tag}.cfs")])
+    assert _file_bytes(tmp / "qa_t.td") == _file_bytes(tmp / "qa_j.td")
+    assert _file_bytes(tmp / "qa_t.cfs") == _file_bytes(tmp / "qa_j.cfs")
+    entries = pickle.load(open(tmp / "qa_t_entries.pkl", "rb"))
+    assert entries == pickle.load(open(tmp / "qa_j_entries.pkl", "rb"))
+    assert entries == pickle.load(open(tmp / "qa2_t_target.pkl", "rb"))
+    assert len(entries) == N_Q
+
+
+def test_cli_trains_over_a_tdlmdb_ingest(cli_world):
+    """train --features_path <td-lmdb> ingests the QA-joined store once
+    into a CFS store and entries under the output dir, as the JAX CLI's
+    ingest_tdlmdb does (same bytes, same entries), and trains on its QA."""
+    from clg_vqa_tpu.cli import common as JC
+    tmp = cli_world
+    td = str(tmp / "ingest.td")
+    main(["convert-store", str(tmp / "f.cfs"), td, "--annotations",
+          str(tmp / "annotations" / "train_target.pkl")])
+    cfs_t, items_t = C.ingest_tdlmdb(td, str(tmp / "ing_t"), "train")
+    cfs_j, items_j = JC.ingest_tdlmdb(td, str(tmp / "ing_j"), "train")
+    assert os.path.basename(cfs_t) == os.path.basename(cfs_j)
+    assert _file_bytes(cfs_t) == _file_bytes(cfs_j) and items_t == items_j
+    assert C.is_tdlmdb(td) and not C.is_tdlmdb(str(tmp / "f.cfs"))
+    main(["train", *_common(tmp, "td_ft"), "--grad_acc_steps", "2",
+          "--features_path", td])
+    out = tmp / "td_ft"
+    assert any(f.startswith("ingest_train_") for f in os.listdir(out))
+    meta = json.load(open(out / "meta.json"))
+    assert meta["step"] == 3 and (out / "params_best" / "params.pt").exists()
+
+
+def test_cli_eval_over_lmdb_equals_eval_over_cfs(cli_world):
+    """eval over the per-image LMDB written from the CFS store gives the
+    CFS store's predictions."""
+    tmp = cli_world
+    lmdb_path = str(tmp / "ev_lmdb")
+    main(["convert-store", str(tmp / "f.cfs"), lmdb_path])
+    preds = []
+    for out, feats in (("ev_on_lmdb", lmdb_path), ("ev_on_cfs", str(tmp / "f.cfs"))):
+        main(["eval", *_common(tmp, out), "--split", "test",
+              "--features_path", feats])
+        preds.append(json.load(open(tmp / out / "test_result.json")))
+    assert len(preds[0]) == 12 and preds[0] == preds[1]
 
 
 def test_cli_m3p_train_eval_score_convert(cli_world, capsys):

@@ -1947,3 +1947,95 @@ def test_gated_run_eval_launches_the_bank_gather_only(cuda, tmp_path):
     assert res["n"] == host["n"] == 96
     assert [x["prediction"] for x in res["results"]] == \
         [x["prediction"] for x in host["results"]]
+
+
+# ---------------------------------------------------------------------------
+# M3P generation and the native CFS gather (host code, run on the card's
+# machine too)
+# ---------------------------------------------------------------------------
+
+GEN_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "m3p_gen_golden.npz"
+
+
+def _golden_gen(device):
+    """The reference's golden generation world through the port's
+    converters: (fixture, M3P, M3PGen) on ``device``."""
+    from clg_vqa_tpu_torch.config import M3PConfig
+    from clg_vqa_tpu_torch.models.m3p import M3P
+    from clg_vqa_tpu_torch.models.m3p_gen import M3PGen
+    from clg_vqa_tpu_torch.utils import convert as TC
+    g = np.load(GEN_FIXTURE)
+    sd = {k[len("sd::"):]: np.asarray(g[k]) for k in g.files if k.startswith("sd::")}
+    H = sd["embeddings.weight"].shape[1]
+    cfg = M3PConfig(vocab_size=sd["embeddings.weight"].shape[0], hidden_size=H,
+                    num_layers=int(g["n_layers"]), num_heads=4,
+                    intermediate_size=4 * H, num_locs=5, pooler_size=H,
+                    clf_hidden_size=2 * H)
+    model = TC.load_numpy_state(
+        M3P(cfg, device=device),
+        TC.volta_m3p_to_state_dict({"bert.encoder." + k: v for k, v in sd.items()},
+                                   cfg), allow_missing=("classifier.",))
+    rl = int(g["refine_layers"])
+    gen = TC.load_numpy_state(M3PGen(cfg, refine_layers=rl, device=device),
+                              TC.m3p_gen_components_to_state_dict(sd, cfg,
+                                                                  refine_layers=rl))
+    return g, model, gen
+
+
+@pytest.mark.cuda
+def test_m3p_gen_golden_decodes_token_exact_on_cuda(cuda):
+    """Greedy and beam decoding of the reference's golden world on the card,
+    token for token and length for length."""
+    from clg_vqa_tpu_torch.models import m3p_gen as tg
+    g, model, gen = _golden_gen(cuda)
+    src = torch.from_numpy(g["src_enc"]).to(cuda)
+    src_len = torch.from_numpy(g["src_len"]).to(cuda)
+    out, gen_len = tg.generate_greedy(model, gen, src, src_len, max_len=12)
+    ref = np.asarray(g["gen"])
+    np.testing.assert_array_equal(out.cpu().numpy()[:ref.shape[0]], ref)
+    np.testing.assert_array_equal(gen_len.cpu().numpy(), g["gen_len"])
+    dec, tgt_len = tg.generate_beam(model, gen, src, src_len, beam_size=3,
+                                    length_penalty=1.0, early_stopping=False,
+                                    max_len=12, lang_id=0)
+    ref = np.asarray(g["beam"])
+    np.testing.assert_array_equal(tgt_len.cpu().numpy(), g["beam_len"])
+    np.testing.assert_array_equal(dec.cpu().numpy()[:ref.shape[0]], ref)
+    # the stop test on the card: a pinned copy read one step late
+    stats = {}
+    tg.generate_greedy(model, gen, src, src_len, max_len=12, stats=stats)
+    assert stats["host_waits"] == stats["steps"] - 1
+
+
+@pytest.mark.cuda
+def test_generation_refuses_a_sharded_m3p(cuda):
+    """A vocabulary shard (mp > 1) is refused, not gathered."""
+    from types import SimpleNamespace
+
+    from clg_vqa_tpu_torch.models import m3p_gen as tg
+    g, model, gen = _golden_gen(cuda)
+    model.embeddings.mesh = SimpleNamespace(n_mp=2)
+    src = torch.from_numpy(g["src_enc"]).to(cuda)
+    with pytest.raises(ValueError, match="vocabulary shard"):
+        tg.generate_greedy(model, gen, src,
+                           torch.from_numpy(g["src_len"]).to(cuda), max_len=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm,glob", [(False, None), (True, None), (True, "first"),
+                                       (False, "last")])
+def test_native_gather_is_the_python_path_bit_for_bit(cuda, tmp_path, norm, glob):
+    """The native CFS gather, built on this machine from the port's source,
+    equals the Python path bit for bit, and the device bank built through it
+    equals the one built through the Python path."""
+    from clg_vqa_tpu_torch.data.cfs import CfsReader
+    from clg_vqa_tpu_torch.data.synthetic import write_store
+    path = str(tmp_path / "s.cfs")
+    write_store(path, np.random.RandomState(0), n_images=40, regions=100,
+                min_regions=10)
+    rd = CfsReader(path)
+    idx = np.random.RandomState(1).randint(0, 40, 64)
+    kw = dict(max_regions=100, num_locs=5, norm_embeddings=norm,
+              add_global_imgfeat=glob)
+    for a, b in zip(rd.gather(idx, **kw), rd.gather(idx, native=False, **kw)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))

@@ -28,7 +28,9 @@ def test_sources_found():
             "semantic_prior.py", "profile_train.py", "mesh.py",
             "distributed.py", "aux_losses.py", "pretrain_losses.py",
             "mlp.py", "pretrain.py", "embeddings_zoo.py", "gated.py",
-            "convert_gated.py"} <= names
+            "convert_gated.py", "m3p_gen.py", "lmdb_lite.py", "tdlmdb.py",
+            "convert_store.py", "prior.py", "cfs_native.py",
+            "profiling.py", "features.py", "cfs.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
