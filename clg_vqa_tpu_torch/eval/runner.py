@@ -18,6 +18,7 @@ import torch
 from ..data.device_bank import DeviceFeatureBank
 from ..models.layers import all_reduce, check_fused
 from ..parallel.mesh import local_batch
+from ..utils.profiling import span
 
 
 def make_predict_step(model, *, device_bank=None,
@@ -113,61 +114,69 @@ def run_eval(model, dataset, label2ans: list, *,
 
     Up to ``depth`` batches stay in flight: kernel launches are
     asynchronous, so host batch assembly overlaps device work and only the
-    oldest batch's prediction fetch blocks."""
-    device = model.device
-    if step is None:
-        if fused_attn is None:
-            fused_attn = ("flat" if (compute_dtype == torch.bfloat16
-                                     and batch_size >= 512
-                                     and device.type == "cuda") else False)
-        step = make_predict_step(model, device_bank=device_bank,
-                                 compute_dtype=compute_dtype,
-                                 fused_attn=fused_attn)
+    oldest batch's prediction fetch blocks. Under a profiler the call is the
+    span ``eval.pass`` (utils/profiling.span) holding each batch's
+    ``eval.assemble``, ``eval.dispatch`` and ``eval.consume``."""
+    with span("eval.pass"):
+        device = model.device
+        if step is None:
+            if fused_attn is None:
+                fused_attn = ("flat" if (compute_dtype == torch.bfloat16
+                                         and batch_size >= 512
+                                         and device.type == "cuda") else False)
+            step = make_predict_step(model, device_bank=device_bank,
+                                     compute_dtype=compute_dtype,
+                                     fused_attn=fused_attn)
 
-    results = []
-    n_total = n_correct = n_labeled = 0
+        results = []
+        n_total = n_correct = n_labeled = 0
 
-    def consume(host_qids, valid, has_label, labels, preds_host, ev):
-        nonlocal n_total, n_correct, n_labeled
-        if ev is not None:
-            ev.synchronize()
-        preds = preds_host.numpy()
-        keep = valid != 0
-        lab = (has_label != 0) & keep
-        n_total += int(keep.sum())
-        n_labeled += int(lab.sum())
-        n_correct += int((labels[lab] == preds[lab]).sum())
-        results.extend(
-            {"questionId": str(q), "prediction": label2ans[int(p)]}
-            for q, p in zip(host_qids[keep], preds[keep]))
-        if log_every and n_total % log_every < batch_size:
-            print(f"  eval {n_total}/{len(dataset)}")
+        def consume(host_qids, valid, has_label, labels, preds_host, ev):
+            nonlocal n_total, n_correct, n_labeled
+            with span("eval.consume"):
+                if ev is not None:
+                    ev.synchronize()
+                preds = preds_host.numpy()
+                keep = valid != 0
+                lab = (has_label != 0) & keep
+                n_total += int(keep.sum())
+                n_labeled += int(lab.sum())
+                n_correct += int((labels[lab] == preds[lab]).sum())
+                results.extend(
+                    {"questionId": str(q), "prediction": label2ans[int(p)]}
+                    for q, p in zip(host_qids[keep], preds[keep]))
+                if log_every and n_total % log_every < batch_size:
+                    print(f"  eval {n_total}/{len(dataset)}")
 
-    t0 = time.time()
-    inflight: deque = deque()
-    for batch in dataset.iter_batches(batch_size,
-                                      with_features=device_bank is None):
-        host_qids = batch.pop("question_id")
-        valid = batch.pop("valid")
-        has_label = batch.pop("has_label")
-        labels = batch.pop("labels")
-        preds = step({k: torch.from_numpy(v).to(device, non_blocking=True)
-                      for k, v in batch.items()})
-        inflight.append((host_qids, valid, has_label, labels,
-                         *_to_host_async(preds)))
-        if len(inflight) > depth:
+        t0 = time.time()
+        inflight: deque = deque()
+        batches = iter(dataset.iter_batches(
+            batch_size, with_features=device_bank is None))
+        while True:
+            with span("eval.assemble"):
+                batch = next(batches, None)
+                if batch is not None:
+                    host = [batch.pop(k) for k in ("question_id", "valid",
+                                                   "has_label", "labels")]
+                    batch = {k: torch.from_numpy(v).to(device, non_blocking=True)
+                             for k, v in batch.items()}
+            if batch is None:
+                break
+            with span("eval.dispatch"):
+                inflight.append((*host, *_to_host_async(step(batch))))
+            if len(inflight) > depth:
+                consume(*inflight.popleft())
+        while inflight:
             consume(*inflight.popleft())
-    while inflight:
-        consume(*inflight.popleft())
-    dt = time.time() - t0
+        dt = time.time() - t0
 
-    if out_path:
-        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-        with open(out_path, "w") as f:
-            json.dump(results, f)
-    return {
-        "results": results, "n": n_total,
-        "qa_per_sec": n_total / dt if dt > 0 else float("inf"),
-        "accuracy": (n_correct / n_labeled) if n_labeled else None,
-        "out_path": out_path,
-    }
+        if out_path:
+            os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+            with open(out_path, "w") as f:
+                json.dump(results, f)
+        return {
+            "results": results, "n": n_total,
+            "qa_per_sec": n_total / dt if dt > 0 else float("inf"),
+            "accuracy": (n_correct / n_labeled) if n_labeled else None,
+            "out_path": out_path,
+        }

@@ -21,8 +21,9 @@ CUDA device it selects the RoIPool kernel B6 (``ops/roi_pool.py``), where
 JAX takes ``roi_pool_pallas`` on the TPU; otherwise the plain op.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``; without CUDA
-they raise. The pipeline's stages are named ``extract.*`` ranges for
-torch.profiler (``tools/profile_extract.py``).
+they raise. The pipeline's stages are ``extract.*`` spans
+(``utils/profiling.span``): ranges for torch.profiler
+(``tools/profile_extract.py``).
 """
 from __future__ import annotations
 
@@ -31,11 +32,11 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ... import resolve_device
 from ...data.features import RegionRecord
 from ...ops.roi_pool import roi_pool_nhwc, roi_pool_nhwc_plain
+from ...utils.profiling import span
 from . import heads, resnet, rpn
 
 PIXEL_MEAN_BGR = (102.9801, 115.9465, 122.7717)
@@ -265,9 +266,9 @@ class Extractor36(PipelinedExtractor):
         c, p = self.cfg, self._run_params
         if c.bf16:
             images = images.to(torch.bfloat16)
-        with record_function("extract.backbone"):
+        with span("extract.backbone"):
             feat = resnet.backbone_c4(images, p["backbone"])    # [N, fh, fw, C]
-        with record_function("extract.rpn_head"):
+        with span("extract.rpn_head"):
             obj, deltas = rpn.rpn_head(feat, p["rpn"])
         obj, deltas = obj.float(), deltas.float()
         # anchors whose cell lies beyond the valid feature extent are masked
@@ -277,23 +278,23 @@ class Extractor36(PipelinedExtractor):
         vmask = ((cy[None, :, None] < vh[:, None, None])
                  & (cx[None, None, :] < vw[:, None, None]))
         vmask = vmask[..., None].expand(obj.shape)
-        with record_function("extract.propose"):
+        with span("extract.propose"):
             boxes, _, pvalid = rpn.propose(
                 obj, deltas, self._anchors, valid_hw, pre_nms_topk=c.pre_nms_topk,
                 post_nms_topk=c.post_nms_topk, nms_thresh=c.rpn_nms_thresh,
                 valid_mask=vmask)
         N, R = boxes.shape[:2]
         # max_bin 8 covers the C4 window (ceil(84/14) + 1)
-        with record_function("extract.roi_pool"):
+        with span("extract.roi_pool"):
             crops = torch.cat([self._pool(feat[i], boxes[i],
                                           output_size=(c.pooler_size, c.pooler_size),
                                           spatial_scale=1.0 / c.stride, max_bin=8)
                                for i in range(N)])              # [N*R, 14, 14, C]
-        with record_function("extract.res5"):
+        with span("extract.res5"):
             pooled, _ = resnet.res5_head(crops, p["res5"], halve=False)
         pooled = pooled.float().view(N, R, -1)
 
-        with record_function("extract.heads"):
+        with span("extract.heads"):
             cls_logits, attr_logits, bdeltas = heads.box_predictor(pooled,
                                                                    p["predictor"])
         probs = torch.softmax(cls_logits, dim=-1)
@@ -302,7 +303,7 @@ class Extractor36(PipelinedExtractor):
         max_attr_label = attr_prob.argmax(-1)
         max_attr_prob = attr_prob.gather(-1, max_attr_label[..., None])[..., 0]
 
-        with record_function("extract.select"):
+        with span("extract.select"):
             idx, keep, thresh = heads.select_exactly_n(
                 boxes_pc, probs, valid_hw, n_keep=c.num_boxes, valid=pvalid)
 

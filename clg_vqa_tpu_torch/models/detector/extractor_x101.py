@@ -29,8 +29,8 @@ A group of ``device_batch`` images runs as one batch (JAX vmaps the
 pipeline): batched convs, one RPN NMS over every image's five levels;
 RoIAlign and the 1600-class selection run image by image. Entry points run
 on ``cuda`` unless given ``device="cpu"``; without CUDA they raise. The
-stages are ``extract.*`` ranges for torch.profiler
-(``tools/profile_extract.py --detector x101``).
+stages are ``extract.*`` spans (``utils/profiling.span``): ranges for
+torch.profiler (``tools/profile_extract.py --detector x101``).
 """
 from __future__ import annotations
 
@@ -38,11 +38,11 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ... import resolve_device
 from ...data.features import RegionRecord
 from ...ops.nms import NEG, batched_nms_fixpoint
+from ...utils.profiling import span
 from . import fpn as F
 from . import resnet, rpn
 from .extractor import (PIXEL_MEAN_BGR, PipelinedExtractor, _placed, pad_to,
@@ -145,7 +145,7 @@ class ExtractorX101(PipelinedExtractor):
         n = valid_hw.shape[0]
         cand_boxes, cand_scores = [], []
         for feat, anchors, stride in zip(pyr, self._anchors, self.STRIDES):
-            with record_function("extract.rpn_head"):
+            with span("extract.rpn_head"):
                 obj, deltas = rpn.rpn_head(feat.float(), p["rpn"])
             vh, vw = ((valid_hw + stride - 1) // stride).unbind(1)
             cy = torch.arange(obj.shape[1], device=self.device)
@@ -184,26 +184,26 @@ class ExtractorX101(PipelinedExtractor):
         c, p = self.cfg, self._run_params
         if c.bf16:
             images = images.to(torch.bfloat16)
-        with record_function("extract.backbone"):
+        with span("extract.backbone"):
             stages = resnet.backbone_stages(images, p["backbone"], groups=c.groups,
                                             caffe_pool=False, stride_in_1x1=False)
-        with record_function("extract.fpn"):
+        with span("extract.fpn"):
             pyr = F.fpn(stages, p["fpn"])
-        with record_function("extract.propose"):
+        with span("extract.propose"):
             proposals, _, pvalid = self._propose(p, pyr, valid_hw)
         n, R = proposals.shape[:2]
-        with record_function("extract.roi_align"):
+        with span("extract.roi_align"):
             crops = torch.cat([F.multilevel_roi_align_flat(
                 [lvl[i:i + 1] for lvl in pyr], proposals[i], legacy_levels=True,
                 box_chunk=c.roi_box_chunk) for i in range(n)])  # [N*R, C, 7, 7]
-        with record_function("extract.box_head"):
+        with span("extract.box_head"):
             fc6, fc7 = F.box_head_fc(crops, p["box_head"],
                                      compute_dtype=torch.bfloat16 if c.bf16 else None)
             cls = p["predictor"]["cls_score"]
             probs = torch.softmax(fc7 @ cls["w"] + cls["b"], dim=-1).view(n, R, -1)
         fc6 = fc6.view(n, R, -1)
         out = {k: [] for k in ("features", "boxes", "obj_id", "obj_conf")}
-        with record_function("extract.select"):
+        with span("extract.select"):
             for i in range(n):
                 order, max_conf, objects = F.select_top_by_class_nms(
                     proposals[i], probs[i], num_keep=c.num_boxes, valid=pvalid[i],

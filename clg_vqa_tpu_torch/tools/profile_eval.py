@@ -60,6 +60,16 @@ def union_us(intervals) -> float:
     return total
 
 
+def device_kernels(events) -> list:
+    """The profiler's device events that are kernels or copies. Each
+    ``record_function`` range (the program's ``train.*`` and ``eval.*``
+    spans) also lies on the device's timeline as a user annotation over
+    the kernels it launched; those are left out."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def model_and_world(m3p: bool, directory: str, n_qa: int):
     """(config, model on the card from seed 0, synthetic world of n_qa
     questions) at UC2's or M3P's published width."""
@@ -112,8 +122,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             traced = time.perf_counter() - t0
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof.events())
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]

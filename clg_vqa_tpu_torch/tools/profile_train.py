@@ -37,7 +37,7 @@ from ..data.pipeline import TrainPipeline
 from ..data.synthetic import train_dataset
 from ..train.loop import TrainState, make_train_step
 from ..train.optim import make_optimizer, warmup_linear_schedule
-from .profile_eval import model_and_world, union_us
+from .profile_eval import device_kernels, model_and_world, union_us
 
 ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 
@@ -134,8 +134,7 @@ def main(argv=None) -> int:
             traced = (time.perf_counter() - t0) / TRACED
         batches.close()
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof.events())
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]

@@ -17,7 +17,11 @@ volta/train_task.py:313-367 and volta/volta/task_utils.py:308-434):
 
 The model's parameters are the master weights and are updated in place; a
 step returns the new optimizer state and step count. Metrics stay on the
-device, so a step does not wait for it.
+device, so a step does not wait for it. Under a profiler a step is the span
+``train.step`` (utils/profiling.span) holding ``train.accumulate`` (the
+gradient buffers), then for each microbatch ``train.forward``,
+``train.backward`` and ``train.accumulate``, then ``train.clip`` and
+``train.optimizer``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from ..models.layers import all_reduce, check_fused, fold_seed
 from ..ops.attention import shard_seed
 from ..ops.semantic_prior import gqa_train_loss
 from ..parallel.mesh import pspec, shard_model, shard_state_dict
+from ..utils.profiling import span
 from .optim import global_norm
 
 # the attention routes that take whole weights or head-major copies: one
@@ -122,6 +127,10 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
     masks = {}      # grad_mask cut for each mesh, on its first step there
 
     def train_step(state: TrainState, batch: Mapping, seed: int, bank=None):
+        with span("train.step"):
+            return _step(state, batch, seed, bank)
+
+    def _step(state: TrainState, batch: Mapping, seed: int, bank):
         model = state.model
         mesh = getattr(model, "mesh", None)
         dp_rank, dp_group = (0, None) if mesh is None else (mesh.dp_rank,
@@ -139,33 +148,38 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
         params = dict(model.named_parameters())
         names, tensors = list(params), list(params.values())
         acc = next(iter(batch.values())).shape[0]
-        grads = [torch.zeros_like(p) for p in tensors]
-        loss_sum = torch.zeros((), device=model.device)
-        score_sum = torch.zeros((), device=model.device)
+        with span("train.accumulate"):
+            grads = [torch.zeros_like(p) for p in tensors]
+            loss_sum = torch.zeros((), device=model.device)
+            score_sum = torch.zeros((), device=model.device)
         for a in range(acc):
-            mb = {k: v[a] for k, v in batch.items()}
-            loss, score = loss_fn(model, mb,
-                                  shard_seed(fold_seed(seed, a), dp_rank), bank)
-            gs = torch.autograd.grad(loss, tensors, allow_unused=True)
-            for acc_g, g in zip(grads, gs):
-                if g is not None:
-                    acc_g.add_(g / acc)
-            loss_sum = loss_sum + loss.detach() / acc
-            score_sum = score_sum + score / acc
+            with span("train.forward"):
+                mb = {k: v[a] for k, v in batch.items()}
+                loss, score = loss_fn(model, mb, shard_seed(fold_seed(seed, a),
+                                                            dp_rank), bank)
+            with span("train.backward"):
+                gs = torch.autograd.grad(loss, tensors, allow_unused=True)
+            with span("train.accumulate"):
+                for acc_g, g in zip(grads, gs):
+                    if g is not None:
+                        acc_g.add_(g / acc)
+                loss_sum = loss_sum + loss.detach() / acc
+                score_sum = score_sum + score / acc
         if dp_group is not None:
             grads = _dp_mean(grads, dp_group, mesh.n_dp)
             loss_sum, score_sum = _dp_mean([loss_sum, score_sum], dp_group,
                                            mesh.n_dp)
-        grads = dict(zip(names, grads))
-        if mask is not None:
-            grads = {k: g if mask.get(k) is None else g * mask[k]
-                     for k, g in grads.items()}
-        # under mp the clip is given the whole model's norm (each rank's
-        # own gradients hold only its shards)
-        norm = global_norm(grads.values(),
-                           group=mesh.mp_group if mp else None,
-                           sharded=[pspec(k) is not None for k in grads])
-        with torch.no_grad():
+        with span("train.clip"):
+            grads = dict(zip(names, grads))
+            if mask is not None:
+                grads = {k: g if mask.get(k) is None else g * mask[k]
+                         for k, g in grads.items()}
+            # under mp the clip is given the whole model's norm (each rank's
+            # own gradients hold only its shards)
+            norm = global_norm(grads.values(),
+                               group=mesh.mp_group if mp else None,
+                               sharded=[pspec(k) is not None for k in grads])
+        with span("train.optimizer"), torch.no_grad():
             updates, opt_state = optimizer.update(
                 grads, state.opt_state, params, **({"norm": norm} if mp else {}))
             for k, p in params.items():
