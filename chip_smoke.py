@@ -7,7 +7,7 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the eight CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the nine CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
@@ -177,8 +177,14 @@ keep mask; in bf16 the tensor-core kernels) against its plain version, B5
 and B3 (both entries) equal to it bit for bit in both dtypes, B4 at S 159
 and 612 (fp32 key-blocked, bf16 the tensor-core core), K1 and B2 at S 418
 and 612, and B1's bf16 times there.
-Launch counters, set to 0 just before each path's timed run and read just
-after, show which kernels each path ran. Then one JSON line listing the
+Phase 6 opens with the train step's multi-tensor kernels (csrc/
+multi_tensor.cu) on UC2's parameter list: the accumulation and the clipped
+AdamW bit for bit against their plain versions, the norm within 1e-6 of
+its plain version and bit-equal over two launches, each timed beside its
+byte bound, its plain version and torch._foreach_*; every train step's
+multi-tensor launches are counted (acc accumulate, 3 norm and 1 adamw a
+step). Launch counters, set to 0 just before each path's timed run and
+read just after, show which kernels each path ran. Then one JSON line listing the
 kernels, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -226,6 +232,7 @@ from clg_vqa_tpu_torch.models.m3p_gen import M3PGen
 from clg_vqa_tpu_torch.models.pretrain import PretrainHeads, pretrain_loss
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build, aux_losses
+from clg_vqa_tpu_torch.ops import multi_tensor as MT
 from clg_vqa_tpu_torch.ops.attention import (
     _FLAT, _HM, _SM, _bias2, _launch_eval, _launch_train_bwd,
     _launch_train_fwd, _train_buffers,
@@ -250,14 +257,15 @@ from clg_vqa_tpu_torch.ops.semantic_prior import vqa_train_loss
 from clg_vqa_tpu_torch.parallel.distributed import initialize
 from clg_vqa_tpu_torch.parallel.mesh import (local_batch, make_mesh, pspec,
                                              shard_model, unshard)
-from clg_vqa_tpu_torch.tools.measure import bound_ms, c4_rois, time_ms
+from clg_vqa_tpu_torch.tools.measure import (bound_ms, c4_rois, device_us,
+                                             host_us, time_ms)
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train import pruning as pr
 from clg_vqa_tpu_torch.train.loop import (TrainState, make_loss_fn,
                                           make_train_step, shard_train_step)
-from clg_vqa_tpu_torch.train.optim import (make_optimizer,
+from clg_vqa_tpu_torch.train.optim import (make_optimizer, no_decay_mask,
                                            warmup_constant_schedule,
                                            warmup_linear_schedule)
 from clg_vqa_tpu_torch.utils import profiling
@@ -336,7 +344,8 @@ def phase_build() -> None:
     built = _build.build(["flat_attention", "flat_attention_train",
                           "rows_gather", "smajor_attention_train",
                           "block_attention_train", "blocked_attention",
-                          "blocked_attention_train", "roi_pool"])
+                          "blocked_attention_train", "roi_pool",
+                          "multi_tensor"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -1507,6 +1516,16 @@ COUNTERS = {
 }
 
 
+# the train step's multi-tensor passes: every train path runs them, so they
+# are counted apart from the attention and bank kernels above
+MT_COUNTERS = {"accumulate": MT.accumulate, "norm": MT.norm,
+               "adamw": MT.adamw}
+
+
+def read_mt_counts() -> dict:
+    return {name: fn.launches for name, fn in MT_COUNTERS.items()}
+
+
 def reset_counts() -> None:
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
@@ -1519,6 +1538,145 @@ def read_counts() -> dict:
 def only(**counts) -> dict:
     """The expected counts of a path: the given ones, every other 0."""
     return {name: counts.get(name, 0) for name in COUNTERS}
+
+
+def mt_bits_equal(got, want) -> bool:
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def phase_multi_tensor(model, smi: str) -> dict:
+    """The train step's multi-tensor kernels (csrc/multi_tensor.cu) on the
+    parameter list of ``model`` (acc 2): the accumulation and AdamW (the
+    clip engaged, decay off for biases and LayerNorms) bit for bit against
+    their plain versions on the card, the norm within 1e-6 of the plain one
+    and bit-equal over two launches; each timed beside its byte bound, its
+    plain version and ``torch._foreach_*`` (the library yardstick, the
+    same passes in another rounding), and the step's four passes
+    together. Returns each kernel's numbers and launches."""
+    names = [n for n, _ in model.named_parameters()]
+    shapes = [p.shape for p in model.parameters()]
+    n_el = sum(math.prod(s) for s in shapes)
+    gb = 4 * n_el                       # one fp32 pass over the parameters
+    gen = torch.Generator("cuda").manual_seed(21)
+
+    def values(scale):
+        return [torch.randn(s, device="cuda", generator=gen) * scale
+                for s in shapes]
+
+    gs = [values(1e-3), values(1e-3)]
+    buf = MT.GradBuffers(gs[0])
+    plain_buf = [torch.empty_like(g) for g in gs[0]]
+    launches0 = read_mt_counts()
+    for a, g in enumerate(gs):
+        MT.accumulate(buf, g, first=a == 0, n=ACC)
+        MT.accumulate_plain(plain_buf, g, first=a == 0, n=ACC)
+    check(mt_bits_equal(buf.views, plain_buf), "accumulate differs from plain")
+    grads = buf.views
+    norm = MT.norm(grads)
+    check(torch.equal(norm, MT.norm(grads)), "norm: two launches differ")
+    plain_norm = MT.norm_plain(grads)
+    rel = abs(norm.item() - plain_norm.item()) / plain_norm.item()
+    check(rel <= 1e-6, f"norm {norm.item()} against plain {plain_norm.item()}")
+    check(norm.item() > 1.0, "the clip should be engaged")
+    opt = make_optimizer(names, warmup_linear_schedule(4e-5, 0, 1000))
+    p_k = dict(zip(names, values(0.02)))
+    p_p = {k: p.clone() for k, p in p_k.items()}
+    st_k, st_p = opt.init(p_k), opt.init(p_p)
+    st_k = opt.apply(dict(zip(names, grads)), st_k, p_k, norm=norm)
+    updates, st_p = opt.update(dict(zip(names, grads)), st_p, p_p, norm=norm)
+    for k, u in updates.items():
+        p_p[k].add_(u)
+    del updates
+    for what, a, b in (("p", p_k, p_p), ("mu", st_k.mu, st_p.mu),
+                       ("nu", st_k.nu, st_p.nu)):
+        check(mt_bits_equal(a.values(), [b[k] for k in a]),
+              f"adamw {what} differs from plain")
+    launches = {k: v - launches0[k] for k, v in read_mt_counts().items()}
+    check(launches == {"accumulate": ACC, "norm": 3 * 2, "adamw": 1},
+          f"multi-tensor launches {launches}")
+    # timing, warm: each call repeats its pass on the same inputs
+    gd = dict(zip(names, grads))
+    step, decay = np.float32(1e-3), np.float32(1e-7)
+    decays = [no_decay_mask(names)[n] for n in names]
+    fp, fm, fv = ([t.clone() for t in p_k.values()],
+                  [t.clone() for t in st_k.mu.values()],
+                  [t.clone() for t in st_k.nu.values()])
+    fdec = [p for p, d in zip(fp, decays) if d]
+
+    def foreach_adamw(g):
+        c = torch.where(norm < 1.0, 1.0, 1.0 / norm)
+        g = torch._foreach_mul(g, c)
+        torch._foreach_mul_(fm, 0.9)
+        torch._foreach_add_(fm, g, alpha=0.1)
+        torch._foreach_mul_(fv, 0.999)
+        torch._foreach_addcmul_(fv, g, g, value=0.001)
+        d = torch._foreach_sqrt(fv)
+        torch._foreach_add_(d, 1e-6)
+        torch._foreach_addcdiv_(fp, fm, d, value=-float(step))
+        torch._foreach_mul_(fdec, 1 - float(decay))
+
+    def foreach_norm(g):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+
+    rows = {
+        "accumulate": (lambda: MT.accumulate(buf, gs[1], first=False, n=ACC),
+                       lambda: MT.accumulate_plain(plain_buf, gs[1], first=False,
+                                                   n=ACC),
+                       lambda: torch._foreach_add_(
+                           plain_buf, torch._foreach_div(gs[1], ACC)),
+                       3 * gb),
+        "norm": (lambda: MT.norm(grads), lambda: MT.norm_plain(grads),
+                 lambda: foreach_norm(grads), gb),
+        "adamw": (lambda: MT.adamw(p_k.values(), st_k.mu.values(),
+                                   st_k.nu.values(), grads, None, decays,
+                                   norm=norm, b1=0.9, b2=0.999, eps=1e-6,
+                                   step=step, decay=decay, max_norm=1.0),
+                  lambda: [p.add_(u) for p, u in zip(p_p.values(), opt.update(
+                      gd, st_p, p_p, norm=norm)[0].values())],
+                  lambda: foreach_adamw(grads), 7 * gb),
+    }
+
+    def step_passes(acc, nrm, upd):
+        def run():
+            for a, g in enumerate(gs):
+                acc(g, a == 0)
+            upd(nrm())
+        return run
+
+    rows["step"] = (
+        step_passes(lambda g, f: MT.accumulate(buf, g, first=f, n=ACC),
+                    lambda: MT.norm(grads),
+                    lambda nm: opt.apply(gd, st_k, p_k, norm=nm)),
+        step_passes(lambda g, f: MT.accumulate_plain(plain_buf, g, first=f, n=ACC),
+                    lambda: MT.norm_plain(grads),
+                    lambda nm: [p.add_(u) for p, u in zip(p_p.values(), opt.update(
+                        gd, st_p, p_p, norm=nm)[0].values())]),
+        step_passes(lambda g, f: (torch._foreach_zero_(plain_buf) if f else None,
+                                  torch._foreach_add_(plain_buf,
+                                                      torch._foreach_div(g, ACC))),
+                    lambda: foreach_norm(grads), lambda nm: foreach_adamw(grads)),
+        (2 + 3 + 1 + 7) * gb)
+    out = {}
+    for name, (kern, plain, lib, nbytes) in rows.items():
+        ms, plain_ms, lib_ms = (time_ms(f, n=10) for f in (kern, plain, lib))
+        # the events also hold the wrapper's host work before the first
+        # launch; the profiler's device time is the kernels' own
+        dev_ms = sum(us for k, us in device_us(kern).items()
+                     if "multi_tensor::" in k) / 1e3
+        host = host_us(kern, n=20) / 1e3
+        bms, by = bound_ms(nbytes, 0, torch.float32)
+        print(f"multi_tensor {name} over {len(shapes)} tensors, {n_el / 1e6:.1f} M "
+              f"fp32: kernel {dev_ms:.4f} ms on the device ({bms / dev_ms:.1%} of "
+              f"its bound), {ms:.4f} ms by events, {host:.4f} ms of host a call; "
+              f"plain {plain_ms:.4f} ms, torch._foreach_* {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}; {nbytes / 1e9:.2f} GB) on {smi}")
+        out[name] = dict(shape=[len(shapes), n_el], ms=dev_ms, event_ms=ms,
+                         host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by)
+    del rows, gs, buf, plain_buf, p_k, p_p, st_k, st_p, fp, fm, fv, fdec, gd
+    torch.cuda.empty_cache()
+    return {"kernels": out, "launches": launches}
 
 
 def phase_main_path(tmp: str, cfg: UC2Config, model: UC2) -> dict:
@@ -1665,6 +1823,7 @@ def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dic
         metrics.append(m)
     torch.cuda.synchronize()
     reset_counts()
+    mt0 = read_mt_counts()
     t0 = time.perf_counter()
     for i in range(TIMED_STEPS):
         state, m = step(state, next(batches), seed=WARMUP_STEPS + i, bank=bank)
@@ -1672,6 +1831,7 @@ def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dic
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
+    mt = {k: v - mt0[k] for k, v in read_mt_counts().items()}
     batches.close()
     n_blocks = cfg.num_layers * ACC
     kern = TRAIN_KERNELS[fused]
@@ -1686,6 +1846,10 @@ def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dic
                             f"{kern}_bwd": n_blocks * TIMED_STEPS}),
           f"train launches {counts}, expected per step {n_blocks} {kern} "
           f"forward, {n_blocks} backward, {ACC} rows_gather and nothing else")
+    check(mt == {"accumulate": ACC * TIMED_STEPS, "norm": 3 * TIMED_STEPS,
+                 "adamw": TIMED_STEPS},
+          f"multi-tensor launches {mt}, expected per step {ACC} accumulate, "
+          f"3 norm and 1 adamw")
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
     norms = torch.stack([m["grad_norm"] for m in metrics]).cpu()
     print(f"train loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
@@ -1698,7 +1862,8 @@ def phase_train(cfg, model, world, smi: str, fused="flat", seq: int = 40) -> dic
           f"over 2000 steps)")
     check(moved > 0, "the parameters did not move")
     check(state.step == WARMUP_STEPS + TIMED_STEPS, "step count")
-    return {"launches": counts, "ms_per_step": dt / TIMED_STEPS * 1e3,
+    return {"launches": counts, "mt_launches": mt,
+            "ms_per_step": dt / TIMED_STEPS * 1e3,
             "qa_per_s": TIMED_STEPS * ACC * MBS / dt, "loss0": losses[0].item()}
 
 
@@ -2923,14 +3088,15 @@ def nonzero(counts: dict) -> dict:
 
 
 def _capturing(opt, store: dict):
-    """``opt`` whose update also keeps a copy of the first gradients it is
-    given (after the dp average and the mask, before the clip)."""
-    def update(grads, state, params, **kw):
+    """``opt`` whose apply also keeps a copy of the first gradients it is
+    given (after the dp average, before the mask and the clip; the worlds
+    here train unmasked)."""
+    def apply(grads, state, params, **kw):
         if not store:
             store.update({k: g.detach().clone() for k, g in grads.items()})
-        return opt.update(grads, state, params, **kw)
+        return opt.apply(grads, state, params, **kw)
 
-    return opt._replace(update=update)
+    return opt._replace(apply=apply)
 
 
 def par_batches(w, cfg, n_steps: int, device) -> list:
@@ -4257,6 +4423,7 @@ def main() -> int:
     print(f"UC2 {cfg.num_layers}x{cfg.hidden_size}, vocab {cfg.vocab_size}, "
           f"{cfg.num_labels} labels: "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params")
+    multi = phase_multi_tensor(model, smi)
     with tempfile.TemporaryDirectory() as tmp:
         main_path = phase_main_path(tmp, cfg, model)
         w = main_path["world"]
@@ -4352,6 +4519,23 @@ def main() -> int:
             ("roi_pool", "extract_c4", "roi_pool", "roi_pool.cu",
              csrc + "roi_pool.cu", "clg_vqa_tpu/ops/roi_pallas.py:30"))
     ]
+    # the train step's multi-tensor passes, on every train path; counted on
+    # the multi-tensor phase's own calls and the two timed UC2 train steps
+    kernels += [
+        {"name": f"multi_tensor_{name}", "route": "cuda",
+         "source": csrc + "multi_tensor.cu",
+         "replaces": "none: the train step's per-tensor loops (train/loop.py, "
+                     "train/optim.py)",
+         "device_code": csrc + "multi_tensor.cu",
+         "launches": train["mt_launches"][name],
+         "launches_by_path": {"multi_tensor": multi["launches"][name],
+                              "train": train["mt_launches"][name],
+                              "train_proj": train_proj["mt_launches"][name]},
+         **multi["kernels"][name]}
+        for name in MT_COUNTERS]
+    kernels.append({"name": "multi_tensor_step", "route": "cuda",
+                    "source": csrc + "multi_tensor.cu",
+                    **multi["kernels"]["step"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,8 +45,10 @@ ACC, MBS, WARMUP, UNTRACED, TRACED = 2, 128, 2, 5, 3
 # and B4's core) and attn_train_mma::fwd_kernel / bwd_kernel (the
 # tensor-core kernels of bf16 B1, B5, B3 and B4); the key-blocked twins
 # match the same keys. B4's products are gemm_wgmma's kernels (bf16) and
-# b4_fp32_kernel, its sums b4_*_kernel.
-GROUPS = (("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
+# b4_fp32_kernel, its sums b4_*_kernel. The train step's accumulation, norm
+# and AdamW passes are csrc/multi_tensor.cu's multi_tensor::* kernels.
+GROUPS = (("multi-tensor passes (accumulate, norm, AdamW)", ("multi_tensor::",)),
+          ("attention core forward (B1/B5/B4/B3)", ("fwd_kernel<", "fwd_blocked_kernel<")),
           ("attention core backward (B1/B5/B4/B3)", ("bwd_kernel<", "bwd_blocked_kernel<")),
           ("B4 products and sums", ("b4_", "gemm_wgmma")),
           ("rows_gather", ("rows_gather_kernel",)),

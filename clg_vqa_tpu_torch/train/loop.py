@@ -17,11 +17,14 @@ volta/train_task.py:313-367 and volta/volta/task_utils.py:308-434):
 
 The model's parameters are the master weights and are updated in place; a
 step returns the new optimizer state and step count. Metrics stay on the
-device, so a step does not wait for it. Under a profiler a step is the span
-``train.step`` (utils/profiling.span) holding ``train.accumulate`` (the
-gradient buffers), then for each microbatch ``train.forward``,
-``train.backward`` and ``train.accumulate``, then ``train.clip`` and
-``train.optimizer``.
+device, so a step does not wait for it. The gradients accumulate into one
+flat buffer that the step keeps from call to call (ops/multi_tensor.
+GradBuffers); on the card the accumulation, the norm and the optimizer's
+``apply`` each walk every parameter in one kernel launch. Under a profiler
+a step is the span ``train.step`` (utils/profiling.span) holding
+``train.accumulate`` (the loss and score sums), then for each microbatch
+``train.forward``, ``train.backward`` and ``train.accumulate``, then
+``train.clip`` (the global norm) and ``train.optimizer``.
 """
 from __future__ import annotations
 
@@ -32,11 +35,12 @@ import torch
 
 from ..data.device_bank import DeviceFeatureBank
 from ..models.layers import all_reduce, check_fused, fold_seed
+from ..ops import multi_tensor
 from ..ops.attention import shard_seed
 from ..ops.semantic_prior import gqa_train_loss
 from ..parallel.mesh import pspec, shard_model, shard_state_dict
 from ..utils.profiling import span
-from .optim import global_norm
+from .optim import global_norm, masked
 
 # the attention routes that take whole weights or head-major copies: one
 # device only under Megatron mp, as in the JAX package
@@ -103,8 +107,10 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
                     criterion: str = "CrossEntropyLoss") -> Callable:
     """train_step(state, batch, seed, bank=None) -> (state, metrics).
 
-    ``optimizer``: :func:`train.optim.make_optimizer`'s chain (under mp > 1
-    its update is given the gradients' global norm as ``norm``). ``batch``
+    ``optimizer``: :func:`train.optim.make_optimizer`'s chain, whose
+    ``apply`` is given the gradients' global norm, computed once a step;
+    an optimizer without ``apply`` gets the masked gradients through
+    ``update`` (with ``norm`` under mp > 1) and its updates are added. ``batch``
     values are [acc, micro_bs, ...] tensors on the model's device;
     with a device bank (``bank`` = DeviceFeatureBank.tensors()) they carry
     int32 ``store_idx`` instead of features. ``seed`` (a host int) keys the
@@ -125,6 +131,7 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
                            top_k=top_k, compute_dtype=compute_dtype,
                            fused_attn=fused_attn, criterion=criterion)
     masks = {}      # grad_mask cut for each mesh, on its first step there
+    buffers = []    # the latest parameter list's GradBuffers
 
     def train_step(state: TrainState, batch: Mapping, seed: int, bank=None):
         with span("train.step"):
@@ -149,7 +156,9 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
         names, tensors = list(params), list(params.values())
         acc = next(iter(batch.values())).shape[0]
         with span("train.accumulate"):
-            grads = [torch.zeros_like(p) for p in tensors]
+            if not buffers or not buffers[0].fits(tensors):
+                buffers[:] = [multi_tensor.GradBuffers(tensors)]
+            buf = buffers[0]
             loss_sum = torch.zeros((), device=model.device)
             score_sum = torch.zeros((), device=model.device)
         for a in range(acc):
@@ -160,33 +169,32 @@ def make_train_step(optimizer, distance_matrix: torch.Tensor, *,
             with span("train.backward"):
                 gs = torch.autograd.grad(loss, tensors, allow_unused=True)
             with span("train.accumulate"):
-                for acc_g, g in zip(grads, gs):
-                    if g is not None:
-                        acc_g.add_(g / acc)
+                multi_tensor.accumulate(buf, gs, first=a == 0, n=acc)
                 loss_sum = loss_sum + loss.detach() / acc
                 score_sum = score_sum + score / acc
         if dp_group is not None:
-            grads = _dp_mean(grads, dp_group, mesh.n_dp)
+            all_reduce(buf.flat, dp_group).div_(mesh.n_dp)
             loss_sum, score_sum = _dp_mean([loss_sum, score_sum], dp_group,
                                            mesh.n_dp)
+        grads = dict(zip(names, buf.views))
         with span("train.clip"):
-            grads = dict(zip(names, grads))
-            if mask is not None:
-                grads = {k: g if mask.get(k) is None else g * mask[k]
-                         for k, g in grads.items()}
-            # under mp the clip is given the whole model's norm (each rank's
-            # own gradients hold only its shards)
-            norm = global_norm(grads.values(),
-                               group=mesh.mp_group if mp else None,
-                               sharded=[pspec(k) is not None for k in grads])
+            # the norm of the masked gradients, once a step; under mp the
+            # whole model's (each rank's own gradients hold only its shards)
+            norm = global_norm(
+                grads.values(),
+                None if mask is None else [mask.get(k) for k in names],
+                group=mesh.mp_group if mp else None,
+                sharded=[pspec(k) is not None for k in names] if mp else None)
         with span("train.optimizer"), torch.no_grad():
-            updates, opt_state = optimizer.update(
-                grads, state.opt_state, params, **({"norm": norm} if mp else {}))
-            for k, p in params.items():
-                u = updates[k]
-                if mask is not None and mask.get(k) is not None:
-                    u = u * mask[k]
-                p.add_(u)
+            if optimizer.apply is not None:
+                opt_state = optimizer.apply(grads, state.opt_state, params,
+                                            norm=norm, mask=mask)
+            else:
+                updates, opt_state = optimizer.update(
+                    masked(grads, mask), state.opt_state, params,
+                    **({"norm": norm} if mp else {}))
+                for k, u in masked(updates, mask).items():
+                    params[k].add_(u)
         metrics = {"loss": loss_sum, "score": score_sum, "grad_norm": norm}
         return TrainState(model, opt_state, state.step + 1), metrics
 

@@ -13,7 +13,10 @@ An optimizer is a pair of functions over name -> tensor dicts, as in optax:
 ``init(params) -> state`` and ``update(grads, state, params) -> (updates,
 state)``; the caller adds the updates. The moments are updated in place (the
 port keeps one copy of each, as PyTorch optimizers do). The step count is a
-host integer, so the schedule never waits for the device.
+host integer, so the schedule never waits for the device. The reference
+chain (:func:`make_optimizer`) also has ``apply``, which updates the
+parameters itself: on the card in one pass over every parameter
+(ops/multi_tensor.adamw), on the CPU through ``update``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.layers import all_reduce
+from ..ops import multi_tensor
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -31,9 +35,14 @@ class Optimizer(NamedTuple):
     """``init(params) -> state``; ``update(grads, state, params) -> (updates,
     state)``. A chain that a train step runs under Megatron mp > 1 must also
     take ``norm=``, the gradients' global norm over the whole model
-    (:func:`make_optimizer`'s does): no rank can compute it alone."""
+    (:func:`make_optimizer`'s does): no rank can compute it alone.
+    ``apply(grads, state, params, *, norm, mask) -> state``, where given,
+    does what ``update`` and the caller's masked add of the updates do, in
+    place: ``mask`` maps names to 0/1 tensors or None (pass-through) and
+    multiplies the gradients before the clip and the updates after it."""
     init: Callable
     update: Callable
+    apply: Callable | None = None
 
 
 class AdamWState(NamedTuple):
@@ -67,6 +76,20 @@ def _moments(state, grads: Tensors, b1: float, b2: float) -> None:
         v.copy_(b2 * v + (1 - b2) * g * g)
 
 
+def _adamw_scalars(learning_rate, count: int, b1: float, b2: float,
+                   weight_decay: float, correct_bias: bool):
+    """(step, decay), the fp32 host scalars of AdamW's update number
+    ``count + 1``."""
+    lr = _lr(learning_rate, count)
+    if correct_bias:
+        t = _f32(count + 1)
+        step = _f32(lr * np.sqrt(_f32(1) - _f32(b2) ** t)
+                    / (_f32(1) - _f32(b1) ** t))
+    else:
+        step = lr
+    return step, _f32(lr * _f32(weight_decay))
+
+
 def adamw_pt(learning_rate: float | Callable[[int], float], b1: float = 0.9,
              b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 1e-4,
              correct_bias: bool = True,
@@ -80,16 +103,10 @@ def adamw_pt(learning_rate: float | Callable[[int], float], b1: float = 0.9,
         return AdamWState(0, _zeros(params), _zeros(params))
 
     def update(grads: Tensors, state: AdamWState, params: Tensors):
-        lr = _lr(learning_rate, state.count)
         count = state.count + 1
         _moments(state, grads, b1, b2)
-        if correct_bias:
-            t = _f32(count)
-            step = _f32(lr * np.sqrt(_f32(1) - _f32(b2) ** t)
-                        / (_f32(1) - _f32(b1) ** t))
-        else:
-            step = lr
-        decay = _f32(lr * _f32(weight_decay))
+        step, decay = _adamw_scalars(learning_rate, state.count, b1, b2,
+                                     weight_decay, correct_bias)
         updates = {}
         for k, p in params.items():
             new_p = p - float(step) * state.mu[k] / (state.nu[k].sqrt() + eps)
@@ -202,9 +219,11 @@ def freeze_mask(params: Tensors, fixed_layers: list[str]) -> dict | None:
                 else None) for k, p in params.items()}
 
 
-def global_norm(tensors: Iterable[torch.Tensor], *, group=None,
+def global_norm(tensors: Iterable[torch.Tensor], masks=None, *, group=None,
                 sharded: Iterable[bool] | None = None) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, on the device.
+    """sqrt of the sum of squares of every element, on the device, each
+    tensor times its entry of ``masks`` (None, or a list with None for a
+    pass-through): ops/multi_tensor.norm.
 
     Under Megatron mp (``group``, the mp process group) the tensors flagged
     in ``sharded`` are this rank's shards: their sums of squares are summed
@@ -212,13 +231,14 @@ def global_norm(tensors: Iterable[torch.Tensor], *, group=None,
     once, so every rank gets the whole model's norm (what GSPMD gives the
     JAX package). The per-tensor sums are added in the tensors' order
     either way."""
-    sq = [(t.float() * t.float()).sum() for t in tensors]
     idx = [i for i, s in enumerate(sharded or ()) if s]
+    reduce = None
     if group is not None and idx:
-        shards = all_reduce(torch.stack([sq[i] for i in idx]), group)
-        for j, i in enumerate(idx):
-            sq[i] = shards[j]
-    return torch.sqrt(sum(sq))
+        def reduce(sq):
+            at = torch.tensor(idx, device=sq.device)
+            return sq.index_copy(0, at, all_reduce(sq.index_select(0, at),
+                                                   group))
+    return multi_tensor.norm(tensors, masks, reduce)
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float,
@@ -236,21 +256,53 @@ def clip_by_global_norm(grads: Tensors, max_norm: float,
             for k, g in grads.items()}
 
 
+def masked(tensors: Tensors, mask) -> dict:
+    """``tensors`` times ``mask`` (name -> 0/1 tensor, None or a missing
+    name: pass-through; None: no mask)."""
+    if mask is None:
+        return dict(tensors)
+    return {k: t if mask.get(k) is None else t * mask[k]
+            for k, t in tensors.items()}
+
+
 def make_optimizer(names: Iterable[str], schedule, *, b1=0.9, b2=0.999,
                    eps=1e-6, weight_decay=1e-4, correct_bias=True,
                    clip_norm: float = 1.0) -> Optimizer:
     """The reference chain (optim.py:132-146): clip_by_global_norm(1.0),
     then AdamW with pytorch_transformers semantics and no decay on biases
     and LayerNorms. Its ``update`` takes the gradients' global norm as
-    ``norm`` where the caller has computed it (train/loop.py does)."""
+    ``norm`` where the caller has computed it; its ``apply`` (the train
+    step's, train/loop.py) always does. ``apply`` launches
+    ops/multi_tensor.adamw on CUDA tensors (fp32 only: it raises on any
+    other), and runs ``update`` and the masked ``p.add_`` on CPU tensors;
+    the two are bit-equal on the card."""
+    decay_mask = no_decay_mask(names)
     adam = adamw_pt(schedule, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                    correct_bias=correct_bias, decay_mask=no_decay_mask(names))
+                    correct_bias=correct_bias, decay_mask=decay_mask)
 
     def update(grads, state, params, norm=None):
         return adam.update(clip_by_global_norm(grads, clip_norm, norm), state,
                            params)
 
-    return Optimizer(adam.init, update)
+    @torch.no_grad()
+    def apply(grads, state: AdamWState, params, *, norm, mask=None):
+        if next(iter(params.values())).device.type == "cpu":
+            updates, state = update(masked(grads, mask), state, params, norm)
+            for k, u in masked(updates, mask).items():
+                params[k].add_(u)
+            return state
+        step, decay = _adamw_scalars(schedule, state.count, b1, b2,
+                                     weight_decay, correct_bias)
+        names = list(params)
+        multi_tensor.adamw(
+            params.values(), [state.mu[k] for k in names],
+            [state.nu[k] for k in names], [grads[k] for k in names],
+            None if mask is None else [mask.get(k) for k in names],
+            [weight_decay > 0 and decay_mask[k] for k in names], norm=norm,
+            b1=b1, b2=b2, eps=eps, step=step, decay=decay, max_norm=clip_norm)
+        return AdamWState(state.count + 1, state.mu, state.nu)
+
+    return Optimizer(adam.init, update, apply)
 
 
 def fastforward_count(opt_state, step: int):

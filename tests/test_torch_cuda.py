@@ -2039,3 +2039,243 @@ def test_native_gather_is_the_python_path_bit_for_bit(cuda, tmp_path, norm, glob
     for a, b in zip(rd.gather(idx, **kw), rd.gather(idx, native=False, **kw)):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# the train step's multi-tensor passes (csrc/multi_tensor.cu)
+# ---------------------------------------------------------------------------
+
+from clg_vqa_tpu_torch.ops import multi_tensor as MT    # noqa: E402
+from clg_vqa_tpu_torch.train import optim as TO          # noqa: E402
+
+# 1 element, odd and misaligned lengths, a chunk and one more, and UC2's
+# word embedding (250002 x 768, 2,930 chunks)
+MT_RAGGED = [("tok.weight", (1,)), ("a.bias", (7,)), ("b.weight", (13, 5)),
+             ("ln.weight", (1023,)), ("ln.bias", (4097,)),
+             ("c.weight", (65537,)), ("word.weight", (250002, 768)),
+             ("d.bias", (3,))]
+# more tensors than one accumulation launch takes
+MT_MANY = [(f"m{i}.{'bias' if i % 3 == 0 else 'weight'}", (i % 37 + 1, 3))
+           for i in range(450)]
+
+
+@pytest.fixture(scope="module")
+def uc2_param_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    model = UC2(UC2Config(), device="cuda", seed=0)
+    shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _mt_shapes(kind, request):
+    if kind == "uc2":
+        return request.getfixturevalue("uc2_param_shapes")
+    return {"ragged": MT_RAGGED, "misaligned": MT_RAGGED, "many": MT_MANY}[kind]
+
+
+def _mt_values(shapes, dev, gen, *, misaligned=False):
+    """Random fp32 tensors of ``shapes``, each of its own magnitude; where
+    ``misaligned``, views of one buffer starting off 16 bytes."""
+    out, offset = [], 1
+    flat = (torch.empty(sum(int(np.prod(s)) for _, s in shapes) + 1,
+                        device=dev) if misaligned else None)
+    for i, (_, s) in enumerate(shapes):
+        t = torch.randn(s, device=dev, generator=gen) * 4.0 ** (i % 5 - 2)
+        if misaligned:
+            n = t.numel()
+            t = flat[offset:offset + n].view(s).copy_(t)
+            offset += n
+        out.append(t)
+    return out
+
+
+def _mt_masks(shapes, dev, gen):
+    return [(torch.rand(s, device=dev, generator=gen) > 0.4).float()
+            if n.endswith("weight") else None for n, s in shapes]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "many", "uc2"])
+@pytest.mark.parametrize("acc", [1, 2, 3])
+def test_multi_tensor_accumulate_is_eager_bit_for_bit(cuda, request, kind, acc):
+    """Over acc microbatches, some gradients None and one microbatch's
+    sources off 16 bytes, the buffers equal zeros_like + add_(g / acc) on
+    the card bit for bit, whatever the last step left in them."""
+    shapes = _mt_shapes(kind, request)
+    gen = torch.Generator(cuda).manual_seed(acc)
+    buf = MT.GradBuffers([torch.empty(s, device=cuda) for _, s in shapes])
+    buf.flat.fill_(7.0)
+    want = [torch.zeros_like(v) for v in buf.views]
+    for a in range(acc):
+        gs = _mt_values(shapes, cuda, gen, misaligned=a == 1)
+        gs = [None if (i + a) % 5 == 0 else g for i, g in enumerate(gs)]
+        before = MT.accumulate.launches
+        MT.accumulate(buf, gs, first=a == 0, n=acc)
+        assert MT.accumulate.launches == before + -(-len(shapes) // MT.MAX_SOURCES)
+        for w, g in zip(want, gs):
+            if g is not None:
+                w.add_(g / acc)
+        del gs
+    torch.cuda.synchronize()
+    for (name, _), v, w in zip(shapes, buf.views, want):
+        assert torch.equal(_bits(v), _bits(w)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "misaligned", "many", "uc2"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_multi_tensor_norm_sums_match_and_repeat(cuda, request, kind, masked):
+    """Each tensor's sum of squares within 1e-6 relative of (t * t).sum()
+    and of the fp64 sum, the norm the root of their ordered sum, and two
+    launches bit-identical (no atomics)."""
+    shapes = _mt_shapes(kind, request)
+    gen = torch.Generator(cuda).manual_seed(11)
+    ts = _mt_values(shapes, cuda, gen, misaligned=kind == "misaligned")
+    masks = _mt_masks(shapes, cuda, gen) if masked else None
+    runs = []
+    for _ in range(2):
+        sums = []
+        before = MT.norm.launches
+        out = MT.norm(ts, masks, reduce=lambda sq: sums.append(sq.clone()) or sq)
+        assert MT.norm.launches == before + 3
+        runs.append((out, sums[0]))
+    torch.cuda.synchronize()
+    (out, sq), (out2, sq2) = runs
+    assert torch.equal(_bits(out), _bits(out2)) and torch.equal(_bits(sq), _bits(sq2))
+    xs = ts if masks is None else [t if m is None else t * m
+                                   for t, m in zip(ts, masks)]
+    ref32 = torch.stack([(x * x).sum() for x in xs])
+    ref64 = torch.stack([(x.double() * x.double()).sum() for x in xs])
+    assert ((sq.double() - ref64).abs() <= 1e-6 * ref64).all()
+    assert ((sq - ref32).abs() <= 1e-6 * ref32).all()
+    assert torch.equal(_bits(out), _bits(torch.sqrt(sum(sq.unbind()))))
+    assert torch.equal(out, TO.global_norm(ts, masks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "misaligned", "uc2"])
+@pytest.mark.parametrize("target", [0.5, 3.0])             # clip idle / engaged
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("correct_bias", [True, False])
+def test_multi_tensor_adamw_is_the_plain_chain_bit_for_bit(
+        cuda, request, kind, target, masked, correct_bias):
+    """make_optimizer's apply on the card equals its update plus the masked
+    p.add_ on the card, bit for bit in p, mu and nu, over two steps, given
+    the same norm: the clip engaged and idle, with and without a 40% grad
+    mask, with and without bias correction, decay off for biases and LN."""
+    shapes = _mt_shapes(kind, request)
+    names = [n for n, _ in shapes]
+    gen = torch.Generator(cuda).manual_seed(3)
+    mis = kind == "misaligned"
+    p0 = _mt_values(shapes, cuda, gen, misaligned=mis)
+    mine = dict(zip(names, p0))
+    ref = {k: p.clone() for k, p in mine.items()}
+    opt = TO.make_optimizer(names, TO.warmup_linear_schedule(1e-2, 0, 10),
+                            weight_decay=0.01, correct_bias=correct_bias)
+    st_mine, st_ref = opt.init(mine), opt.init(ref)
+    mask = dict(zip(names, _mt_masks(shapes, cuda, gen))) if masked else None
+    masks = None if mask is None else list(mask.values())
+    for _ in range(2):
+        grads = dict(zip(names, _mt_values(shapes, cuda, gen, misaligned=mis)))
+        scale = target / TO.global_norm(grads.values(), masks)
+        for g in grads.values():
+            g.mul_(scale)
+        norm = TO.global_norm(grads.values(), masks)
+        before = MT.adamw.launches
+        st_mine = opt.apply(grads, st_mine, mine, norm=norm, mask=mask)
+        assert MT.adamw.launches == before + 1
+        masked_g = {k: g if mask is None or mask[k] is None else g * mask[k]
+                    for k, g in grads.items()}
+        updates, st_ref = opt.update(masked_g, st_ref, ref, norm=norm)
+        for k, p in ref.items():
+            u = updates[k]
+            if mask is not None and mask[k] is not None:
+                u = u * mask[k]
+            p.add_(u)
+        assert bool(norm < 1.0) == (target < 1.0), norm.item()
+    torch.cuda.synchronize()
+    assert st_mine.count == st_ref.count == 2
+    for k in names:
+        assert torch.equal(_bits(mine[k]), _bits(ref[k])), k
+        assert torch.equal(_bits(st_mine.mu[k]), _bits(st_ref.mu[k])), k
+        assert torch.equal(_bits(st_mine.nu[k]), _bits(st_ref.nu[k])), k
+
+
+@pytest.mark.cuda
+def test_multi_tensor_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA tensor the kernels do not take raises; nothing falls back."""
+    names = ["a.weight", "a.bias"]
+    opt = TO.make_optimizer(names, 1e-3)
+    good = {k: torch.randn(4, 3, device=cuda) for k in names}
+    norm = torch.ones((), device=cuda)
+    for bad in (good["a.bias"].bfloat16(),
+                torch.randn(4, 3, 2, device=cuda)[:, :, 0],
+                good["a.bias"].cpu()):
+        params = dict(good, **{"a.bias": bad})
+        st = opt.init(good)
+        with pytest.raises(ValueError):
+            opt.apply(good, st, params, norm=norm)
+    with pytest.raises(ValueError):
+        MT.norm([good["a.weight"].half(), good["a.bias"]])
+    buf = MT.GradBuffers(list(good.values()))
+    with pytest.raises(ValueError):
+        MT.accumulate(buf, [good["a.weight"].bfloat16(), None], first=True, n=2)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_kernels_is_the_eager_step_bit_for_bit(cuda):
+    """A tiny UC2's fp32 step under a 40% grad mask: through apply (one
+    adamw launch a step, the norm once) and through update plus the add
+    loop, the same metrics and parameters bit for bit over 3 steps."""
+    from clg_vqa_tpu_torch.config import UC2Config
+    from clg_vqa_tpu_torch.models.uc2 import UC2
+    from clg_vqa_tpu_torch.train import loop as TLoop
+    cfg = UC2Config(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                    intermediate_size=64, v_feature_size=16, num_locs=7,
+                    pooler_size=32, clf_hidden_size=32, num_labels=8)
+    r = np.random.RandomState(0)
+    batches = [{"input_ids": torch.from_numpy(r.randint(3, 64, (2, 4, 6))),
+                "input_mask": torch.ones(2, 4, 6, dtype=torch.int32),
+                "features": torch.from_numpy(r.randn(2, 4, 4, 16).astype(np.float32)),
+                "locs": torch.from_numpy(r.rand(2, 4, 4, 7).astype(np.float32)),
+                "image_mask": torch.ones(2, 4, 4, dtype=torch.int32),
+                "labels": torch.from_numpy(r.randint(0, 8, (2, 4)))}
+               for _ in range(3)]
+    D = torch.from_numpy(r.rand(8, 8).astype(np.float32)).to(cuda)
+    runs = []
+    for with_apply in (True, False):
+        model = UC2(cfg, device=cuda, seed=0)
+        params = dict(model.named_parameters())
+        gm = torch.Generator(cuda).manual_seed(1)
+        mask = {k: (torch.rand(p.shape, device=cuda, generator=gm) > 0.4).float()
+                if k.endswith("weight") else None for k, p in params.items()}
+        opt = TO.make_optimizer(list(params), 1e-2, weight_decay=0.01)
+        if not with_apply:
+            opt = opt._replace(apply=None)
+        step = TLoop.make_train_step(opt, D, semantic_lambda=10.0, top_k=4,
+                                     compute_dtype=None, grad_mask=mask)
+        state = TLoop.TrainState(model, opt.init(params), 0)
+        counts = (MT.accumulate.launches, MT.norm.launches, MT.adamw.launches)
+        metrics = []
+        for i, b in enumerate(batches):
+            state, m = step(state, {k: v.to(cuda) for k, v in b.items()}, seed=i)
+            metrics.append(m)
+        counts = [now - was for now, was in zip(
+            (MT.accumulate.launches, MT.norm.launches, MT.adamw.launches), counts)]
+        runs.append((metrics, {k: p.detach().clone() for k, p in params.items()},
+                     counts))
+    torch.cuda.synchronize()
+    (m1, p1, c1), (m2, p2, c2) = runs
+    assert c1 == [2 * 3, 3 * 3, 3] and c2 == [2 * 3, 2 * 3 * 3, 0]
+    for a, b in zip(m1, m2):
+        assert all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+    assert all(torch.equal(_bits(p1[k]), _bits(p2[k])) for k in p1)
