@@ -29,14 +29,12 @@ def readings(root: str, cell_name: str, seed: int, seconds: float, device) -> di
     the cell's ``judge`` compares for each side."""
     import torch
     from portbench.harness import finetune, manifest
-    from portbench.harness.runner import KINDS, Run
-    from portbench.reference.model import dims
+    from portbench.harness.runner import KINDS, new_run
     from portbench.reference.precision import FP8
     cell = manifest.cell(root, cell_name)
     kind = KINDS[cell.traffic["kind"]]
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
-        run = Run(cell, dims(cell.config), seed, seconds, False,
-                  torch.device(device), tmp)
+        run = new_run(root, cell, seed, seconds, False, torch.device(device), tmp)
         st = kind.setup(run)
         if kind is not finetune:
             kind.window(run, st)

@@ -13,10 +13,8 @@ import numpy as np
 import torch
 
 from ..reference import data as ref_data
-from ..reference.model import forward
 from ..reference.precision import FP32, fp32_products
 from . import checks, program, world as world_mod
-from . import weights as W
 from .seeds import sub
 from .trace import profiled, reduce
 
@@ -39,8 +37,7 @@ def setup(run) -> State:
     st.sets = [program.dataset(st.world, range(i * q, (i + 1) * q), d, store, tok)
                for i in range(len(langs))]
     st.bank = program.bank(store, d, run.device)
-    st.model = program.model(run.cell, d, W.make_weights(
-        d, sub(run.seed, "weights"), run.device), run.device)
+    st.model = run.model()
     st.labels = program.label_names(d)
     st.passes = 0
     for _ in range(t["warm_passes"]):
@@ -106,12 +103,13 @@ def checked(run, st):
 
 
 def reference_logits(run, world, rows, prec=FP32) -> torch.Tensor:
-    w0 = W.make_weights(run.d, sub(run.seed, "weights"), run.device)
+    w0 = run.weights()
     out = []
     with torch.no_grad(), fp32_products():
         for s in range(0, len(rows), BLOCK):
             b = ref_data.batch(world, rows[s:s + BLOCK], run.d, run.device)
-            out.append(forward(run.cell.config, w0, b, prec=prec))
+            out.append(run.family.reference.forward(run.cell.config, w0, b,
+                                                    prec=prec))
     return torch.cat(out)
 
 

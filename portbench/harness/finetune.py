@@ -84,8 +84,7 @@ def setup(run) -> State:
     ds = program.dataset(st.world, range(t["qa"]), d, store,
                          program.tokenizer(d))
     st.bank = program.bank(store, d, run.device)
-    model = program.model(run.cell, d, W.make_weights(
-        d, sub(run.seed, "weights"), run.device), run.device)
+    model = run.model()
     warmup, total = horizon(t)
     sched = warmup_linear_schedule(t["lr"], warmup, total)
     params = dict(model.named_parameters())
@@ -201,17 +200,16 @@ def reference_inputs(run, st) -> dict:
         steps.append(mbs)
     return {"steps": steps, "unmatched": unmatched,
             "seeds": [step_seed(run.seed, s) for s in range(len(steps))],
-            "w0": W.make_weights(d, sub(run.seed, "weights"), run.device),
+            "w0": run.weights(),
             "D": W.make_distance(d["labels"], sub(run.seed, "prior"), run.device)}
 
 
 def reference(run, inputs: dict, prec=FP32, rows: float = 1.0) -> dict:
     t = run.cell.traffic
     with fp32_products():
-        return train_steps(run.cell.config, inputs["w0"], inputs["steps"],
-                           inputs["seeds"], inputs["D"], lr=lr(t),
-                           recipe=recipe(t), prec=prec, rows=rows,
-                           keep_grad=True)
+        return train_steps(run.family.reference, run.cell.config, inputs["w0"],
+                           inputs["steps"], inputs["seeds"], inputs["D"], lr=lr(t),
+                           recipe=recipe(t), prec=prec, rows=rows, keep_grad=True)
 
 
 FAULT = "half_batch"

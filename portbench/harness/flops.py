@@ -2,18 +2,18 @@
 shapes alone."""
 from __future__ import annotations
 
+import os
+
+from . import manifest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 def forward_flops(d: dict) -> float:
     """Matrix and attention products of one sample's forward (2 FLOPs a
-    multiply-add): per layer the q, k, v, o and FFN products over S = text +
-    regions positions and QK^T and PV; the region and location embeddings;
-    the pooler and the classifier. ``d``: reference.model.dims."""
-    S, H, I = d["text"] + d["regions"], d["H"], d["ffn"]
-    layer = 2 * S * (4 * H * H + 2 * H * I) + 4 * S * S * H
-    emb = 2 * d["regions"] * (d["feat"] + d["locs"]) * H
-    head = 2 * (H * d["pooler"] + d["pooler"] * d["clf_hidden"]
-                + d["clf_hidden"] * d["labels"])
-    return d["layers"] * layer + emb + head
+    multiply-add), as the family ``d["model"]`` counts them
+    (portbench/families/). ``d``: the family's dims."""
+    return manifest.family(ROOT, d["model"]).forward_flops(d)
 
 
 def train_flops(d: dict) -> float:

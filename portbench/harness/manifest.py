@@ -1,10 +1,13 @@
 """BENCHMARK.json and the files it names.
 
 A cell is found by its name: its configuration's file (``file`` in
-``configs``), its traffic mix in ``portbench/traffic/<traffic>.json``, its
-limits in ``portbench/workloads/<cell>.json``, and each per-layer metric's
-reader in ``portbench/metrics/<metric>.py``. Adding a cell, a configuration,
-a traffic mix or a per-layer metric adds files and manifest entries only."""
+``configs``), the configuration's model family in
+``portbench/families/<model_name>.py``, its traffic mix in
+``portbench/traffic/<traffic>.json``, its limits in
+``portbench/workloads/<cell>.json``, and each per-layer metric's reader in
+``portbench/metrics/<metric>.py``. Adding a cell, a configuration, a model
+family, a traffic mix or a per-layer metric adds files and manifest entries
+only."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +16,10 @@ import json
 import os
 
 BENCH = "portbench"      # the benchmark's directory in a checkout
+FAMILY_MEMBERS = ("dims", "layout", "model", "forward_flops", "reference", "tiny")
+# a family file's path -> its module, loaded once a process, so that the run,
+# the FLOP count (flops.forward_flops) and a test's patch see one module
+_families: dict = {}
 
 
 @dataclasses.dataclass
@@ -57,12 +64,30 @@ def cell(root: str, name: str) -> Cell:
     return Cell(name, config, path, traffic, limits, e2e, per_layer)
 
 
+def _load(path: str, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(
+        prefix + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(root: str, name: str):
     """``read(ctx)`` of the per-layer metric ``name``: its value, or None
     where it finds nothing to read."""
     path = os.path.join(root, BENCH, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "portbench_metric_", name).read
+
+
+def family(root: str, name: str):
+    """The model family ``name`` (a configuration's ``model_name``) of the
+    checkout at ``root``: the module portbench/families/<name>.py, loaded
+    once a process (portbench/families/__init__.py lists its members)."""
+    path = os.path.abspath(os.path.join(root, BENCH, "families", name + ".py"))
+    if path not in _families:
+        mod = _load(path, "portbench_family_", name)
+        missing = [m for m in FAMILY_MEMBERS if not hasattr(mod, m)]
+        if missing:
+            raise AttributeError(f"family {name!r} ({path}) lacks {missing}")
+        _families[path] = mod
+    return _families[path]

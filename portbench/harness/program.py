@@ -1,6 +1,6 @@
-"""The program under test, as a user builds it: the port's model from the
-configuration file with the benchmark's weights loaded by name, its
-tokenizer, and its GQA dataset over the store."""
+"""The program under test, as a user builds it: the port's model (built by
+its family) with the benchmark's weights loaded by name, its tokenizer, and
+its GQA dataset over the store."""
 from __future__ import annotations
 
 import torch
@@ -10,15 +10,9 @@ def dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def model(cell, d: dict, weights: dict, device):
-    """The port's UC2 or M3P from ``cell``'s configuration file, holding
-    ``weights`` (float32, by checkpoint name)."""
-    from clg_vqa_tpu_torch.config import M3PConfig, UC2Config
-    from clg_vqa_tpu_torch.models.m3p import M3P
-    from clg_vqa_tpu_torch.models.uc2 import UC2
-    cls, ccls = (M3P, M3PConfig) if d["m3p"] else (UC2, UC2Config)
-    m = cls(ccls.from_json(cell.config_path, num_labels=d["labels"]),
-            device=device, seed=0)
+def holding(m: torch.nn.Module, weights: dict) -> torch.nn.Module:
+    """The port's model ``m`` (a family's, portbench/families/) holding
+    ``weights`` (float32, by checkpoint name) in place of its own init."""
     params = dict(m.named_parameters())
     if set(params) != set(weights):
         raise RuntimeError(f"the model's weights differ from the benchmark's: "

@@ -12,8 +12,9 @@ import types
 
 import torch
 
-from ..reference.model import dims
 from . import checks, evaluate, finetune, flops, host, manifest, peaks, serve
+from . import weights as W
+from .seeds import sub
 
 KINDS = {"finetune": finetune, "eval": evaluate, "serve": serve}
 FORBIDDEN = ("jax", "jaxlib", "flax", "clg_vqa_tpu")
@@ -21,13 +22,33 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "clg_vqa_tpu")
 
 @dataclasses.dataclass
 class Run:
+    """One run of a cell: the kinds reach the model, its weights and its
+    reference only through the family here."""
     cell: manifest.Cell
-    d: dict
+    family: types.ModuleType        # portbench/families/<model_name>.py
+    d: dict                         # family.dims(cell.config)
     seed: int
     seconds: float
     trace: bool
     device: torch.device
     tmp: str = ""
+
+    def weights(self) -> dict:
+        """The run's weights, from its seed, on its device."""
+        return W.make_weights(self.family.layout(self.d), self.d,
+                              sub(self.seed, "weights"), self.device)
+
+    def model(self):
+        """The port's model holding the run's weights."""
+        return self.family.model(self.cell.config_path, self.d, self.weights(),
+                                 self.device)
+
+
+def new_run(root: str, cell: manifest.Cell, seed: int, seconds: float, trace: bool,
+            device: torch.device, tmp: str) -> Run:
+    fam = manifest.family(root, cell.config["model_name"])
+    return Run(cell, fam, fam.dims(cell.config), int(seed), float(seconds),
+               bool(trace), device, tmp)
 
 
 def forbidden_modules() -> list[str]:
@@ -45,8 +66,7 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, *,
     cuda = dev.type == "cuda"
     kind = KINDS[cell.traffic["kind"]]
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
-        run = Run(cell, dims(cell.config), int(seed), float(seconds), bool(trace),
-                  dev, tmp)
+        run = new_run(root, cell, seed, seconds, trace, dev, tmp)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         st = kind.setup(run)
@@ -55,6 +75,7 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, *,
         h0 = host.sample()
         win = kind.window(run, st)
         h1 = host.sample()
+        window_peak = torch.cuda.max_memory_allocated() if cuda else 0
         tr = kind.traced(run, st) if trace else None
         print(host.report(h0, h1), file=sys.stderr)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -66,7 +87,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool, *,
     correct, compared = checks.verdict(readings, cell.limits)
     metrics = {}
     if not trace:
-        values = dict(win["metrics"], setup_s=setup_s)
+        values = dict(win["metrics"], setup_s=setup_s,
+                      memory_peak_gib=window_peak / 2**30)
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:

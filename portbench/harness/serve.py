@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from . import evaluate, program, world as world_mod
-from . import weights as W
 from .seeds import sub
 from .trace import profiled, reduce
 
@@ -38,8 +37,7 @@ def setup(run) -> State:
     st.world = world_mod.make(d, t, run.seed, int(st.offsets[-1]),
                               device=run.device, labels=False)
     world_mod.write_store(st.world, run.tmp)
-    st.model = program.model(run.cell, d, W.make_weights(
-        d, sub(run.seed, "weights"), run.device), run.device)
+    st.model = run.model()
     st.pred = Predictor(st.model, program.reader(st.world), program.tokenizer(d),
                         program.label_names(d), max_seq_length=d["text"],
                         max_region_num=d["regions"],

@@ -12,7 +12,8 @@ distinct answers among 256 questions (seeds 11-18, fp32, my CPU runs), so
 no answer of a seed lies near a tie and a change of precision moves none.
 At 0.05 attention is selective and answers spread as a trained model's do
 (9 to 21 of 256). Weights are keyed by the port's checkpoint names, the
-format a user loads."""
+format a user loads; each family's ``layout`` (portbench/families/) lists
+them with their init."""
 from __future__ import annotations
 
 import math
@@ -23,55 +24,16 @@ STD = 0.02
 STD_ENCODER = 0.05
 
 
-def layout(d: dict) -> list[tuple[str, tuple, str]]:
-    """(name, shape, init) of every weight of the model ``d`` describes
-    (reference.model.dims); init is normal, encoder (a block's Linear),
-    zeros, ones or xavier."""
-    H, F, L = d["H"], d["feat"], d["locs"]
-    out = [("embeddings.word", (d["vocab"], H), "normal"),
-           ("embeddings.position", (d["max_pos"], H), "normal")]
-
-    def lin(name, i, o, init="normal"):
-        out.extend([(f"{name}.weight", (o, i), init), (f"{name}.bias", (o,), "zeros")])
-
-    def ln(name, n=H):
-        out.extend([(f"{name}.weight", (n,), "ones"), (f"{name}.bias", (n,), "zeros")])
-
-    if d["m3p"]:
-        ln("embeddings.ln")
-        lin("embeddings.image", F, H)
-        lin("embeddings.loc", L, H)
-        ln("embeddings.img_ln")
-    else:
-        out.append(("embeddings.token_type", (d["type_vocab"], H), "normal"))
-        ln("embeddings.ln")
-        lin("embeddings.image", F, H)
-        lin("embeddings.loc", L, H)
-        for n in ("image_ln", "loc_ln", "v_ln"):
-            ln(f"embeddings.{n}")
-    for i in range(d["layers"]):
-        p = f"encoder.{i}"
-        for n in "qkvo":
-            lin(f"{p}.attn.{n}", H, H, "encoder")
-        ln(f"{p}.ln1")
-        lin(f"{p}.ffn.w1", H, d["ffn"], "encoder")
-        lin(f"{p}.ffn.w2", d["ffn"], H, "encoder")
-        ln(f"{p}.ln2")
-    lin("pooler", H, d["pooler"])
-    lin("classifier.fc1", d["pooler"], d["clf_hidden"], "xavier")
-    ln("classifier.ln", d["clf_hidden"])
-    lin("classifier.fc2", d["clf_hidden"], d["labels"], "xavier")
-    return out
-
-
-def make_weights(d: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """{name: float32 tensor on ``device``}: one standard normal draw for
-    every normal-initialised weight, scaled by leaf, and one uniform draw
-    for the xavier ones."""
-    spec = layout(d)
+def make_weights(spec: list, d: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """{name: float32 tensor on ``device``} of the family's layout ``spec``
+    ([(name, shape, init)] in draw order; ``d``: the family's dims). Inits:
+    normal (0.02), padded (normal with row ``d["pad"]`` zero), encoder
+    (normal at 0.05, a block's Linear), xavier (uniform), zeros, ones. One
+    standard normal draw serves every normal-initialised weight, scaled by
+    leaf, and one uniform draw the xavier ones."""
     g = torch.Generator(device).manual_seed(seed)
-    drawn = {"normal": ("normal", STD), "encoder": ("normal", STD_ENCODER),
-             "xavier": ("uniform", None)}
+    drawn = {"normal": ("normal", STD), "padded": ("normal", STD),
+             "encoder": ("normal", STD_ENCODER), "xavier": ("uniform", None)}
     numel = {"normal": 0, "uniform": 0}
     for _, s, i in spec:
         if i in drawn:
@@ -87,10 +49,11 @@ def make_weights(d: dict, seed: int, device) -> dict[str, torch.Tensor]:
             t = buf[kind][at[kind]:at[kind] + n].view(shape)
             at[kind] += n
             t = t * (std if std else math.sqrt(6.0 / sum(shape)))
+            if init == "padded":
+                t[d["pad"]] = 0.0
         else:
             t = (torch.ones if init == "ones" else torch.zeros)(shape, device=device)
         out[name] = t
-    out["embeddings.word"][d["pad"]] = 0.0
     return out
 
 

@@ -1,4 +1,5 @@
-"""UC2 and M3P with the GQA classifier head, in plain float32 torch.
+"""UC2 and M3P with the GQA classifier head, in plain float32 torch: the
+reference of the families ``uc2`` and ``m3p`` (portbench/families/).
 
 UC2 (Zhou et al., CVPR 2021; VOLTA's uc2_base.json): XLM-R base run as a
 12-block post-LN transformer over [text (40); image regions (36)]. Text
@@ -37,16 +38,9 @@ CLF_RATE = 0.1          # BertForVLTasks' dropout before the classifier
 M3P_EPS = 1e-12         # M3P's LayerNorm eps, hard-coded in its model code
 
 
-def dims(cfg: dict) -> dict:
-    """The numbers the reference needs, read from a configuration file."""
-    m3p = cfg["model_name"] == "m3p"
-    H = cfg["hidden_size"]
+def _shared(cfg: dict) -> dict:
     return dict(
-        m3p=m3p, H=H,
-        heads=cfg["n_heads"] if m3p else cfg["num_attention_heads"],
-        layers=cfg["n_layers"] if m3p else len(cfg["tt_attn_sublayers"]),
-        ffn=4 * H if m3p else cfg["intermediate_size"],
-        eps=M3P_EPS if m3p else cfg["layer_norm_eps"],
+        model=cfg["model_name"], H=cfg["hidden_size"],
         pad=cfg["pad_token_id"], vocab=cfg["vocab_size"],
         locs=cfg["num_locs"], feat=cfg["v_feature_size"],
         norm=bool(cfg.get("norm_embeddings", False)),
@@ -54,6 +48,27 @@ def dims(cfg: dict) -> dict:
         regions=cfg["max_region_num"], max_pos=cfg["max_position_embeddings"],
         type_vocab=cfg.get("type_vocab_size", 1), pooler=cfg["pooler_size"],
         clf_hidden=cfg["clf_hidden_size"])
+
+
+def uc2_dims(cfg: dict) -> dict:
+    """The numbers the reference needs, read from a UC2 configuration file
+    (VOLTA's sublayer lists: one block a text-text attention sublayer)."""
+    return dict(_shared(cfg), heads=cfg["num_attention_heads"],
+                layers=len(cfg["tt_attn_sublayers"]),
+                ffn=cfg["intermediate_size"], eps=cfg["layer_norm_eps"])
+
+
+def m3p_dims(cfg: dict) -> dict:
+    """The numbers the reference needs, read from an M3P configuration file
+    (the FFN is 4 x hidden and the eps fixed, as the published model has
+    them)."""
+    return dict(_shared(cfg), heads=cfg["n_heads"], layers=cfg["n_layers"],
+                ffn=4 * cfg["hidden_size"], eps=M3P_EPS)
+
+
+def dims(cfg: dict) -> dict:
+    """The numbers the reference needs, by the file's ``model_name``."""
+    return {"uc2": uc2_dims, "m3p": m3p_dims}[cfg["model_name"]](cfg)
 
 
 def layer_norm(x, w, b, eps):
@@ -159,7 +174,7 @@ def forward(cfg: dict, w: dict, batch: dict, *, seed: int | None = None,
     [B, T]; features [B, R, F], locs [B, R, L], image_mask [B, R]. ``seed``
     None is the deterministic forward; an int keys every dropout site."""
     d = dims(cfg)
-    pooled = (_m3p_pooled if d["m3p"] else _uc2_pooled)(
+    pooled = {"uc2": _uc2_pooled, "m3p": _m3p_pooled}[d["model"]](
         w, batch, d, fold_seed(seed, 2), prec)
     if seed is not None:
         t = keep_threshold(CLF_RATE)
@@ -169,3 +184,11 @@ def forward(cfg: dict, w: dict, batch: dict, *, seed: int | None = None,
     h = ln(gelu(linear(pooled, w, "classifier.fc1", prec)), w, "classifier.ln",
            d["eps"])
     return linear(h, w, "classifier.fc2", prec)
+
+
+def decays(name: str) -> bool:
+    """Weight decay applies: not a bias, not under a LayerNorm module."""
+    *mods, leaf = name.split(".")
+    in_ln = any(m == "ln" or m.endswith("_ln") or m.startswith("ln")
+                for m in mods)
+    return not (leaf == "bias" or in_ln)

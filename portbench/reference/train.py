@@ -6,14 +6,14 @@ gradients divided by the number of microbatches and summed; the global
 norm clipped to 1.0 (g / ||g|| when ||g|| >= 1); pytorch_transformers'
 AdamW (eps outside the square root, the step ``lr * sqrt(1 - b2^t) / (1 -
 b1^t)``, the decoupled decay applied to the updated weight and scaled by
-the raw lr) with no decay on biases and LayerNorms. The semantic prior
+the raw lr) on the leaves that the model's ``decays`` names (UC2 and M3P:
+not biases and LayerNorms). The semantic prior
 (task_utils.py:418-421 of the recipe) is the top-k of the softmax dotted
 with the label's row of the distance matrix."""
 from __future__ import annotations
 
 import torch
 
-from .model import forward
 from .precision import FP32, Precision
 from .seeds import fold_seed
 
@@ -27,20 +27,14 @@ def gqa_loss(logits, labels, D, *, lam: float, top_k: int, num_labels: int):
     return num_labels * (ce + lam * sem)
 
 
-def decays(name: str) -> bool:
-    """Weight decay applies: not a bias, not under a LayerNorm module."""
-    *mods, leaf = name.split(".")
-    in_ln = any(m == "ln" or m.endswith("_ln") or m.startswith("ln")
-                for m in mods)
-    return not (leaf == "bias" or in_ln)
-
-
-def train_steps(cfg: dict, w0: dict, steps: list, seeds: list, D, *,
+def train_steps(model, cfg: dict, w0: dict, steps: list, seeds: list, D, *,
                 lr, recipe: dict, prec: Precision = FP32,
                 rows: float = 1.0, keep_grad: bool = False) -> dict:
-    """Run len(steps) optimizer steps from the weights ``w0``.
+    """Run len(steps) optimizer steps of the reference module ``model``
+    (its ``forward`` and ``decays``; e.g. reference/model.py) from the
+    weights ``w0``.
 
-    steps[s]: the microbatches of step s (dicts as :func:`forward` takes,
+    steps[s]: the microbatches of step s (dicts as ``model.forward`` takes,
     with ``labels``); seeds[s]: step s's seed; lr(count): the learning rate
     of the update after ``count`` completed ones. ``rows`` < 1 takes each
     microbatch's leading share of rows only (a planted fault: part of the
@@ -64,7 +58,7 @@ def train_steps(cfg: dict, w0: dict, steps: list, seeds: list, D, *,
             if rows < 1.0:
                 n = max(1, int(mb["labels"].shape[0] * rows))
                 mb = {k: t[:n] for k, t in mb.items()}
-            logits = forward(cfg, w, mb, seed=fold_seed(seed, a), prec=prec)
+            logits = model.forward(cfg, w, mb, seed=fold_seed(seed, a), prec=prec)
             loss = gqa_loss(logits, mb["labels"], D, lam=recipe["lambda"],
                             top_k=recipe["top_k"],
                             num_labels=logits.shape[-1])
@@ -92,7 +86,7 @@ def train_steps(cfg: dict, w0: dict, steps: list, seeds: list, D, *,
                 m[k].mul_(b1).add_(grads[k], alpha=1 - b1)
                 v2[k].mul_(b2).addcmul_(grads[k], grads[k], value=1 - b2)
                 new = w[k] - step * m[k] / (v2[k].sqrt() + eps)
-                if wd > 0 and decays(k):
+                if wd > 0 and model.decays(k):
                     new = new - rate * wd * new
                 w[k].copy_(new)
         del grads

@@ -13,7 +13,7 @@ SEEDS = (3_000_000_001, 3_000_000_002, 3_000_000_003)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["uc2-finetune", "m3p-finetune", "uc2-eval"])
+@pytest.mark.parametrize("cell", ["uc2-finetune", "m3p-finetune", "uc2-eval", "m3p-eval"])
 def test_the_control_fails_at_the_cells_size(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

@@ -1,14 +1,18 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program."""
+reference, each family's with it, imports nothing of the program."""
 import ast
+import glob
 import os
 
 import pytest
 
+from portbench.harness import manifest
 from portbench.harness.runner import forbidden_modules
 from portbench.tests.tiny import ROOT
 
 BENCH = os.path.join(ROOT, "portbench")
+FAMILIES = sorted(os.path.basename(p)[:-3] for p in glob.glob(
+    os.path.join(BENCH, "families", "[!_]*.py")))
 
 
 def _imports(path: str) -> set[str]:
@@ -33,6 +37,21 @@ def _sources(top: str):
 @pytest.mark.parametrize("path", sorted(_sources(BENCH)), ids=lambda p: os.path.relpath(p, BENCH))
 def test_no_module_imports_jax_or_the_jax_package(path):
     assert not _imports(path) & {"jax", "jaxlib", "flax", "clg_vqa_tpu"}
+
+
+def test_the_families_are_among_the_sources_checked():
+    assert FAMILIES and {os.path.join(BENCH, "families", f + ".py")
+                         for f in FAMILIES} <= set(_sources(BENCH))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_each_familys_reference_lies_under_the_reference(name):
+    """A family's ``reference`` is a module of portbench/reference/, which
+    the next test holds to importing nothing of the program."""
+    ref = manifest.family(ROOT, name).reference
+    assert os.path.dirname(os.path.abspath(ref.__file__)) == os.path.join(BENCH,
+                                                                           "reference")
+    assert not _imports(ref.__file__) & {"clg_vqa_tpu_torch", "clg_vqa_tpu"}
 
 
 @pytest.mark.parametrize("path", sorted(_sources(os.path.join(BENCH, "reference"))),

@@ -64,7 +64,7 @@ def held_root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell", ["uc2-finetune", "m3p-finetune", "uc2-eval",
-                                  *HELD])
+                                  "m3p-eval", *HELD])
 def test_every_cell_has_its_files_and_metrics(cell, man, held_root):
     """A cell held out in portbench/pending/ keeps all its files, so putting
     it back takes manifest entries only."""
@@ -77,6 +77,19 @@ def test_every_cell_has_its_files_and_metrics(cell, man, held_root):
     for m in c.per_layer:
         assert callable(manifest.reader(root, m["name"]))
     assert set(c.limits) and all(v >= 0 for v in c.limits.values())
+
+
+def test_every_configuration_names_a_family_that_shrinks_it(man):
+    """Each configuration's ``model_name`` finds its family, whose ``tiny``
+    (the CPU tests' configurations, tests/tiny.py) keeps the family and
+    shrinks the widths and depth."""
+    for c in man["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            cfg = json.load(f)
+        fam = manifest.family(ROOT, cfg["model_name"])
+        d, t = fam.dims(cfg), fam.dims(tiny.tiny_config(cfg))
+        assert t["model"] == d["model"] == cfg["model_name"]
+        assert t["H"] < d["H"] and t["layers"] < d["layers"] and t["vocab"] < d["vocab"]
 
 
 def test_a_throwaway_cell_config_traffic_and_metric_are_found(tmp_path):

@@ -124,7 +124,8 @@ def root(tmp_path_factory):
     return tiny.checkout(str(tmp_path_factory.mktemp("tiny")))
 
 
-@pytest.mark.parametrize("cell,names", [("uc2-finetune", TRAIN), ("uc2-eval", EVAL)])
+@pytest.mark.parametrize("cell,names", [("m3p-finetune", TRAIN), ("uc2-eval", EVAL),
+                                        ("m3p-eval", EVAL)])
 def test_a_traced_tiny_run_reports_no_phase_metric_on_the_cpu(root, cell, names):
     res = runner.run_cell(root, cell + "-tiny", 2**31 + 7, 0.5, True, device="cpu")
     assert res["correct"]
@@ -132,7 +133,8 @@ def test_a_traced_tiny_run_reports_no_phase_metric_on_the_cpu(root, cell, names)
     assert not {f"{n}_idle_ms.{kind}" for n in names} & set(res["metrics"])
 
 
-@pytest.mark.parametrize("cell,names", [("uc2-finetune", TRAIN), ("uc2-eval", EVAL)])
+@pytest.mark.parametrize("cell,names", [("m3p-finetune", TRAIN), ("uc2-eval", EVAL),
+                                        ("m3p-eval", EVAL)])
 def test_a_traced_tiny_run_with_device_ops_reports_the_phases(root, cell, names,
                                                               monkeypatch):
     """A tiny cell with a device op laid every 100 us over its traced

@@ -13,7 +13,7 @@ from portbench import control
 from portbench.harness import manifest, runner
 from portbench.tests import tiny
 
-CELLS = ["uc2-finetune", "m3p-finetune", "uc2-eval", "uc2-serve"]
+CELLS = ["uc2-finetune", "m3p-finetune", "uc2-eval", "m3p-eval", "uc2-serve"]
 
 
 @pytest.fixture(scope="module")
@@ -37,11 +37,15 @@ def test_the_program_agrees_with_the_reference(root, cell):
     assert set(res["checks"]) == set(c.limits)
 
 
-def test_a_traced_run_reports_per_layer_metrics_and_a_breakdown(root):
-    res = run(root, "uc2-finetune", trace=True)
+@pytest.mark.parametrize("cell,names", [
+    ("m3p-finetune", {"data_wait_ms.train", "host_issue_ms.train", "mfu.train"}),
+    # the host-paced cell keeps its rate per layer, beside its peak memory
+    ("uc2-finetune", {"train_qa_per_s.host_paced"})])
+def test_a_traced_run_reports_per_layer_metrics_and_a_breakdown(root, cell, names):
+    res = run(root, cell, trace=True)
     assert res["correct"]
-    assert {"data_wait_ms.train", "host_issue_ms.train",
-            "mfu.train"} <= set(res["metrics"])
+    assert names <= set(res["metrics"])
+    assert all(res["metrics"][n]["value"] > 0 for n in names)
     # no device on the CPU: nothing to read from the trace
     assert "attn_roofline.train" not in res["metrics"]
     assert res["device"]["window_s"] > 0
@@ -110,7 +114,8 @@ def _altered_served_answer(monkeypatch):
 @pytest.mark.parametrize("cell,fault", [
     ("uc2-finetune", _unchanged_state), ("uc2-finetune", _half_batch),
     ("m3p-finetune", _unchanged_state), ("m3p-finetune", _half_batch),
-    ("uc2-eval", _altered_eval_answer), ("uc2-serve", _altered_served_answer)],
+    ("uc2-eval", _altered_eval_answer), ("m3p-eval", _altered_eval_answer),
+    ("uc2-serve", _altered_served_answer)],
     ids=lambda x: getattr(x, "__name__", x))
 def test_a_broken_timed_path_is_not_correct(root, cell, fault, monkeypatch):
     fault(monkeypatch)
@@ -120,7 +125,8 @@ def test_a_broken_timed_path_is_not_correct(root, cell, fault, monkeypatch):
 # the number that the control fails at the cells' own size (PERF.md); the
 # card test (test_portbench_cuda.py) holds it to the limits there
 SEPARATES = {"uc2-finetune": "grad_diff", "m3p-finetune": "grad_diff",
-             "uc2-eval": "answer_gap", "uc2-serve": "confidence_gap"}
+             "uc2-eval": "answer_gap", "m3p-eval": "answer_gap",
+             "uc2-serve": "confidence_gap"}
 
 
 @pytest.mark.parametrize("cell", CELLS)

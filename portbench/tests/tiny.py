@@ -7,12 +7,10 @@ import json
 import os
 import shutil
 
+from portbench.harness import manifest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-TINY = {"hidden_size": 64, "v_hidden_size": 64, "intermediate_size": 256,
-        "vocab_size": 1000, "num_labels": 1842, "max_seq_length": 12,
-        "pooler_size": 64}
-LAYERS = 2
 TRAFFIC = {"images": 12, "qa": 512, "mbs": 8, "question_words": [10, 10],
            "word_pool": 500, "questions_per_pass": 40, "batch_size": 16,
            "calls": 64, "rate_calls_per_s": 200.0, "warm_calls": 2,
@@ -20,21 +18,9 @@ TRAFFIC = {"images": 12, "qa": 512, "mbs": 8, "question_words": [10, 10],
            "warm_passes": 1}
 
 
-def _tiny_config(c: dict) -> dict:
-    c = dict(c, **TINY)
-    if c["model_name"] == "m3p":
-        c.update(n_heads=2, n_layers=LAYERS, max_region_num=16,
-                 clf_hidden_size=128)
-    else:
-        c.update(num_attention_heads=2, max_region_num=6, clf_hidden_size=64)
-        for k in ("tt_attn_sublayers", "tv_attn_sublayers", "vt_attn_sublayers",
-                  "vv_attn_sublayers"):
-            c[k] = list(range(0, 2 * LAYERS, 2))
-        for k in ("t_ff_sublayers", "v_ff_sublayers"):
-            c[k] = list(range(1, 2 * LAYERS, 2))
-        for k in ("shared_sublayers", "single_ln_sublayers"):
-            c[k] = list(range(2 * LAYERS))
-    return c
+def tiny_config(c: dict) -> dict:
+    """The configuration ``c`` shrunk by its family's ``tiny``."""
+    return manifest.family(ROOT, c["model_name"]).tiny(c)
 
 
 def held() -> list[dict]:
@@ -65,7 +51,7 @@ def checkout(tmp: str) -> str:
     bench = os.path.join(root, "portbench")
     for conf in list(man["configs"]):
         with open(os.path.join(ROOT, conf["file"])) as f:
-            c = _tiny_config(json.load(f))
+            c = tiny_config(json.load(f))
         name = conf["name"] + "-tiny"
         path = f"portbench/configs/{name}.json"
         with open(os.path.join(root, path), "w") as f:
@@ -77,7 +63,7 @@ def checkout(tmp: str) -> str:
         t.update({k: v for k, v in TRAFFIC.items() if k in t})
         if t["kind"] == "finetune":
             t["fused_attn"] = "flat"
-            t["min_boxes"] = None if t["min_boxes"] is None else 3
+        t["min_boxes"] = None if t["min_boxes"] is None else 3
         traffic = w["traffic"] + "-tiny"
         with open(os.path.join(bench, "traffic", traffic + ".json"), "w") as f:
             json.dump(t, f)
