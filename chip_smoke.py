@@ -7,7 +7,7 @@
 Phases; any failure raises and the script exits non-zero without the
 final line:
  1. device line: the card's name and power limit (nvidia-smi) and CUDA.
- 2. build the nine CUDA kernel sources with nvcc (sm_90a) from csrc/, one
+ 2. build the ten CUDA kernel sources with nvcc (sm_90a) from csrc/, one
     nvcc each, all at once.
  3. each kernel against its plain PyTorch version on the card at the main
     paths' shapes, timed with CUDA events beside its bound, the plain
@@ -160,6 +160,23 @@ final line:
     one eval batch naming K1's kernel, and the td-lmdb ingest (cfs_to_tdlmdb,
     `cli train` over it for 2 steps) where msgpack imports (else one line
     says it was not run).
+16. the grouped expert products of Kimi-VL-A3B's expert layers (csrc/
+    grouped_gemm.cu, on gemm_wgmma.cuh's ring and product loop; run after
+    phase 3, before the process's other profiler sessions; run after phase
+    10, the profiler read no device time for these kernels, and a product
+    whose launches the profiler misses is timed by its events alone): a
+    kimi-vl-finetune microbatch (9,728 tokens) routed over
+    64 experts, top-6, and the pairs of experts 0-7 dispatched (about 912
+    rows an expert); each of the six products (gate|up with SwiGLU, down,
+    dact with the SwiGLU gradient, dX, dW2, dW1) against its plain version
+    (bf16 outputs within 2e-3, fp32 weight gradients within 1e-5; the plain
+    version with the next expert's weights must miss by a hundred times
+    that), timed beside its bound, the plain version and torch._grouped_mm;
+    then one bf16 train step of the cell's Kimi-VL
+    (portbench/configs/kimi_vl_a3b.json, acc 2 x mbs 128) under the
+    profiler: 96 grouped launches (2 forward and 4 backward an expert layer
+    and microbatch), one moe.pairs counter each expert layer and
+    microbatch, a finite loss.
 Phase 3 also holds the M3P path's kernels to M3P's -inf key bias: K1 and B1
 at S 140, B2 (head-blocked eval) and B3 (head-blocked training, both
 entries) against their plain versions and equal to B1 bit for bit (bf16:
@@ -208,8 +225,8 @@ import torch
 from clg_vqa_tpu_torch.cli.__main__ import main as cli_main
 from clg_vqa_tpu_torch.cli.common import build_model as cli_build_model
 from clg_vqa_tpu_torch.cli.common import load_pretrained
-from clg_vqa_tpu_torch.config import (M3PConfig, OptimConfig, TaskConfig,
-                                      UC2Config)
+from clg_vqa_tpu_torch.config import (KimiVLConfig, M3PConfig, OptimConfig,
+                                      TaskConfig, UC2Config)
 from clg_vqa_tpu_torch.data.cfs import CfsReader
 from clg_vqa_tpu_torch.data.device_bank import DeviceFeatureBank
 from clg_vqa_tpu_torch.data.gqa import Entry, GQADataset
@@ -226,12 +243,14 @@ from clg_vqa_tpu_torch.models.detector.extractor import (
 from clg_vqa_tpu_torch.models.detector.extractor_x101 import (
     ExtractorX101, X101Config, init_x101_params)
 from clg_vqa_tpu_torch.models.gated import Gated, GatedConfig
+from clg_vqa_tpu_torch.models.kimi_vl import KimiVL
 from clg_vqa_tpu_torch.models import m3p_gen
 from clg_vqa_tpu_torch.models.m3p import M3P
 from clg_vqa_tpu_torch.models.m3p_gen import M3PGen
 from clg_vqa_tpu_torch.models.pretrain import PretrainHeads, pretrain_loss
 from clg_vqa_tpu_torch.models.uc2 import UC2
 from clg_vqa_tpu_torch.ops import _build, aux_losses
+from clg_vqa_tpu_torch.ops import moe
 from clg_vqa_tpu_torch.ops import multi_tensor as MT
 from clg_vqa_tpu_torch.ops.attention import (
     _FLAT, _HM, _SM, _bias2, _launch_eval, _launch_train_bwd,
@@ -260,6 +279,7 @@ from clg_vqa_tpu_torch.parallel.mesh import (local_batch, make_mesh, pspec,
 from clg_vqa_tpu_torch.tools.measure import (bound_ms, c4_rois, device_us,
                                              host_us, time_ms)
 from clg_vqa_tpu_torch.tools.profile_block import flat_route
+from clg_vqa_tpu_torch.tools.profile_moe import profile as profile_moe
 from clg_vqa_tpu_torch.train.checkpoints import export_torch_bin
 from clg_vqa_tpu_torch.train.driver import FinetuneRunner
 from clg_vqa_tpu_torch.train import pruning as pr
@@ -305,6 +325,18 @@ PAR_ACC, PAR_MBS, PAR_STEPS, PAR_QA, PAR_LR = 2, 64, 2, 1024, 4e-5
 PAR_WORLDS = {"dp2": (2, 1, "gloo"), "mp2": (1, 2, "gloo")}
 PAR_CARD_WORLDS = {"dp2mp2": (2, 2, "nccl"), "mp4": (1, 4, "nccl")}
 PAR_TIMEOUT, PAR_RTOL = 480, 1e-4
+# the grouped expert products at a kimi-vl-finetune microbatch (128 QA x 76
+# positions routed over 64 experts, top-6, experts 0-7 held), and one train
+# step of that cell's Kimi-VL (the benchmark's configuration, acc 2 x mbs
+# 128, 40 tokens); each product against its plain version: bf16 outputs
+# and fp32 weight gradients (the card tests' tolerances)
+MOE_TOKENS, MOE_SEQ = MBS * (40 + R), 40
+MOE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                          "configs", "kimi_vl_a3b.json")
+MOE_TOL = {"bf16": 2e-3, "fp32": 1e-5}
+# each kernel entry point and the products it runs (tools/profile_moe's names)
+MOE_ENTRIES = {"swiglu": ("gate|up + SwiGLU",), "rows": ("down", "dX"),
+               "dswiglu": ("dact + dSwiGLU",), "wgrad": ("dW2", "dW1")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -345,7 +377,7 @@ def phase_build() -> None:
                           "rows_gather", "smajor_attention_train",
                           "block_attention_train", "blocked_attention",
                           "blocked_attention_train", "roi_pool",
-                          "multi_tensor"])
+                          "multi_tensor", "grouped_gemm"])
     for name, (secs, log) in built.items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -1677,6 +1709,111 @@ def phase_multi_tensor(model, smi: str) -> dict:
     del rows, gs, buf, plain_buf, p_k, p_p, st_k, st_p, fp, fm, fv, fdec, gd
     torch.cuda.empty_cache()
     return {"kernels": out, "launches": launches}
+
+
+def phase_moe(smi: str) -> dict:
+    """The grouped expert products (csrc/grouped_gemm.cu through ops/moe.py)
+    at a kimi-vl-finetune microbatch's routed sizes (about 912 rows an
+    expert, H 2048, I 1408): each of the six against its plain version
+    within MOE_TOL, which the plain version with the next expert's weights
+    misses by far, and timed beside its bound, its plain version and
+    torch._grouped_mm (tools/profile_moe.profile). Then one bf16 train step
+    of the cell's Kimi-VL under the profiler: the grouped launches, counted
+    from 0 just before it, are 2 forward and 4 backward an expert layer and
+    microbatch, and the moe.pairs counters read one value each, within what
+    a microbatch can route. Returns each kernel entry's numbers and the
+    step's launches."""
+    t0 = time.perf_counter()
+    rows = {r["product"]: r for r in profile_moe(MOE_TOKENS)}
+    for name, r in rows.items():
+        tol = MOE_TOL[r["out_dtype"]]
+        check(r["kernel_vs_plain"] <= tol,
+              f"grouped {name}: {r['kernel_vs_plain']:.3g} from plain (tolerance {tol})")
+        check(r["wrong_expert_vs_plain"] > 100 * tol,
+              f"grouped {name}: the next expert's weights read "
+              f"{r['wrong_expert_vs_plain']:.3g}, near the tolerance {tol}")
+        if r["roofline_pct"] is None:
+            print(f"grouped {name}: the profiler saw no launch of the kernel; its ms "
+                  f"below are the events'")
+            r["kernel_device_ms"] = None
+        dev = r["kernel_device_ms"] or r["kernel_ms"]
+        print(f"grouped {name}: {r['pairs']} pairs ({min(r['rows_an_expert'])}-"
+              f"{max(r['rows_an_expert'])} an expert): kernel {dev:.4f} ms "
+              f"({100 * r['bound_ms'] / dev:.1f}% of its bound), "
+              f"{r['kernel_ms']:.4f} ms by events; plain {r['plain_ms']:.4f} ms, "
+              f"{r['library']} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {r['kernel_vs_plain']:.2e} from plain "
+              f"(next expert's weights {r['wrong_expert_vs_plain']:.3f}) on {smi}")
+    out = {}
+    for entry, products in MOE_ENTRIES.items():
+        rs = [rows[p] for p in products]
+        out[entry] = dict(
+            shape=[rs[0]["pairs"], 2048, 1408], products=list(products),
+            max_rel_err=max(r["kernel_vs_plain"] for r in rs),
+            ms=sum(r["kernel_device_ms"] or r["kernel_ms"] for r in rs),
+            ms_by="device" if all(r["kernel_device_ms"] for r in rs) else "events",
+            event_ms=sum(r["kernel_ms"] for r in rs),
+            plain_ms=sum(r["plain_ms"] for r in rs), library=rs[0]["library"],
+            library_ms=sum(r["library_ms"] for r in rs),
+            bound_ms=sum(r["bound_ms"] for r in rs),
+            bound_by=[r["bound_by"] for r in rs],
+            by_product={r["product"]: {k: r[k] for k in (
+                "kernel_device_ms", "kernel_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "kernel_vs_plain")} for r in rs})
+    del rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = KimiVLConfig.from_json(MOE_CONFIG)
+    model = KimiVL(cfg, device="cuda", seed=0)
+    r = np.random.RandomState(0)
+    labels = cfg.num_labels
+    ids = r.randint(3, cfg.vocab_size, (ACC, MBS, MOE_SEQ))
+    lens = r.randint(8, MOE_SEQ + 1, (ACC, MBS, 1))
+    batch = {"input_ids": ids, "input_mask": np.arange(MOE_SEQ) < lens,
+             "features": r.randn(ACC, MBS, R, cfg.v_feature_size).astype(np.float32),
+             "locs": r.rand(ACC, MBS, R, cfg.num_locs).astype(np.float32),
+             "image_mask": np.ones((ACC, MBS, R), np.int64),
+             "labels": r.randint(0, labels, (ACC, MBS))}
+    batch = {k: torch.from_numpy(np.asarray(v, np.int64) if v.dtype == bool else v).cuda()
+             for k, v in batch.items()}
+    params = dict(model.named_parameters())
+    opt = make_optimizer(list(params), warmup_constant_schedule(1e-5, 0))
+    state = TrainState(model, opt.init(params), 0)
+    step = make_train_step(opt, torch.rand(labels, labels, device="cuda"),
+                           semantic_lambda=LAMBDA, compute_dtype=torch.bfloat16,
+                           fused_attn="auto")
+    state, _ = step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    for k in moe.launches:
+        moe.launches[k] = 0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch, seed=1)
+        torch.cuda.synchronize()
+    launches = dict(moe.launches)
+    layers = cfg.num_layers - cfg.first_dense
+    per = {"swiglu": 1, "rows": 2, "dswiglu": 1, "wgrad": 2}
+    check(launches == {k: n * ACC * layers for k, n in per.items()},
+          f"Kimi-VL step: grouped launches {launches}")
+    pairs = [int(c.values) for c in profiling.counter_records() if c.name == "moe.pairs"]
+    most = MBS * (MOE_SEQ + R) * min(cfg.experts_per_token, cfg.held_experts)
+    check(len(pairs) == ACC * layers and all(0 < p <= most for p in pairs),
+          f"Kimi-VL step: moe.pairs {pairs}")
+    check(math.isfinite(m["loss"].item()), "Kimi-VL step: loss not finite")
+    dev_ms = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages()
+                 if "grouped_gemm" in e.key and str(e.device_type).endswith("CUDA")) / 1e3
+    print(f"Kimi-VL step (acc {ACC} x mbs {MBS}, {layers} expert layers of "
+          f"{cfg.held_experts} of {cfg.router_experts} experts): grouped launches "
+          f"{launches}, {dev_ms:.3f} ms of grouped kernels on the device; pairs a "
+          f"layer and microbatch {min(pairs)}-{max(pairs)} (expected "
+          f"{MOE_TOKENS * cfg.experts_per_token * cfg.held_experts // cfg.router_experts}); "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"grouped phase {time.perf_counter() - t0:.1f} s on {smi}")
+    del model, state, params, opt, step, batch, prof
+    torch.cuda.empty_cache()
+    return {"kernels": out, "launches": launches, "step_device_ms": dev_ms}
 
 
 def phase_main_path(tmp: str, cfg: UC2Config, model: UC2) -> dict:
@@ -4408,6 +4545,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     long_s = phase_long_s(torch.Generator("cuda").manual_seed(5))
     print(f"long-S phase {time.perf_counter() - t_phase:.1f} s")
+    grouped = phase_moe(smi)
     t_phase = time.perf_counter()
     kern.update(phase_roi_pool(torch.Generator("cuda").manual_seed(6)))
     with tempfile.TemporaryDirectory() as tmp:
@@ -4536,6 +4674,17 @@ def main() -> int:
     kernels.append({"name": "multi_tensor_step", "route": "cuda",
                     "source": csrc + "multi_tensor.cu",
                     **multi["kernels"]["step"]})
+    # the grouped expert products, on the Kimi-VL train path; counted on one
+    # step of kimi-vl-finetune's model
+    kernels += [
+        {"name": f"grouped_gemm_{entry}", "route": "cuda",
+         "source": csrc + "grouped_gemm.cu",
+         "replaces": "none: the JAX package has no mixture of experts",
+         "device_code": f"{csrc}grouped_gemm.cu and {gemm}",
+         "launches": grouped["launches"][entry],
+         "launches_by_path": {"kimi_train": grouped["launches"][entry]},
+         **grouped["kernels"][entry]}
+        for entry in MOE_ENTRIES]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ assembly on the ``--device``. ``--is_m3p`` reads the config as M3P's
 (M3PConfig.from_json) and builds an M3P; a config whose
 ``image_embeddings`` is one of the gated zoo's (ViLBERT, LXMERT, VL-BERT,
 VisualBERT, UNITER) builds the general gated encoder (models/gated.py);
-any other builds a UC2.
+one whose ``model_name`` is ``kimi_vl`` builds Kimi-VL-A3B's decoder
+(models/kimi_vl.py, KimiVLConfig.from_json); any other builds a UC2.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 slice: LMDB or QA-joined td-lmdb feature stores (slice 11); the port reads
@@ -21,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from ..config import M3PConfig, OptimConfig, TaskConfig, UC2Config
+from ..config import KimiVLConfig, M3PConfig, OptimConfig, TaskConfig, UC2Config
 from ..models.gated import DUAL_EMBEDDINGS, SHARED_EMBEDDINGS, GatedConfig
 
 
@@ -128,7 +129,10 @@ def build_configs(args):
     else:
         with open(args.config_file) as f:
             raw = json.load(f)
-        if raw.get("image_embeddings", "uc2") in (
+        if raw.get("model_name") == "kimi_vl":
+            cfg = KimiVLConfig.from_json(args.config_file,
+                                         num_labels=task_cfg.num_labels)
+        elif raw.get("image_embeddings", "uc2") in (
                 DUAL_EMBEDDINGS + SHARED_EMBEDDINGS):
             # the general gated wiring (models/gated.py), as
             # clg_vqa_tpu/cli/common.py:113-124 routes these configs
@@ -154,10 +158,13 @@ def build_configs(args):
 
 
 def model_name(cfg) -> str:
-    """"m3p" for an M3P config, "gated" for a gated-zoo one, else "uc2"
-    (the FinetuneRunner's and the ``.bin`` export's name)."""
+    """"m3p" for an M3P config, "gated" for a gated-zoo one, "kimi_vl" for
+    a Kimi-VL one, else "uc2" (the FinetuneRunner's and the ``.bin``
+    export's name)."""
     if isinstance(cfg, GatedConfig):
         return "gated"
+    if isinstance(cfg, KimiVLConfig):
+        return "kimi_vl"
     return "m3p" if isinstance(cfg, M3PConfig) else "uc2"
 
 
@@ -182,7 +189,8 @@ def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
     or is an original microsoft/M3P checkpoint (detected by its
     ``module.attentions.`` keys); for a gated config it holds VOLTA
     BertForVLTasks names (utils/convert_gated.py), as
-    clg_vqa_tpu/cli/common.py:158-182 reads them."""
+    clg_vqa_tpu/cli/common.py:158-182 reads them; for Kimi-VL it holds the
+    port's own state-dict names."""
     from ..utils.convert import (hf_xlmr_to_uc2_state_dict,
                                  m3p_original_to_state_dict,
                                  normalize_volta_keys, volta_m3p_to_state_dict,
@@ -195,6 +203,8 @@ def load_pretrained(path: str, cfg) -> dict[str, np.ndarray]:
         return {k: v.numpy() for k, v in sd.items()}
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v.float().numpy() for k, v in sd.items()}
+    if isinstance(cfg, KimiVLConfig):
+        return sd
     if isinstance(cfg, GatedConfig):
         return volta_gated_to_state_dict(normalize_volta_keys(sd), cfg)
     if isinstance(cfg, M3PConfig):

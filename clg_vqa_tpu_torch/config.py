@@ -1,5 +1,7 @@
 """Typed configurations (own copy of clg_vqa_tpu/config.py:30-285): the UC2
-and M3P models, the GQA task and the fine-tuning optimizer.
+and M3P models, the GQA task and the fine-tuning optimizer; and the port's
+own Kimi-VL-A3B decoder (:class:`KimiVLConfig`), which the JAX package has
+not.
 
 The UC2 VOLTA JSON config (volta/config/uc2_base.json) describes 24 gated
 sublayers; CLG-VQA only uses the wiring in which they collapse to a
@@ -173,6 +175,93 @@ class M3PConfig:
             clf_hidden_size=d["clf_hidden_size"],
             num_labels=num_labels,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiVLConfig:
+    """Kimi-VL-A3B's language decoder (moonshotai/Kimi-VL-A3B-Instruct,
+    config.json's ``text_config``: a DeepSeek-V3-style decoder) as a GQA
+    classifier over [regions; question] (models/kimi_vl.py).
+
+    ``num_layers`` counts the layers held here, ``first_dense`` of them
+    dense. Each MoE layer routes over ``router_experts`` and holds the
+    ``held_experts`` experts ``first_expert`` .. ``first_expert +
+    held_experts - 1``: one rank of an expert-parallel layer, which
+    computes its own experts' part of the layer's output."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    num_layers: int = 27
+    first_dense: int = 1
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264          # the dense layers' FFN
+    moe_intermediate_size: int = 1408       # one expert's width
+    n_shared_experts: int = 2
+    router_experts: int = 64
+    held_experts: int = 64
+    first_expert: int = 0
+    experts_per_token: int = 6
+    routed_scaling_factor: float = 2.446
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    pad_token_id: int = 1
+    # vision side: region features through the projector's form
+    v_feature_size: int = 2048
+    num_locs: int = 5
+    projector_hidden_size: int = 2048
+    layer_norm_eps: float = 1e-5            # the projector's and the head's LN
+    # head
+    clf_hidden_size: int = 4096
+    num_labels: int = 1842
+    clf_dropout_prob: float = 0.1
+
+    @classmethod
+    def from_json(cls, path: str, num_labels: int | None = None) -> "KimiVLConfig":
+        """A configuration file in the published config.json's keys
+        (``n_routed_experts`` the experts held here, ``router_experts`` the
+        router's width, ``first_held_expert`` the first held) plus the
+        task's. A key the decoder would need and the port does not
+        implement (q LoRA, grouped top-k, a RoPE scaling, biases, a scoring
+        function other than sigmoid) raises."""
+        with open(path) as f:
+            d = json.load(f)
+        unsupported = {"q_lora_rank": None, "rope_scaling": None,
+                       "attention_bias": False, "scoring_func": "sigmoid",
+                       "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1,
+                       "moe_layer_freq": 1, "hidden_act": "silu",
+                       "norm_topk_prob": True}
+        for k, want in unsupported.items():
+            if k in d and d[k] != want:
+                raise ValueError(f"Kimi-VL config: {k}={d[k]!r} is not "
+                                 f"supported (the port implements {want!r})")
+        routed = d.get("router_experts", d["n_routed_experts"])
+        return cls(
+            vocab_size=d["vocab_size"], hidden_size=d["hidden_size"],
+            num_layers=d["num_hidden_layers"],
+            first_dense=d["first_k_dense_replace"],
+            num_heads=d["num_attention_heads"], kv_lora_rank=d["kv_lora_rank"],
+            qk_nope_head_dim=d["qk_nope_head_dim"],
+            qk_rope_head_dim=d["qk_rope_head_dim"], v_head_dim=d["v_head_dim"],
+            intermediate_size=d["intermediate_size"],
+            moe_intermediate_size=d["moe_intermediate_size"],
+            n_shared_experts=d["n_shared_experts"], router_experts=routed,
+            held_experts=d["n_routed_experts"],
+            first_expert=d.get("first_held_expert", 0),
+            experts_per_token=d["num_experts_per_tok"],
+            routed_scaling_factor=d["routed_scaling_factor"],
+            rms_norm_eps=d["rms_norm_eps"], rope_theta=float(d["rope_theta"]),
+            pad_token_id=d.get("pad_token_id", 1),
+            v_feature_size=d.get("v_feature_size", 2048),
+            num_locs=d.get("num_locs", 5),
+            projector_hidden_size=d.get("projector_hidden_size", d["hidden_size"]),
+            layer_norm_eps=d.get("layer_norm_eps", d["rms_norm_eps"]),
+            clf_hidden_size=d.get("clf_hidden_size", 2 * d["hidden_size"]),
+            num_labels=d.get("num_labels", 1842) if num_labels is None else num_labels,
+            clf_dropout_prob=d.get("clf_dropout_prob", 0.1))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,8 +55,8 @@
 //   (EPI_WGRAD) go to fp32 partials that the caller sums in a fixed order,
 //   and the three dx jobs (EPI_SUM) run in one block per tile, one after
 //   the other, so two runs give the same bits.
-// A barrier that has not completed after about 2 s traps, so a fault shows
-// as a launch error rather than a hung card.
+// The ring and the consumers' product loop (init_ring, tile_products) are
+// shared with the grouped expert products (grouped_gemm.cu).
 #pragma once
 
 #include <cuda.h>
@@ -248,6 +248,81 @@ __device__ __forceinline__ void k_range(int K, int ksplit, int r, int& k0, int& 
   k1 = min(K, k0 + chunk);
 }
 
+// The ring's barriers, before any thread uses them: each stage's "full"
+// barrier completes on its copy's bytes, its "empty" barrier on every
+// consumer warp's arrival.
+template <int NT>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages(NT); ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+struct NoStageHook {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// The consumers' products of one tile over nk K steps of the ring:
+// acc[h] = A's 128 rows times B's columns 128 h .. 128 h + 127, warpgroup w
+// owning rows 64 w .. 64 w + 63. s and ph carry the ring's place from tile
+// to tile. After a step's products are issued, at_stage(s) runs on that
+// stage, before the previous stage is released (gemm_kernel's column sums
+// read A there).
+template <bool A_KMAJ, bool B_KMAJ, int NT, typename Hook = NoStageHook>
+__device__ __forceinline__ void tile_products(float (&acc)[NT][64], unsigned char* sm,
+                                              uint64_t* full, uint64_t* empty, int nk, int& s,
+                                              uint32_t& ph, int w, int lane,
+                                              Hook&& at_stage = Hook()) {
+  constexpr int kStages = stages(NT), kStage = stage_bytes(NT);
+#pragma unroll
+  for (int h = 0; h < NT; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(&full[s], ph);
+    const uint32_t as = smem_addr(sm + s * kStage), bs = as + kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk) {
+      const uint64_t da = A_KMAJ ? sw128_desc(as + w * 8192 + kk * 32, 16, 1024)
+                                 : sw128_desc(as + w * kBoxBytes + kk * 2048, kBoxBytes, 1024);
+#pragma unroll
+      for (int h = 0; h < NT; ++h) {
+        const uint32_t bh = bs + h * kTileBytes;
+        const uint64_t db = B_KMAJ ? sw128_desc(bh + kk * 32, 16, 1024)
+                                   : sw128_desc(bh + kk * 2048, kBoxBytes, 1024);
+        wgmma_m64n128<A_KMAJ ? 0 : 1, B_KMAJ ? 0 : 1>(acc[h], da, db);
+      }
+    }
+    wgmma_commit();
+    at_stage(s);
+    // the previous stage's products done: release that one
+    wgmma_wait<1>();
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+    if (++s == kStages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NT; ++h) fence_acc(acc[h]);
+  if (prev >= 0) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+  }
+}
+
 template <bool A_KMAJ, bool B_KMAJ, int EPI, int NT>
 __global__ void __launch_bounds__(kThreads, NT == 1 ? 2 : 1)
     gemm_kernel(const __grid_constant__ Maps maps, const Args args) {
@@ -269,14 +344,7 @@ __global__ void __launch_bounds__(kThreads, NT == 1 ? 2 : 1)
   if (EPI == EPI_WGRAD) k_range(args.K, args.ksplit, range, kb, ke);
   const int nk = (ke - kb + kTK - 1) / kTK;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<NT>(full, empty);
 
   if (threadIdx.x >= 256) {
     // ---- producer warp: one thread issues every copy ----
@@ -329,66 +397,28 @@ __global__ void __launch_bounds__(kThreads, NT == 1 ? 2 : 1)
   float acc[NT][64];
   int s = 0;
   uint32_t ph = 0;
+  // EPI_WGRAD's column sums of the A tile in stage st
+  auto column_sums = [&](int st) {
+    if (!colsum) return;
+    // A is M-contiguous here: chunk c of row r of box b sits at chunk
+    // c ^ (r & 7) of that row
+    const unsigned char* box = sm + st * kStage + (cc >> 3) * kBoxBytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg + 16 * i;
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(box + r * 128 + (((cc & 7) ^ (r & 7)) << 4));
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p[e]);
+        cs[2 * e] += f.x;
+        cs[2 * e + 1] += f.y;
+      }
+    }
+  };
   for (int j = j0; j < j1; ++j) {
-#pragma unroll
-    for (int h = 0; h < NT; ++h)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-    int prev = -1;
-    for (int kt = 0; kt < nk; ++kt) {
-      mbar_wait(&full[s], ph);
-      const uint32_t as = smem_addr(sm + s * kStage), bs = as + kTileBytes;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTK / 16; ++kk) {
-        const uint64_t da = A_KMAJ ? sw128_desc(as + w * 8192 + kk * 32, 16, 1024)
-                                   : sw128_desc(as + w * kBoxBytes + kk * 2048, kBoxBytes, 1024);
-#pragma unroll
-        for (int h = 0; h < NT; ++h) {
-          const uint32_t bh = bs + h * kTileBytes;
-          const uint64_t db = B_KMAJ ? sw128_desc(bh + kk * 32, 16, 1024)
-                                     : sw128_desc(bh + kk * 2048, kBoxBytes, 1024);
-          wgmma_m64n128<A_KMAJ ? 0 : 1, B_KMAJ ? 0 : 1>(acc[h], da, db);
-        }
-      }
-      wgmma_commit();
-      if (colsum) {
-        // A is M-contiguous here: chunk c of row r of box b sits at chunk
-        // c ^ (r & 7) of that row
-        const unsigned char* box = sm + s * kStage + (cc >> 3) * kBoxBytes;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rg + 16 * i;
-          const uint4 u =
-              *reinterpret_cast<const uint4*>(box + r * 128 + (((cc & 7) ^ (r & 7)) << 4));
-          const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(p[e]);
-            cs[2 * e] += f.x;
-            cs[2 * e + 1] += f.y;
-          }
-        }
-      }
-      // the previous stage's products done: release that one
-      wgmma_wait<1>();
-      if (prev >= 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[prev]);
-      }
-      prev = s;
-      if (++s == kStages) {
-        s = 0;
-        ph ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int h = 0; h < NT; ++h) fence_acc(acc[h]);
-    if (prev >= 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[prev]);
-    }
+    tile_products<A_KMAJ, B_KMAJ, NT>(acc, sm, full, empty, nk, s, ph, w, lane, column_sums);
     // acc[hh][4 q + e] sits at row 64 w + 16 wr + g + 8 (e / 2), column
     // 128 hh + 8 q + 2 t4 + e % 2 of the tile
     const int row = m0 + 64 * w + 16 * wr + g;

@@ -130,12 +130,13 @@ class _LowPrecisionLinear(torch.autograd.Function):
     def forward(ctx, x2, weight, bias, compute_dtype, group, row):
         xc, wc = x2.to(compute_dtype), weight.to(compute_dtype)
         ctx.save_for_backward(xc, wc)
-        ctx.dtypes = (x2.dtype, weight.dtype, bias.dtype, compute_dtype)
+        ctx.dtypes = (x2.dtype, weight.dtype,
+                      None if bias is None else bias.dtype, compute_dtype)
         ctx.group = None if row else group
         acc = matmul_f32(xc, wc.t())
         if row:
             all_reduce(acc, group)
-        return (acc + bias).to(compute_dtype)
+        return (acc if bias is None else acc + bias).to(compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -155,10 +156,11 @@ class _LowPrecisionLinear(torch.autograd.Function):
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            compute_dtype: torch.dtype | None = None, *, group=None,
            row: bool = False) -> torch.Tensor:
-    """x @ weight.T + bias. With a compute dtype: operands in that dtype,
-    fp32 accumulation, the fp32 bias added to the fp32 accumulator, and the
-    result cast to the compute dtype once (clg_vqa_tpu/models/layers.py:41-55),
-    differentiated as :class:`_LowPrecisionLinear` says.
+    """x @ weight.T + bias (``bias`` None: no bias). With a compute dtype:
+    operands in that dtype, fp32 accumulation, the fp32 bias added to the
+    fp32 accumulator, and the result cast to the compute dtype once
+    (clg_vqa_tpu/models/layers.py:41-55), differentiated as
+    :class:`_LowPrecisionLinear` says.
 
     ``group``: the mp process group of a Megatron shard, column-parallel
     (``weight`` [out/mp, in], ``bias`` its slice; the output is this rank's

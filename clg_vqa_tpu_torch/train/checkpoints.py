@@ -252,17 +252,21 @@ def export_torch_bin(path: str, params, model: str = "uc2",
     """A torch-loadable ``.bin`` with VOLTA parameter names (the ``v_``
     aliases of shared weights included), so the JAX package
     (cli/common.load_pretrained) and the reference tooling (eval_task.py)
-    load the port's fine-tuned weights. ``params``: a UC2, M3P or Gated
-    model or its state dict; ``model`` ("uc2", "m3p" or "gated") names its
-    format (clg_vqa_tpu/train/checkpoints.py:223-230); ``cfg``, the model's
-    config, names a gated model's keys by its wiring."""
+    load the port's fine-tuned weights. ``params``: a UC2, M3P, Gated or
+    KimiVL model or its state dict; ``model`` ("uc2", "m3p", "gated" or
+    "kimi_vl") names its format (clg_vqa_tpu/train/checkpoints.py:223-230;
+    Kimi-VL, which VOLTA has not, keeps the port's own names); ``cfg``, the
+    model's config, names a gated model's keys by its wiring."""
     from ..utils.convert import (state_dict_to_volta_m3p,
                                  state_dict_to_volta_uc2)
     from ..utils.convert_gated import state_dict_to_volta_gated
     to_sd = {"uc2": state_dict_to_volta_uc2, "m3p": state_dict_to_volta_m3p,
-             "gated": state_dict_to_volta_gated}.get(model)
+             "gated": state_dict_to_volta_gated,
+             "kimi_vl": lambda p, c, t: {k: v.float().numpy()
+                                         for k, v in _host(p).items()}}.get(model)
     if to_sd is None:
-        raise ValueError(f"model must be 'uc2', 'm3p' or 'gated', got {model!r}")
+        raise ValueError(f"model must be 'uc2', 'm3p', 'gated' or 'kimi_vl', "
+                         f"got {model!r}")
     t0 = time.perf_counter()
     sd = to_sd(params, cfg, task_key)
     return _write({k: torch.from_numpy(np.ascontiguousarray(v))

@@ -1,9 +1,9 @@
 """The fine-tuning driver (port of clg_vqa_tpu/train/driver.py): the three
 recipes of the reference (train_task.py:141-389, train_task_prunning.py:548-877,
-train_task_sft.py:331-612), for UC2, M3P or a gated-zoo model
+train_task_sft.py:331-612), for UC2, M3P, a gated-zoo model or Kimi-VL
 (``model_name``, which names the ``.bin`` export's format; the gated zoo
-runs finetune() only, as the IMP recipe's prunable weights are UC2's and
-M3P's), over the train step of train/loop.py:
+and Kimi-VL run finetune() only, as the IMP recipe's prunable weights are
+UC2's and M3P's), over the train step of train/loop.py:
   finetune()  -- the GQA fine-tune: per-epoch and mid-epoch validation with
                  best-params saves;
   imp_prune() -- per round: train under the mask -> global L1 prune of 10%
@@ -71,9 +71,9 @@ class FinetuneRunner:
                  train_bank=None, async_ckpt: bool = True,
                  save_every: int = 1, mid_save: str = "none",
                  fused_attn: str = "auto"):
-        if model_name not in ("uc2", "m3p", "gated"):
-            raise ValueError(f"model_name must be 'uc2', 'm3p' or 'gated', "
-                             f"got {model_name!r}")
+        if model_name not in ("uc2", "m3p", "gated", "kimi_vl"):
+            raise ValueError(f"model_name must be 'uc2', 'm3p', 'gated' or "
+                             f"'kimi_vl', got {model_name!r}")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -480,10 +480,11 @@ class FinetuneRunner:
             best_epoch
 
     def _check_prunable(self) -> None:
-        if self.model_name == "gated":
-            raise ValueError("the IMP / SFT recipes prune UC2's and M3P's "
-                             "encoder weights (train/pruning.py); a gated-zoo "
-                             "model has none of them")
+        if self.model_name in ("gated", "kimi_vl"):
+            raise ValueError(f"the IMP / SFT recipes prune UC2's and M3P's "
+                             f"encoder weights (train/pruning.py); a "
+                             f"{self.model_name} model has none of them (IMP "
+                             f"masks for experts are not implemented)")
 
     def imp_prune(self, *, fraction: float = 0.1,
                   resume: bool = False) -> dict:

@@ -27,8 +27,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..config import M3PConfig, UC2Config
+from ..config import KimiVLConfig, M3PConfig, UC2Config
 from ..models.gated import Gated, GatedConfig
+from ..models.kimi_vl import KimiVL
 from ..models.m3p import M3P
 from ..models.m3p_gen import M3PGen
 from ..models.pretrain import PretrainHeads
@@ -266,9 +267,11 @@ def m3p_original_to_state_dict(sd: Mapping[str, np.ndarray], cfg: M3PConfig,
 
 def model_class(cfg):
     """The port model of a config: M3P for an M3PConfig, Gated for a
-    GatedConfig, else UC2."""
+    GatedConfig, KimiVL for a KimiVLConfig, else UC2."""
     if isinstance(cfg, GatedConfig):
         return Gated
+    if isinstance(cfg, KimiVLConfig):
+        return KimiVL
     return M3P if isinstance(cfg, M3PConfig) else UC2
 
 

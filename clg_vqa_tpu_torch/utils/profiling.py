@@ -10,6 +10,12 @@
    ``torch.profiler.profile``), it is a ``record_function`` range, so the
    phase shows in the Chrome trace beside the kernels it launched, and it
    leaves a :class:`SpanRecord` that ``span_records()`` returns;
+ - ``count(name, values)``: a counter next to the spans. While a profiler
+   records, the device tensor ``values`` is copied without blocking into
+   pinned host memory and kept as a :class:`CounterRecord` of the unit the
+   spans give it (``counter_records()`` waits for the copies, so read them
+   after the trace); off, it only checks for a profiler, and nothing is
+   copied or synchronised;
  - ``device_memory_stats()``: per-device bytes in use, peak and limit.
 
 StepTimer, the JAX package's synchronising step timer, has no port: the
@@ -37,10 +43,17 @@ class SpanRecord(NamedTuple):
     end_ns: int
 
 
+class CounterRecord(NamedTuple):
+    name: str
+    unit: int               # the step or pass of the innermost open span
+    values: torch.Tensor    # a host copy of the counted tensor
+
+
 # the latest profiler session's records, oldest first; a session begins at
 # the first span that finds a profiler recording after a span found none
 # (the profiler itself tells no session from the next)
 _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_counters: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _session = {"new": True, "units": 0}
 _open = threading.local()           # each thread's stack of open spans
 _OFF = contextlib.nullcontext()
@@ -58,6 +71,7 @@ class _Span:
         if _session["new"]:
             _session.update(new=False, units=0)
             _records.clear()
+            _counters.clear()
         stack = _open.__dict__.setdefault("stack", [])
         if stack:
             self.unit = stack[-1].unit
@@ -96,6 +110,37 @@ def span_records() -> list[SpanRecord]:
     recording: two profilers with no such span between them are one
     session, their records kept together."""
     return list(_records)
+
+
+def count(name: str, values: torch.Tensor) -> None:
+    """Keep ``values`` (a tensor on any device) under ``name`` while a
+    profiler records: a non-blocking copy into pinned host memory, with an
+    event behind it, so the step issues on without waiting. Off: one check,
+    nothing copied."""
+    if not _recording():
+        return
+    stack = getattr(_open, "stack", None)
+    unit = stack[-1].unit if stack else _session["units"]
+    v = values.detach()
+    if v.device.type == "cuda":
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    else:
+        host, ready = v.clone(), None
+    _counters.append((CounterRecord(name, unit, host), ready))
+
+
+def counter_records() -> list[CounterRecord]:
+    """The counters of the latest profiler session, oldest first, each
+    copy waited for; not cleared by reading."""
+    out = []
+    for rec, ready in list(_counters):
+        if ready is not None:
+            ready.synchronize()
+        out.append(rec)
+    return out
 
 
 @contextlib.contextmanager

@@ -2279,3 +2279,181 @@ def test_train_step_on_the_kernels_is_the_eager_step_bit_for_bit(cuda):
     for a, b in zip(m1, m2):
         assert all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
     assert all(torch.equal(_bits(p1[k]), _bits(p2[k])) for k in p1)
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert products (csrc/grouped_gemm.cu, ops/moe.py)
+# ---------------------------------------------------------------------------
+
+def _moe_case(dev, case, T=300, k=2, n=8, E=4, first=2):
+    """Router picks [T, k] of n experts for an uneven, an empty-group and an
+    all-in-one-group case."""
+    g = torch.Generator().manual_seed(7)
+    idx = torch.stack([torch.randperm(n, generator=g)[:k] for _ in range(T)])
+    if case == "empty":
+        idx[idx == first + 1] = (first + E) % n     # held expert 1 takes none
+    elif case == "one":
+        idx[:, 0] = first + 2                       # every token in expert 2
+        idx[:, 1] = (first + E) % n                 # and one not held
+    return idx.to(dev)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uneven", "empty", "one"])
+@pytest.mark.parametrize("H,I", [(256, 128), (512, 384)])
+def test_grouped_products_match_the_per_expert_loop(cuda, case, H, I):
+    """Each grouped product against ops/moe's plain per-expert loop on the
+    card, from the same padded buffers: bf16 outputs within 2e-3 of the
+    loop's (the same fp32 sums in another order, one rounding), the fp32
+    weight gradients within 1e-5 (the tensor cores' sums of exact bf16
+    products against fp32 ones); an empty group's gradients are 0."""
+    from clg_vqa_tpu_torch.ops import moe
+    E = 4
+    d = moe.dispatch(_moe_case(cuda, case), 2, E)
+    g = torch.Generator(cuda).manual_seed(1)
+    R = d.rows + 1
+    x = torch.randn(300 * 2, H, device=cuda, generator=g).to(torch.bfloat16)
+    xd = moe._rows_buffer(x, d)
+    w1 = (0.1 * torch.randn(E, 2 * I, H, device=cuda, generator=g)).to(torch.bfloat16)
+    w2 = (0.1 * torch.randn(E, H, I, device=cuda, generator=g)).to(torch.bfloat16)
+    dy = moe._rows_buffer(torch.randn(600, H, device=cuda, generator=g).to(torch.bfloat16), d)
+    n0 = dict(moe.launches)
+    # each product's plain version reads the kernel's own inputs, so that
+    # the comparison sees one product's arithmetic and not the roundings
+    # of the products before it
+    gu, act = moe.grouped_swiglu(xd, w1, d.poff, d.tiles)
+    pgu, pact = moe.swiglu_plain(xd, w1, d.poff)
+    y, py = moe.grouped_rows(act, w2, d.poff, d.tiles, True), moe.rows_plain(act, w2, d.poff, True)
+    dgu = moe.grouped_dswiglu(dy, w2, gu, d.poff, d.tiles)
+    pdgu = moe.dswiglu_plain(dy, w2, gu, d.poff)
+    dx = moe.grouped_rows(dgu, w1, d.poff, d.tiles, False)
+    pdx = moe.rows_plain(dgu, w1, d.poff, False)
+    dw2, pdw2 = moe.grouped_wgrad(dy, act, d.poff), moe.wgrad_plain(dy, act, d.poff)
+    dw1, pdw1 = moe.grouped_wgrad(dgu, xd, d.poff), moe.wgrad_plain(dgu, xd, d.poff)
+    torch.cuda.synchronize()
+    assert {k: moe.launches[k] - n0[k] for k in n0} == {
+        "swiglu": 1, "rows": 2, "dswiglu": 1, "wgrad": 2}
+    top = int(d.poff[-1])
+    for a, b in ((gu, pgu), (act, pact), (y, py), (dgu, pdgu), (dx, pdx)):
+        assert a.shape[0] == R
+        assert _rel(a[:top], b[:top]) <= 2e-3
+    assert _rel(dw2, pdw2) <= 1e-5 and _rel(dw1, pdw1) <= 1e-5
+    assert dw1.dtype == torch.float32 and dw1.shape == (E, 2 * I, H)
+    if case == "empty":
+        assert dw1[1].abs().sum() == 0 and dw2[1].abs().sum() == 0
+    if case == "one":
+        assert int(d.counts[2]) == 300 and int(d.counts.sum()) == 300
+
+
+@pytest.mark.cuda
+def test_routed_experts_on_the_kernel_match_the_plain_path(cuda):
+    """ops/moe.routed_experts at the benchmark's widths (H 2048, I 1408, 8
+    of 64 experts, top-6, 1,024 tokens): forward and every gradient on the
+    kernels against the same function with the plain products."""
+    from clg_vqa_tpu_torch.ops import moe
+    g = torch.Generator(cuda).manual_seed(3)
+    T, H, I, E = 1024, 2048, 1408, 8
+    logits = torch.randn(T, 64, device=cuda, generator=g)
+    idx, w = moe.route(logits, torch.zeros(64, device=cuda), 6, 2.446)
+    d = moe.dispatch(idx, 0, E, expected=E / 64)
+    x = torch.randn(T, H, device=cuda, generator=g).to(torch.bfloat16)
+    w1 = 0.05 * torch.randn(E, 2 * I, H, device=cuda, generator=g)
+    w2 = 0.05 * torch.randn(E, H, I, device=cuda, generator=g)
+    cot = torch.randn(T, H, device=cuda, generator=g)
+    outs = []
+    for plain in (False, True):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, w1, w2)]
+        if plain:
+            saved = (moe.grouped_swiglu, moe.grouped_rows, moe.grouped_dswiglu,
+                     moe.grouped_wgrad)
+            moe.grouped_swiglu = lambda a, b, p, t: moe.swiglu_plain(a, b, p)
+            moe.grouped_rows = lambda a, b, p, t, km: moe.rows_plain(a, b, p, km)
+            moe.grouped_dswiglu = lambda a, b, c, p, t: moe.dswiglu_plain(a, b, c, p)
+            moe.grouped_wgrad = moe.wgrad_plain
+        try:
+            out = moe.routed_experts(leaves[0], leaves[1], leaves[2], leaves[3], d)
+            grads = torch.autograd.grad((out * cot).sum(), leaves)
+        finally:
+            if plain:
+                (moe.grouped_swiglu, moe.grouped_rows, moe.grouped_dswiglu,
+                 moe.grouped_wgrad) = saved
+        outs.append((out, *grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert _rel(a, b) <= 3e-3
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_what_its_tiles_do_not_take(cuda):
+    from clg_vqa_tpu_torch.ops import moe
+    d = moe.dispatch(_moe_case(cuda, "uneven"), 2, 4)
+    xd = torch.zeros(d.rows + 1, 256, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(4, 2 * 96, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        moe.grouped_swiglu(xd, w1, d.poff, d.tiles)          # I = 96: no 128 tiles
+    with pytest.raises(ValueError, match="bf16"):
+        moe.grouped_swiglu(xd.float(), w1.float(), d.poff, d.tiles)
+
+
+@pytest.mark.cuda
+def test_kimi_vl_step_issues_without_a_host_sync(cuda):
+    """A bf16 train step of a narrow Kimi-VL (two expert layers on the
+    grouped kernels) under the profiler: between train.step's open and
+    close the host neither synchronises with the card nor copies from it
+    into pageable memory; the only device-to-host copies are the counters'
+    non-blocking ones into pinned memory. The counters read the pairs
+    routed to the held experts, layer by layer and microbatch by
+    microbatch."""
+    from clg_vqa_tpu_torch.config import KimiVLConfig
+    from clg_vqa_tpu_torch.models.kimi_vl import KimiVL
+    from clg_vqa_tpu_torch.ops import moe
+    from clg_vqa_tpu_torch.train.loop import TrainState, make_train_step
+    from clg_vqa_tpu_torch.train.optim import make_optimizer, warmup_constant_schedule
+    from clg_vqa_tpu_torch.utils import profiling
+    cfg = KimiVLConfig(vocab_size=300, hidden_size=128, num_layers=3, num_heads=2,
+                       kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                       v_head_dim=32, intermediate_size=256, moe_intermediate_size=128,
+                       n_shared_experts=1, router_experts=16, held_experts=4,
+                       first_expert=4, experts_per_token=4, v_feature_size=64,
+                       projector_hidden_size=128, clf_hidden_size=64, num_labels=40)
+    model = KimiVL(cfg, device=cuda, seed=0)
+    r = np.random.RandomState(0)
+    T, R = 12, 6
+    ids = r.randint(3, 300, (2, 8, T)).astype(np.int64)
+    batch = {"input_ids": ids, "input_mask": np.ones_like(ids),
+             "features": r.randn(2, 8, R, 64).astype(np.float32),
+             "locs": r.rand(2, 8, R, 5).astype(np.float32),
+             "image_mask": np.ones((2, 8, R), np.int64),
+             "labels": r.randint(0, 40, (2, 8)).astype(np.int64)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    params = dict(model.named_parameters())
+    opt = make_optimizer(list(params), warmup_constant_schedule(1e-5, 0))
+    state = TrainState(model, opt.init(params), 0)
+    step = make_train_step(opt, torch.rand(40, 40, device=cuda), semantic_lambda=1.0,
+                           compute_dtype=torch.bfloat16, fused_attn="auto")
+    state, _ = step(state, batch, seed=0)        # builds and warms up
+    torch.cuda.synchronize()
+    n0 = dict(moe.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch, seed=1)
+        torch.cuda.synchronize()
+    assert {k: moe.launches[k] - n0[k] for k in n0} == {
+        "swiglu": 4, "rows": 8, "dswiglu": 4, "wgrad": 8}
+    events = prof.events()
+    (s0, s1), = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "train.step" and e.device_type == torch.autograd.DeviceType.CPU]
+    inside = [e for e in events if s0 <= e.time_range.start < s1]
+    syncs = [e.name for e in inside if e.name in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+        "cudaMemcpy")]
+    pageable = [e.name for e in inside if "DtoH" in e.name and "Pinned" not in e.name]
+    assert not syncs and not pageable, (syncs, pageable)
+    pairs = [c for c in profiling.counter_records() if c.name == "moe.pairs"]
+    assert len(pairs) == 2 * 2
+    assert all(0 < int(c.values) <= 8 * (T + R) * 4 for c in pairs)
+    assert np.isfinite(m["loss"].item())
